@@ -1,0 +1,176 @@
+"""Attention in plain PyTorch: the blockwise (flash-style) core the prefill
+runs, and the gather references of paged attention.
+
+Ports ``dstack_tpu/workloads/attention.py``: ``blockwise_attention`` and its
+online-softmax helpers, and ``paged_decode_attention`` /
+``paged_chunk_attention``, the gather references that the serving engine's
+``decode_impl="plain"`` runs. Layouts are the JAX package's: q [B, T, H, D],
+k/v [B, S, Kh, D]; outputs are fp32. Score products take fp32 inputs, which
+reproduces the reference's bf16 x bf16 -> fp32 accumulation exactly, since
+each bf16 product is exact in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """GQA: repeat KV heads to match query heads. [B,S,Kh,D] -> [B,S,Kh*n_rep,D]."""
+    if n_rep == 1:
+        return k
+    b, s, kh, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(b, s, kh * n_rep, d)
+
+
+def _attn_state_init(q: torch.Tensor) -> State:
+    b, t, h, d = q.shape
+    o = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, t, h), dtype=torch.float32, device=q.device)
+    m = torch.full((b, t, h), NEG_INF, dtype=torch.float32, device=q.device)
+    return o, l, m
+
+
+def _attn_block_accum(
+    state: State,
+    q: torch.Tensor,  # [B,Tq,H,D]
+    k: torch.Tensor,  # [B,S,H,D] (kv heads already repeated)
+    v: torch.Tensor,
+    q_positions: torch.Tensor,   # [Tq] global positions
+    kv_positions: torch.Tensor,  # [S] global positions
+    causal: bool,
+    kv_valid: Optional[torch.Tensor] = None,  # [S] bool; False = padded key
+) -> State:
+    """Online-softmax accumulation of one KV block into the running (o, l, m) state."""
+    o, l, m = state
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bthd,bshd->bths", q.float(), k.float()) * scale
+    mask = None  # [Tq, S]; padding is masked independently of causality
+    if causal:
+        mask = kv_positions[None, :] <= q_positions[:, None]
+    if kv_valid is not None:
+        valid = kv_valid[None, :].expand(q_positions.shape[0], kv_valid.shape[0])
+        mask = valid if mask is None else (mask & valid)
+    if mask is not None:
+        s = torch.where(mask[None, :, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))  # [B,Tq,H]
+    # All-masked blocks (m_new == NEG_INF) must not poison l: clamp the
+    # correction instead of exp(NEG_INF - NEG_INF) = 1.
+    safe_m_new = torch.where(m_new == NEG_INF, 0.0, m_new)
+    corr = torch.exp(torch.where(m == NEG_INF, NEG_INF, m - safe_m_new))
+    p = torch.exp(s - safe_m_new[..., None])  # [B,Tq,H,S]
+    if mask is not None:
+        p = torch.where(mask[None, :, None, :], p, 0.0)
+    l_new = l * corr + p.sum(-1)
+    pv = torch.einsum("bths,bshd->bthd", p, v.float())
+    return o * corr[..., None] + pv, l_new, m_new
+
+
+def _finalize(state: State) -> torch.Tensor:
+    o, l, _ = state
+    return o / torch.clamp(l, min=1e-20)[..., None]
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    block_size: int = 512,
+) -> torch.Tensor:
+    """Memory-efficient causal attention. q [B,T,H,D]; k,v [B,S,Kh,D]; returns
+    fp32 [B,T,H,D]. Walks KV in blocks with an online softmax; the last block
+    is padded and its padded keys masked, as in the reference."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    s_len = k.shape[1]
+    dev = q.device
+    q_pos = q_offset + torch.arange(q.shape[1], device=dev)
+    state = _attn_state_init(q)
+
+    if s_len <= block_size:
+        kv_pos = kv_offset + torch.arange(s_len, device=dev)
+        return _finalize(_attn_block_accum(state, q, k, v, q_pos, kv_pos, causal))
+
+    n_blocks = -(-s_len // block_size)
+    pad = n_blocks * block_size - s_len
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    for blk in range(n_blocks):
+        sl = slice(blk * block_size, (blk + 1) * block_size)
+        rel_pos = blk * block_size + torch.arange(block_size, device=dev)
+        kv_valid = rel_pos < s_len  # mask the padded tail regardless of causality
+        state = _attn_block_accum(
+            state, q, k[:, sl], v[:, sl], q_pos, kv_offset + rel_pos, causal, kv_valid
+        )
+    return _finalize(state)
+
+
+def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[N, page, Kh, D] pages of each slot's table -> [S, P*page, Kh*n_rep, D]."""
+    s, p = page_table.shape
+    _, page, kh, d = pages.shape
+    dense = pages[page_table.long()].reshape(s, p * page, kh, d)
+    return _repeat_kv(dense, n_rep)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,           # [S, H, D] — one query per decode slot
+    k_pages: torch.Tensor,     # [N, page, Kh, D] — one layer's page pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [S, P] page ids into the pool
+    kv_lens: torch.Tensor,     # [S] valid KV length per slot (past + current token)
+) -> torch.Tensor:
+    """Single-query attention over a paged KV cache: each slot gathers its
+    pages, then runs a masked softmax over its valid prefix. Returns fp32
+    [S, H, D]. Slots with kv_lens == 0 give finite garbage (uniform weights),
+    which the engine discards."""
+    s, p = page_table.shape
+    page = k_pages.shape[1]
+    n_rep = q.shape[1] // k_pages.shape[2]
+    k = _gather_pages(k_pages, page_table, n_rep)
+    v = _gather_pages(v_pages, page_table, n_rep)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("shd,sthd->sht", q.float(), k.float()) * scale
+    valid = torch.arange(p * page, device=q.device)[None, :] < kv_lens[:, None]  # [S, T]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("sht,sthd->shd", weights, v.float())
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,           # [S, C, H, D] — C chunk queries per slot
+    k_pages: torch.Tensor,     # [N, page, Kh, D] — one layer's page pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [S, P] page ids into the pool
+    starts: torch.Tensor,      # [S] absolute position of each slot's first query
+) -> torch.Tensor:
+    """Multi-query paged attention (chunked prefill): query i of slot s sits
+    at position starts[s] + i and attends causally over the slot's pages,
+    the chunk's own K/V included. Masks by causality alone, as the reference
+    does; rows past a slot's valid tokens are garbage the engine discards.
+    Returns fp32 [S, C, H, D]."""
+    s, c, h, _ = q.shape
+    page = k_pages.shape[1]
+    p = page_table.shape[1]
+    n_rep = h // k_pages.shape[2]
+    k = _gather_pages(k_pages, page_table, n_rep)
+    v = _gather_pages(v_pages, page_table, n_rep)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("schd,sthd->scht", q.float(), k.float()) * scale
+    q_pos = starts[:, None] + torch.arange(c, device=q.device)[None, :]  # [S, C]
+    valid = torch.arange(p * page, device=q.device)[None, None, :] <= q_pos[:, :, None]
+    scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("scht,sthd->schd", weights, v.float())

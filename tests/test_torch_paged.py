@@ -1,0 +1,214 @@
+"""The PyTorch port's attention against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both frameworks:
+
+- the plain versions of the CUDA kernels (``kernels/paged.py``) against the
+  Pallas kernels run in interpret mode, every row included (kv_len == 0 rows
+  are zeros in both);
+- the gather references (``attention.py``) against the JAX XLA references
+  (decode on active rows: both give garbage for kv_len == 0), and against
+  the kernel semantics on the chunk rows the engine reads;
+- ``blockwise_attention`` against JAX, with and without a padded last block;
+- the kernel wrappers, the build's compiler flags and ``decode_impl``.
+
+Tolerance 1e-5: fp32 on both sides, only the summation order differs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dstack_tpu.workloads import attention as jattn
+from dstack_tpu.workloads.kernels import paged as jpaged
+from dstack_tpu_torch.workloads import attention as tattn
+from dstack_tpu_torch.workloads import serve as tserve
+from dstack_tpu_torch.workloads.kernels import build, paged
+
+TOL = 1e-5
+S, C, H, KH, D, PAGE, N, P = 4, 3, 4, 2, 16, 8, 12, 6
+KV_LENS = np.array([0, 5, 17, 48], np.int32)
+STARTS = np.array([0, 3, 15, 45], np.int32)  # chunk rows start at kv_len - valid
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.RandomState(0)
+    return {
+        "q": rng.randn(S, H, D).astype(np.float32),
+        "qc": rng.randn(S, C, H, D).astype(np.float32),
+        "kp": rng.randn(N, PAGE, KH, D).astype(np.float32),
+        "vp": rng.randn(N, PAGE, KH, D).astype(np.float32),
+        "pt": rng.randint(0, N, (S, P)).astype(np.int32),
+    }
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.fixture(scope="module")
+def pallas_out(inputs):
+    """The Pallas kernels in interpret mode, as tests/test_kernels.py runs them."""
+    x = inputs
+    decode = jpaged.paged_decode_attention_pallas(
+        x["q"], x["kp"], x["vp"], x["pt"], KV_LENS, interpret=True
+    )
+    chunk = jpaged.paged_chunk_attention_pallas(
+        x["qc"], x["kp"], x["vp"], x["pt"], STARTS, KV_LENS, interpret=True
+    )
+    return np.asarray(decode), np.asarray(chunk)
+
+
+class TestPlainVersusPallas:
+    def test_decode_all_rows(self, inputs, pallas_out):
+        x = inputs
+        got = paged.paged_decode_attention_plain(
+            t(x["q"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(KV_LENS)
+        )
+        np.testing.assert_allclose(got.numpy(), pallas_out[0], atol=TOL)
+        assert not got[0].any(), "kv_len == 0 gives zeros, as the Pallas kernel"
+
+    def test_chunk_all_rows(self, inputs, pallas_out):
+        x = inputs
+        got = paged.paged_chunk_attention_plain(
+            t(x["qc"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(STARTS), t(KV_LENS)
+        )
+        np.testing.assert_allclose(got.numpy(), pallas_out[1], atol=TOL)
+        assert not got[0].any()
+
+    def test_decode_is_chunk_with_one_query(self, inputs):
+        x = inputs
+        args = (t(x["kp"]), t(x["vp"]), t(x["pt"]))
+        dec = paged.paged_decode_attention_plain(t(x["q"]), *args, t(KV_LENS))
+        chk = paged.paged_chunk_attention_plain(
+            t(x["q"])[:, None], *args, t(KV_LENS - 1), t(KV_LENS)
+        )
+        assert torch.equal(dec, chk[:, 0])
+
+
+class TestGatherReferences:
+    def test_decode_active_rows(self, inputs):
+        x = inputs
+        ref = jattn.paged_decode_attention(x["q"], x["kp"], x["vp"], x["pt"], KV_LENS)
+        got = tattn.paged_decode_attention(
+            t(x["q"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(KV_LENS)
+        )
+        active = KV_LENS > 0
+        np.testing.assert_allclose(got.numpy()[active], np.asarray(ref)[active], atol=TOL)
+        assert torch.isfinite(got).all()
+
+    def test_chunk_all_rows(self, inputs):
+        x = inputs
+        ref = np.asarray(jattn.paged_chunk_attention(x["qc"], x["kp"], x["vp"], x["pt"], STARTS))
+        got = tattn.paged_chunk_attention(
+            t(x["qc"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(STARTS)
+        ).numpy()
+        # Both mask by causality alone, so every row agrees.
+        np.testing.assert_allclose(got, ref, atol=TOL)
+
+    def test_chunk_agrees_with_the_kernel_semantics_on_valid_rows(self, inputs):
+        """Rows i < valid (those the engine reads) see pos < kv_len through
+        causality alone, so the gather reference and the kernels agree there."""
+        x = inputs
+        args = (t(x["qc"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(STARTS))
+        got = tattn.paged_chunk_attention(*args).numpy()
+        kernel = paged.paged_chunk_attention_plain(*args, t(KV_LENS)).numpy()
+        for s, valid in enumerate(KV_LENS - STARTS):
+            np.testing.assert_allclose(got[s, :valid], kernel[s, :valid], atol=TOL)
+
+
+@pytest.mark.parametrize(
+    "t_len,s_len,block",
+    [(8, 8, 512), (20, 20, 8), (5, 13, 4)],
+    ids=["one-block", "padded-blocks", "kv-longer"],
+)
+def test_blockwise_attention(t_len, s_len, block):
+    rng = np.random.RandomState(t_len * 100 + s_len)
+    q = rng.randn(2, t_len, 4, 16).astype(np.float32)
+    k = rng.randn(2, s_len, 2, 16).astype(np.float32)
+    v = rng.randn(2, s_len, 2, 16).astype(np.float32)
+    offset = s_len - t_len
+    ref = jattn.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=offset, block_size=block
+    )
+    got = tattn.blockwise_attention(t(q), t(k), t(v), q_offset=offset, block_size=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL)
+
+
+class TestWrappers:
+    def test_cpu_tensors_take_the_plain_path(self, inputs):
+        x = inputs
+        paged.reset_launches()
+        dec = paged.paged_decode_attention_cuda(
+            t(x["q"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(KV_LENS)
+        )
+        chk = paged.paged_chunk_attention_cuda(
+            t(x["qc"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(STARTS), t(KV_LENS)
+        )
+        assert paged.launches == {"paged_decode_attention": 0, "paged_chunk_attention": 0}
+        assert torch.equal(
+            dec,
+            paged.paged_decode_attention_plain(
+                t(x["q"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(KV_LENS)
+            ),
+        )
+        assert chk.shape == (S, C, H, D) and chk.dtype == torch.float32
+
+    def test_cuda_decode_impl_on_cpu_raises(self):
+        with pytest.raises(ValueError, match="cuda"):
+            tserve.resolve_decode_impl("cuda", torch.device("cpu"))
+        assert tserve.resolve_decode_impl("auto", torch.device("cpu")) == "plain"
+        assert tserve.resolve_decode_impl("auto", torch.device("cuda")) == "cuda"
+
+    def test_tensors_off_the_cpu_never_take_the_plain_path(self):
+        """A tensor that is not on the CPU goes to the kernel or raises;
+        here a `meta` tensor stands for one the kernel does not take."""
+        q = torch.empty((S, H, D), device="meta")
+        kp = torch.empty((N, PAGE, KH, D), device="meta")
+        pt = torch.empty((S, P), dtype=torch.int32, device="meta")
+        lens = torch.empty((S,), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="CUDA device"):
+            paged.paged_decode_attention_cuda(q, kp, kp, pt, lens)
+        with pytest.raises(ValueError, match="CUDA device"):
+            paged.paged_chunk_attention_cuda(q[:, None], kp, kp, pt, lens, lens)
+
+    def test_build_raises_without_nvcc_or_on_a_failed_compile(self, tmp_path, monkeypatch):
+        monkeypatch.setattr(build.shutil, "which", lambda _: None)
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.build_all()
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\necho 'error: no card here'\nexit 1\n")
+        fake.chmod(0o755)
+        monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+        with pytest.raises(RuntimeError, match="no card here"):
+            build.build_all()
+        assert not list((tmp_path / "out").iterdir()), "a failed build leaves no library"
+
+    def test_nvcc_targets_sm90a(self, tmp_path):
+        argv = build.nvcc_argv("nvcc", build.CSRC_DIR / "paged_attention.cu", tmp_path / "x.so")
+        assert "arch=compute_90a,code=sm_90a" in argv
+        assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
+        assert build.sources() == ["paged_attention"]
+        lib = build.library_path("paged_attention")
+        assert lib.parent == build.BUILD_DIR and lib.parent.parent.name == "build"
+        assert len(lib.stem.split("-")[-1]) == 16  # the source hash
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card(inputs):
+    """On an sm_90 card: each kernel against its plain version, bf16 and fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90) and nvcc")
+    x = {k: t(v).cuda() for k, v in inputs.items()}
+    lens, starts = t(KV_LENS).cuda(), t(STARTS).cuda()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+        q, qc, kp, vp = (x[k].to(dtype) for k in ("q", "qc", "kp", "vp"))
+        got = paged.paged_decode_attention_cuda(q, kp, vp, x["pt"], lens)
+        ref = paged.paged_decode_attention_plain(q, kp, vp, x["pt"], lens)
+        torch.testing.assert_close(got, ref, atol=tol, rtol=1e-3)
+        got = paged.paged_chunk_attention_cuda(qc, kp, vp, x["pt"], starts, lens)
+        ref = paged.paged_chunk_attention_plain(qc, kp, vp, x["pt"], starts, lens)
+        torch.testing.assert_close(got, ref, atol=tol, rtol=1e-3)
