@@ -12,18 +12,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              atol 1e-4 / rtol 1e-3, where only the summation order differs,
              and fp32 inputs at atol 1e-5 / rtol 1e-5), and its time beside
              the plain version's, a library yardstick's and its bound;
-3. serve   - the serving engine on llama3_8b (full width and depth, bf16,
+3. flash   - the flash forward, dq and dk/dv kernels against their plain
+             versions at llama3_1b and llama3_8b attention geometry (B 2,
+             T = S = 8192, bf16, causal), plus fp32 inputs, a ragged last
+             tile (T = 72) and causal=False, all at atol 2e-5; the readings
+             of planted faults (one tile dropped), which that limit must
+             fail; times at llama3_1b beside the plain versions', SDPA's and
+             the bounds;
+4. serve   - the serving engine on llama3_8b (full width and depth, bf16,
              synthetic weights from a seeded torch.Generator) answers 16
              requests through EngineRunner.submit, whole-prompt and with
              prefill_chunk=512; the kernels' launch counts must match the
              decode steps and chunk steps of that run; then torch.profiler
              over a prefill step and five decode steps says where the time
              goes;
-4. identity- in fp32 (llama3_8b width, 2 layers) the kernel engine is
+5. identity- in fp32 (llama3_8b width, 2 layers) the kernel engine is
              token-identical to the plain engine, whole-prompt and chunked,
              and to the full-forward greedy reference on two prompts;
-5. http    - create_serve_app on 127.0.0.1: POST /generate streamed and
-             buffered, GET /stats.
+6. http    - create_serve_app on 127.0.0.1: POST /generate streamed and
+             buffered, GET /stats;
+7. train   - llama3_1b at full width and depth (fp32 masters, bf16
+             activations, remat "full", attn_impl=flash, batch 2, seq 8192)
+             trains 5 steps through train.train, with grad_accum=1 and 2: the
+             loss is finite and falls, and the flash launches are exactly
+             2 x layers x microbatches x steps (forward, and again under
+             remat) and layers x microbatches x steps (dq, dk/dv); then
+             torch.profiler over one step;
+8. train identity - fp32, llama3_1b width with 2 layers, seq 1024: 3 steps
+             with attn_impl=flash (the kernels) against attn_impl=blockwise
+             (plain PyTorch) from the same parameters and batches; then
+             attention_core's flash, flash_tpu and auto routes launch the
+             kernels at T = 1024, 1000 and 63 on bf16 inputs.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -48,6 +67,7 @@ BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 
 KERNEL_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/paged_attention.cu"
+FLASH_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/flash_attention.cu"
 # llama3_8b attention geometry and the serving example's pool.
 H, KH, D, PAGE, POOL, SLOTS, TABLE = 32, 8, 128, 16, 4096, 16, 512
 CHUNK = 512
@@ -220,7 +240,199 @@ def phase_kernels() -> dict:
     return report
 
 
-# -- phase 3: the serving path -----------------------------------------------
+# -- phase 3: flash kernels ----------------------------------------------------
+
+# (name, B, H, Kh, D, T) of the flash comparisons; the first is timed.
+FLASH_GEOMETRIES = (("llama3_1b", 2, 16, 8, 128, 8192), ("llama3_8b", 2, 32, 8, 128, 8192))
+# Tolerance of every flash comparison (o, lse, dq, dk, dv; bf16 and fp32
+# inputs), absolute only: kernel and plain version both compute in fp32 and
+# differ in summation order alone. The largest |kernel - plain| measured on
+# an H100 over all these cases is 1.9e-6 (lse near 10, gradients up to ~11),
+# so 2e-5 keeps a 10x margin. phase_flash also plants a fault (one 64-row
+# tile dropped) and requires each reading to lie far outside this limit.
+FLASH_TOL = 2e-5
+# The kernels' tile edge: the fault plants drop one tile of this many rows.
+FLASH_TILE = 64
+
+
+def flash_inputs(b, h, kh, d, t, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q3 = torch.randn((b * h, t, d), generator=gen, device="cuda").to(dtype)
+    k3 = torch.randn((b * kh, t, d), generator=gen, device="cuda").to(dtype)
+    v3 = torch.randn((b * kh, t, d), generator=gen, device="cuda").to(dtype)
+    do3 = torch.randn((b * h, t, d), generator=gen, device="cuda")
+    return q3, k3, v3, do3
+
+
+def flash_compare(label, q3, k3, v3, do3, causal) -> dict:
+    """Each kernel against its plain version on the same inputs (the
+    backward kernels on the plain forward's o and lse); max |error| each."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    dtype = str(q3.dtype)[6:]
+    o, lse = flash.flash_fwd(q3, k3, v3, causal)
+    ro, rlse = flash.flash_fwd_plain(q3, k3, v3, causal)
+    delta = (do3 * ro).sum(-1)
+    got = {"flash_fwd": (o, lse),
+           "flash_bwd_dq": (flash.flash_bwd_dq(q3, k3, v3, do3, rlse, delta, causal),),
+           "flash_bwd_dkv": flash.flash_bwd_dkv(q3, k3, v3, do3, rlse, delta, causal)}
+    torch.cuda.synchronize()
+    ref = {"flash_fwd": (ro, rlse),
+           "flash_bwd_dq": (flash.flash_bwd_dq_plain(q3, k3, v3, do3, rlse, delta, causal),),
+           "flash_bwd_dkv": flash.flash_bwd_dkv_plain(q3, k3, v3, do3, rlse, delta, causal)}
+    errs = {}
+    for name in got:
+        errs[name] = 0.0
+        for g, r in zip(got[name], ref[name]):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name} {label}: non-finite output")
+            torch.testing.assert_close(g, r, atol=FLASH_TOL, rtol=0)
+            errs[name] = max(errs[name], float((g - r).abs().max()))
+        log(f"kernel {name} {label} {dtype} causal={causal}: max_abs_err"
+            f" {errs[name]:.3e} (max |ref| {max(float(r.abs().max()) for r in ref[name]):.3g};"
+            f" atol {FLASH_TOL:g}) ok")
+    return errs
+
+
+def flash_planted_faults(label, q3, k3, v3, do3) -> None:
+    """What a kernel that skipped one tile would read against the plain
+    version, computed by the plain versions: the forward and dq without the
+    last KV tile, dk/dv without the last q tile (its do and delta rows set
+    to 0, which removes exactly that tile's terms). Under causal masking the
+    last rows spread their softmax over the most keys, so these tiles carry
+    the smallest weights and their loss is the hardest to see. Each reading
+    must lie far outside FLASH_TOL."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    keep = k3.shape[1] - FLASH_TILE
+    ro, rlse = flash.flash_fwd_plain(q3, k3, v3, True)
+    delta = (do3 * ro).sum(-1)
+    fo, flse = flash.flash_fwd_plain(q3, k3[:, :keep], v3[:, :keep], True)
+    dq = flash.flash_bwd_dq_plain(q3, k3, v3, do3, rlse, delta, True)
+    fdq = flash.flash_bwd_dq_plain(q3, k3[:, :keep], v3[:, :keep], do3, rlse, delta, True)
+    cut_do, cut_delta = do3.clone(), delta.clone()
+    cut_do[:, -FLASH_TILE:] = 0
+    cut_delta[:, -FLASH_TILE:] = 0
+    dkv = flash.flash_bwd_dkv_plain(q3, k3, v3, do3, rlse, delta, True)
+    fdkv = flash.flash_bwd_dkv_plain(q3, k3, v3, cut_do, rlse, cut_delta, True)
+    readings = {
+        "flash_fwd": ("last KV tile", (fo, flse), (ro, rlse)),
+        "flash_bwd_dq": ("last KV tile", (fdq,), (dq,)),
+        "flash_bwd_dkv": ("last q tile", fdkv, dkv),
+    }
+    for name, (tile, fault, ref) in readings.items():
+        err = max(float((f - r).abs().max()) for f, r in zip(fault, ref))
+        if not err > 10 * FLASH_TOL:
+            raise AssertionError(
+                f"{name}: a dropped {tile} reads {err:.3e}, within 10x of atol {FLASH_TOL:g}"
+            )
+        log(f"planted fault {name} {label} ({tile} of {FLASH_TILE} rows dropped): max |fault -"
+            f" plain| {err:.3e} = {err / FLASH_TOL:.0f}x atol {FLASH_TOL:g}; the check fails it")
+    del ro, rlse, fo, flse, dq, fdq, dkv, fdkv
+    torch.cuda.empty_cache()
+
+
+def flash_bounds(b, h, kh, d, t, item) -> dict:
+    """(bound_ms, bound_by) per flash kernel for causal T = S = t: each input
+    read once and each output written once against 3.35 TB/s; the products
+    the t(t+1)/2 live (query, key) pairs of each head need (fwd: QK and PV;
+    dq: QK, dO V, dS K; dk/dv: QK, dO V, P^T dO, dS^T Q) at the peak of the
+    inputs' type."""
+    pairs = b * h * t * (t + 1) / 2
+    q_bytes, kv_bytes = b * h * t * d * item, 2 * b * kh * t * d * item
+    f32_rows, f32_q = b * h * t * 4, b * h * t * d * 4
+    work = {
+        "flash_fwd": (4 * d * pairs, q_bytes + kv_bytes + f32_q + f32_rows),
+        "flash_bwd_dq": (6 * d * pairs, q_bytes + kv_bytes + 2 * f32_q + 2 * f32_rows),
+        "flash_bwd_dkv": (8 * d * pairs, q_bytes + kv_bytes + f32_q + 2 * f32_rows
+                          + 2 * b * kh * t * d * 4),
+    }
+    peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        out[name] = (float(max(t_ops, t_bytes) * 1e3), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash() -> dict:
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    report = {}
+    for i, (label, b, h, kh, d, t) in enumerate(FLASH_GEOMETRIES):
+        x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=10 + i)
+        errs = flash_compare(label, *x, causal=True)
+        for name, err in errs.items():
+            entry = report.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if i == 0:
+            flash_planted_faults(label, *x)
+            report["timing"] = flash_timing(label, b, h, kh, d, t, *x)
+        del x
+        torch.cuda.empty_cache()
+    for label, t, dtype, causal in (("T=1024", 1024, torch.float32, True),
+                                    ("ragged T=72", 72, torch.bfloat16, True),
+                                    ("ragged T=72", 72, torch.float32, True),
+                                    ("T=1024", 1024, torch.bfloat16, False)):
+        flash_compare(f"llama3_1b heads, {label}", *flash_inputs(2, 16, 8, 128, t, dtype, 20),
+                      causal=causal)
+    timing = report.pop("timing")
+    for name, entry in report.items():
+        entry.update(timing[name])
+    return report
+
+
+def flash_timing(label, b, h, kh, d, t, q3, k3, v3, do3) -> dict:
+    """CUDA-event medians of each kernel, its plain version and the SDPA
+    yardstick (its forward for the fwd kernel; its backward, dq, dk and dv
+    together, for both backward kernels), with the bounds."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    o, lse = flash.flash_fwd(q3, k3, v3, True)
+    delta = (do3 * o).sum(-1)
+    pairs = {
+        "flash_fwd": (lambda: flash.flash_fwd(q3, k3, v3, True),
+                      lambda: flash.flash_fwd_plain(q3, k3, v3, True)),
+        "flash_bwd_dq": (lambda: flash.flash_bwd_dq(q3, k3, v3, do3, lse, delta, True),
+                         lambda: flash.flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, True)),
+        "flash_bwd_dkv": (lambda: flash.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, True),
+                          lambda: flash.flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, True)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q3.reshape(b, h, t, d).detach().requires_grad_(True)
+    k4 = k3.reshape(b, kh, t, d).detach().requires_grad_(True)
+    v4 = v3.reshape(b, kh, t, d).detach().requires_grad_(True)
+    out4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+    do4 = do3.reshape(b, h, t, d).to(out4.dtype)
+    library_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True))
+    library_bwd = time_ms(
+        lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)
+    )
+    bounds = flash_bounds(b, h, kh, d, t, q3.element_size())
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        entry = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                 "library_ms": library_fwd if name == "flash_fwd" else library_bwd}
+        entry["bound_ms"], entry["bound_by"] = bounds[name]
+        out[name] = entry
+        log(f"kernel {name} {label} bf16 timing: {entry['ms']:.4f} ms, plain"
+            f" {entry['plain_ms']:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'}"
+            f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
+            f" ({entry['bound_by']})")
+    return out
+
+
+# -- phase 4: the serving path -----------------------------------------------
 
 
 class _StepErrors(logging.Handler):
@@ -393,7 +605,7 @@ def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> Non
     del engine
 
 
-# -- phase 4: fp32 token identity ----------------------------------------------
+# -- phase 5: fp32 token identity ----------------------------------------------
 
 
 def run_engine(engine, prompts, max_new: int):
@@ -446,7 +658,7 @@ def phase_identity():
     return cfg, params
 
 
-# -- phase 5: HTTP -------------------------------------------------------------
+# -- phase 6: HTTP -------------------------------------------------------------
 
 
 def phase_http(cfg, params) -> None:
@@ -509,13 +721,166 @@ def phase_http(cfg, params) -> None:
     log(f"http: POST /generate streamed == buffered ({streamed}); /stats ok")
 
 
+# -- phase 7: the training path ------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 8192
+
+
+def profile_train_step(label: str, card: str):
+    """An on_step hook for train.train that runs torch.profiler over the last
+    step and prints the device busy share, the flash kernels' share and the
+    top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step: int, loss: float) -> None:
+        if step == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            clock["t0"] = time.monotonic()
+        elif step == TRAIN_STEPS:
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - clock["t0"]) * 1e3
+            prof.stop()
+            events = [
+                e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            ]
+            busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
+            flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3
+            log(f"profile train step ({label}): wall {wall_ms:.2f} ms, device busy"
+                f" {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), flash kernels"
+                f" {flash_ms:.2f} ms ({100 * flash_ms / busy_ms:.1f}% of busy) [{card}]")
+            for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+                ms = e.self_device_time_total / 1e3
+                log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+    return on_step
+
+
+def phase_train(card: str) -> dict:
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.config import get_config, validate_config
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    cfg = get_config("llama3_1b", attn_impl="flash", remat=True, remat_policy="full")
+    validate_config(cfg, seq=TRAIN_SEQ)
+    launches = {name: 0 for name in flash.launches}
+    for grad_accum in (1, 2):
+        losses = []
+        profiler = profile_train_step(f"grad_accum={grad_accum}", card) if grad_accum == 1 else None
+
+        def on_step(step, loss, profiler=profiler):
+            losses.append(loss)
+            if profiler is not None:
+                profiler(step, loss)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        stats = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            device=torch.device("cuda"), grad_accum=grad_accum,
+                            on_step=on_step)
+        got = dict(flash.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"grad_accum={grad_accum}: losses {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"grad_accum={grad_accum}: loss did not fall: {losses}")
+        calls = cfg.n_layers * grad_accum * TRAIN_STEPS
+        want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+        if got != want:
+            raise AssertionError(f"grad_accum={grad_accum}: flash launches {got} != {want}")
+        for name, n in got.items():
+            launches[name] += n
+        log(f"train llama3_1b ({cfg.num_params() / 1e9:.3f} B params, {cfg.n_layers} layers)"
+            f" batch {TRAIN_BATCH} seq {TRAIN_SEQ} grad_accum={grad_accum}: losses"
+            f" {[round(x, 4) for x in losses]}, compile+first-step {stats['compile_s']:.2f} s,"
+            f" step p50 {stats['p50_s'] * 1e3:.1f} ms, {stats['tokens_per_sec']:.1f} tokens/s,"
+            f" {stats['tf_per_sec']:.2f} TF/s, MFU {stats['mfu']:.4f} (of 989 TFLOP/s bf16),"
+            f" peak memory {peak_gb:.2f} GB, launches {got} [{card}]")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_identity() -> None:
+    """fp32, llama3_1b width with 2 layers: 3 steps on the flash kernels
+    against 3 on the blockwise walk from the same parameters and batches.
+    Losses and grad norms within 1e-4 relative; each parameter tensor within
+    1e-4 of its norm (norm-wise: AdamW's sign-like step can move an entry
+    whose gradient is rounding noise by up to lr on one side only)."""
+    import dataclasses
+
+    import torch
+
+    from dstack_tpu_torch.workloads import attention, data, model, train
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    base = get_config("llama3_1b", n_layers=2, dtype="float32", param_dtype="float32")
+    dev = torch.device("cuda")
+    init = model.init_params(base, torch.Generator(device=dev).manual_seed(3), dev)
+    batches = list(zip(range(3), data.synthetic_batches(base.vocab_size, 2, 1024, seed=3)))
+    runs = {}
+    for impl in ("flash", "blockwise"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        optimizer = train.make_optimizer()
+        state = train.init_train_state(cfg, optimizer, params={k: v.clone() for k, v in init.items()})
+        step = train.make_train_step(cfg, optimizer)
+        flash.reset_launches()
+        metrics = []
+        for _, (tokens, targets) in batches:
+            state, m = step(state, torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        if (impl == "flash") != (flash.launches["flash_fwd"] > 0):
+            raise AssertionError(f"attn_impl={impl}: flash launches {flash.launches}")
+        runs[impl] = (metrics, {k: v.detach() for k, v in state.params.items()})
+    (fm, fp), (bm, bp) = runs["flash"], runs["blockwise"]
+    for i, ((fl, fg), (bl, bg)) in enumerate(zip(fm, bm)):
+        if abs(fl - bl) > 1e-4 * abs(bl) or abs(fg - bg) > 1e-4 * abs(bg):
+            raise AssertionError(f"step {i + 1}: flash loss/grad norm {fl}/{fg} != blockwise {bl}/{bg}")
+    worst = max(float((fp[k] - bp[k]).norm() / bp[k].norm()) for k in bp)
+    if worst > 1e-4:
+        raise AssertionError(f"parameters after 3 steps differ by {worst:.3e} of their norm")
+    max_abs = max(float((fp[k] - bp[k]).abs().max()) for k in bp)
+    log(f"train identity: fp32 llama3_1b width, 2 layers, seq 1024: flash kernels =="
+        f" blockwise over 3 steps: losses {[round(x[0], 6) for x in fm]} vs"
+        f" {[round(x[0], 6) for x in bm]}, grad norms {[round(x[1], 6) for x in fm]} vs"
+        f" {[round(x[1], 6) for x in bm]}, params {worst:.2e} of norm (max abs {max_abs:.2e})")
+    # Every flash route launches the kernels on the card, off the public
+    # kernel's 512/256/128 menu (T = 1000) and off every block (T = 63) too.
+    for t, impl in ((1024, "flash_tpu"), (1024, "auto"), (1000, "auto"), (1000, "flash_tpu"),
+                    (1000, "flash"), (63, "flash")):
+        q = torch.randn((2, t, 16, 128), device=dev, dtype=torch.bfloat16)
+        kv = torch.randn((2, t, 8, 128), device=dev, dtype=torch.bfloat16)
+        flash.reset_launches()
+        out = attention.attention_core(q, kv, kv, impl)
+        if flash.launches["flash_fwd"] != 1:
+            raise AssertionError(f"attn_impl={impl} at T={t}: flash launches {flash.launches}")
+        want = torch.float32 if impl == "flash" else torch.bfloat16
+        if out.dtype != want:
+            raise AssertionError(f"attn_impl={impl} on bf16 q returned {out.dtype}")
+        # A bf16 output may round the other way from the blockwise walk's:
+        # one bf16 step, 2**-7 of the value at most.
+        ref = attention.blockwise_attention(q, kv, kv)
+        torch.testing.assert_close(out.float(), ref, atol=FLASH_TOL,
+                                   rtol=0 if impl == "flash" else 2 ** -7)
+    log("train identity: flash_tpu and auto return bf16 for bf16 q on the card; every flash"
+        " route launches the forward kernel at T = 1024, 1000 and 63 and matches blockwise")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    from dstack_tpu_torch.workloads import serve
     from dstack_tpu_torch.workloads.kernels import build, platform
 
     t_start = time.monotonic()
@@ -525,24 +890,32 @@ def main() -> int:
     log(f"device: {kind}, {torch.cuda.device_count()} visible, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}")
     platform.require_sm90(torch.device("cuda"))
-    serve.set_reference_matmul_precision()
+    platform.set_reference_matmul_precision()
     t0 = time.monotonic()
     libs = build.build_all()
     log(f"build: {', '.join(p.name for p in libs)} in {time.monotonic() - t0:.1f} s")
 
     report = phase_kernels()
+    report.update(phase_flash())
     launches = phase_serve(card)
     cfg, params = phase_identity()
     phase_http(cfg, params)
+    del params
+    launches.update(phase_train(card))
+    phase_train_identity()
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",
         "paged_chunk_attention": "dstack_tpu/workloads/kernels/paged.py:157",
+        "flash_fwd": "dstack_tpu/workloads/kernels/flash.py:57",
+        "flash_bwd_dq": "dstack_tpu/workloads/kernels/flash.py:165",
+        "flash_bwd_dkv": "dstack_tpu/workloads/kernels/flash.py:218",
     }
     kernels = []
     for name, entry in report.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda",
+            "source": FLASH_SOURCE if name.startswith("flash") else KERNEL_SOURCE,
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],

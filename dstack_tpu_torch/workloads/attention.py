@@ -1,10 +1,12 @@
-"""Attention in plain PyTorch: the blockwise (flash-style) core the prefill
-runs, and the gather references of paged attention.
+"""Attention: the blockwise (flash-style) core the prefill runs, the training
+forward's dispatch, and the gather references of paged attention.
 
 Ports ``dstack_tpu/workloads/attention.py``: ``blockwise_attention`` and its
-online-softmax helpers, and ``paged_decode_attention`` /
-``paged_chunk_attention``, the gather references that the serving engine's
-``decode_impl="plain"`` runs. Layouts are the JAX package's: q [B, T, H, D],
+online-softmax helpers, ``plain_attention``, ``flash_attention_tpu`` (on the
+port's flash kernels) and a meshless ``attention_core``, and
+``paged_decode_attention`` / ``paged_chunk_attention``, the gather references
+that the serving engine's ``decode_impl="plain"`` runs. Layouts are the JAX
+package's: q [B, T, H, D],
 k/v [B, S, Kh, D]; outputs are fp32. Score products take fp32 inputs, which
 reproduces the reference's bf16 x bf16 -> fp32 accumulation exactly, since
 each bf16 product is exact in fp32.
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from dstack_tpu_torch.workloads.kernels.flash import flash_attention, pick_flash_block
 
 NEG_INF = -1e30
 
@@ -115,6 +119,112 @@ def blockwise_attention(
             state, q, k[:, sl], v[:, sl], q_pos, kv_offset + rel_pos, causal, kv_valid
         )
     return _finalize(state)
+
+
+def plain_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Fully materialized attention. q [B,T,H,D]; k,v [B,S,Kh,D]; returns
+    fp32 [B,T,H,D]. Scores are [B,H,T,S]; the softmax weights are rounded to
+    q.dtype before the PV product, as in the reference."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    t, s_len = q.shape[1], k.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.arange(s_len, device=q.device)[None, :] <= torch.arange(t, device=q.device)[:, None]
+        s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", p.float(), v.float())
+
+
+def flash_available(device: torch.device) -> bool:
+    """True where the flash kernels run: tensors on a CUDA device (the
+    counterpart of the JAX package's "a real TPU" check)."""
+    return torch.device(device).type == "cuda"
+
+
+def _flash_block(seq_len: int) -> Optional[int]:
+    """Largest of (512, 256, 128) that divides seq_len; None when none does
+    (the public TPU kernel's block menu)."""
+    for b in (512, 256, 128):
+        if seq_len >= b and seq_len % b == 0:
+            return b
+    return None
+
+
+def flash_attention_tpu(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """The counterpart of the JAX package's call into the public TPU flash
+    kernel, on the port's flash kernels: q [B,T,H,D]; k,v [B,S,Kh,D]; returns
+    [B,T,H,D] in q.dtype. CUDA tensors run the kernels at every length; on
+    the CPU, lengths off the 512/256/128 block menu take the blockwise path
+    (fp32 output), as the reference does."""
+    if q.device.type == "cpu" and (
+        _flash_block(q.shape[1]) is None or _flash_block(k.shape[1]) is None
+    ):
+        return blockwise_attention(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal).to(q.dtype)
+
+
+def attention_core(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, Kh, D]
+    v: torch.Tensor,
+    attn_impl: str,
+    mesh=None,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """The one attention dispatch of the training forward, without a mesh.
+
+    - ``auto``: ``flash_tpu`` on a CUDA device, blockwise on the CPU;
+    - ``flash``: the flash kernels (``kernels/flash.py``) at every length on
+      a CUDA device; on the CPU their plain versions, or blockwise when a
+      length is not block-divisible;
+    - ``flash_tpu``: the public kernel's contract on the same kernels
+      (CUDA only; blockwise elsewhere, as the reference off a TPU);
+    - ``plain``: materialized scores; ``xla``/``blockwise``: the online-softmax
+      walk;
+    - ``splash`` and any mesh (sequence parallelism included) are not ported
+      yet and raise.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "attention under a device mesh (ring attention, sharded flash) is not"
+            " yet ported to PyTorch (ROADMAP item 6)"
+        )
+    impl = attn_impl
+    if impl == "auto":
+        impl = "flash_tpu" if flash_available(q.device) else "blockwise"
+    if impl == "splash":
+        raise NotImplementedError(
+            "attn_impl=splash is not yet ported to PyTorch (ROADMAP item 7)"
+        )
+    if impl == "flash":
+        if q.device.type == "cpu" and (
+            pick_flash_block(q.shape[1]) is None or pick_flash_block(k.shape[1]) is None
+        ):
+            return blockwise_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal)
+    if impl == "flash_tpu":
+        if flash_available(q.device):
+            return flash_attention_tpu(q, k, v, causal=causal)
+        return blockwise_attention(q, k, v, causal=causal)
+    if impl == "plain":
+        return plain_attention(q, k, v, causal=causal)
+    return blockwise_attention(q, k, v, causal=causal)
 
 
 def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor, n_rep: int) -> torch.Tensor:

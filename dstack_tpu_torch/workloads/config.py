@@ -1,13 +1,15 @@
 """Model configurations for the Llama-style workload.
 
 The port's own copy of ``dstack_tpu/workloads/config.py``'s ``LlamaConfig``,
-``PRESETS`` and ``get_config``: the same fields, defaults and presets, so a
-preset name means the same model in both packages.
+``PRESETS``, ``get_config``, ``ATTN_IMPLS`` and a meshless
+``validate_config``: the same fields, defaults and presets, so a preset name
+means the same model in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +56,15 @@ class LlamaConfig:
         per_layer = attn + mlp + 2 * d  # + norms
         return v * d + self.n_layers * per_layer + d + d * v
 
+    def flops_per_token(self, seq_len: int, causal: bool = True) -> float:
+        """Training FLOPs per token: 6*N plus attention score FLOPs,
+        12*L*T*d per token (fwd+bwd) for the full window and half that under
+        causal masking, which is what a flash kernel executes."""
+        attn = 12.0 * self.n_layers * seq_len * self.d_model
+        if causal:
+            attn /= 2.0
+        return 6.0 * self.num_params() + attn
+
 
 # Presets. llama3_8b is the Llama-3-8B geometry the serving example deploys.
 PRESETS = {
@@ -86,3 +97,59 @@ def get_config(name: str, **overrides) -> LlamaConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+ATTN_IMPLS = ("auto", "xla", "blockwise", "plain", "flash", "flash_tpu",
+              "splash")
+
+
+def validate_config(cfg: LlamaConfig, seq: Optional[int] = None) -> None:
+    """Loud CLI-time validation of the perf-dispatch flags, without a mesh.
+
+    The model-side dispatch falls back silently where a combination merely
+    degrades (flash on a ragged length runs blockwise); an explicitly
+    requested invalid combination is a config error and fails here, before
+    the first step. Features the port does not have yet raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(
+            f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}"
+        )
+    if cfg.quant != "none":
+        if cfg.quant not in ("int8", "fp8"):
+            raise ValueError(f"unknown quant {cfg.quant!r}; expected none, int8 or fp8")
+        raise NotImplementedError(
+            f"quant={cfg.quant} is not yet ported to PyTorch (ROADMAP item 3)"
+        )
+    if cfg.tp_overlap or cfg.fsdp_overlap:
+        raise NotImplementedError(
+            "tp_overlap/fsdp_overlap are not yet ported to PyTorch (ROADMAP item 6)"
+        )
+    if cfg.attn_window:
+        if cfg.attn_window < 0:
+            raise ValueError(f"attn_window must be >= 0, got {cfg.attn_window}")
+        if cfg.attn_impl != "splash":
+            raise ValueError(
+                f"attn_window={cfg.attn_window} only applies to attn_impl="
+                f"splash (the block-sparse kernel that skips out-of-window "
+                f"blocks); attn_impl={cfg.attn_impl!r} would silently ignore "
+                f"the window"
+            )
+    if cfg.attn_impl == "splash":
+        raise NotImplementedError(
+            "attn_impl=splash is not yet ported to PyTorch (ROADMAP item 7)"
+        )
+    if cfg.attn_impl in ("flash", "flash_tpu") and seq:
+        # Each impl has its own block menu: the public kernel's contract
+        # takes 512/256/128 only, the in-repo kernel's goes down to 8.
+        if cfg.attn_impl == "flash_tpu":
+            from dstack_tpu_torch.workloads.attention import _flash_block as _pick
+        else:
+            from dstack_tpu_torch.workloads.kernels.flash import pick_flash_block as _pick
+
+        if _pick(seq) is None:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} needs a block-divisible "
+                f"sequence length; seq={seq} has no power-of-two block "
+                f"(pad the sequence or use attn_impl=xla)"
+            )

@@ -37,3 +37,12 @@ def require_sm90(device: Optional[torch.device] = None) -> None:
             f"the CUDA kernels are built for sm_90a (H100/H200); {name} is"
             f" sm_{cap[0]}{cap[1]}"
         )
+
+
+def set_reference_matmul_precision() -> None:
+    """Full fp32 matmuls and fp32 reductions in bf16 matmuls on the card, as
+    the JAX package's fp32-accumulating dots (PyTorch's defaults allow bf16
+    split-K reductions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1,18 +1,24 @@
-"""Llama-style decoder in plain PyTorch: parameter init and the dense forward.
+"""Llama-style decoder in plain PyTorch: parameter init, the dense forward
+and the training loss.
 
 Ports ``dstack_tpu/workloads/model.py`` without a mesh: the parameter dict
 keeps the JAX package's names and stacked-layer layout (``wq`` is
 [L, d_model, H*hd], used as ``x @ w``), so a tree made by the JAX
-``init_params`` loads as it is (``convert.params_from_numpy``).
+``init_params`` loads as it is (``convert.params_from_numpy``). The layer
+loop is a Python loop in place of ``lax.scan``; ``torch.utils.checkpoint``
+takes the place of ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+import warnings
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
-from dstack_tpu_torch.workloads.attention import blockwise_attention
+from dstack_tpu_torch.workloads.attention import attention_core
 from dstack_tpu_torch.workloads.config import LlamaConfig
 
 Params = Dict[str, torch.Tensor]
@@ -90,35 +96,164 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x[..., K] @ w[K, N]`` in the activation dtype: the weight is cast to
+    x.dtype on use, as the reference's ``quantize.matmul`` does (a no-op for
+    weights already stored in it)."""
+    return x @ w.to(x.dtype)
+
+
+def attention_sublayer(
+    x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor
+) -> torch.Tensor:
+    """Pre-norm attention + residual on ``attention_core(cfg.attn_impl)``."""
+    b, t = x.shape[0], x.shape[1]
+    h_in = _rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
+    q = _proj(h_in, params["wq"][layer]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = _proj(h_in, params["wk"][layer]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(h_in, params["wv"][layer]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    o = attention_core(q, k, v, cfg.attn_impl)
+    o = o.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return x + _proj(o, params["wo"][layer])
+
+
 def transformer_block(
     x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor
 ) -> torch.Tensor:
     """One dense decoder block (attention + SwiGLU MLP, both pre-norm residual)."""
-    b, t = x.shape[0], x.shape[1]
-    h_in = _rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-    q = (h_in @ params["wq"][layer]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (h_in @ params["wk"][layer]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (h_in @ params["wv"][layer]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    q = _rope(q, positions, cfg.rope_theta)
-    k = _rope(k, positions, cfg.rope_theta)
-    o = blockwise_attention(q, k, v, causal=True)
-    o = o.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    x = x + o @ params["wo"][layer]
+    x = attention_sublayer(x, params, layer, cfg, positions)
     h2 = _rms_norm(x, params["mlp_norm"][layer], cfg.norm_eps)
-    gate = h2 @ params["w_gate"][layer]
-    up = h2 @ params["w_up"][layer]
+    gate = _proj(h2, params["w_gate"][layer])
+    up = _proj(h2, params["w_up"][layer])
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + hidden @ params["w_down"][layer]
+    return x + _proj(hidden, params["w_down"][layer])
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V] fp32. Weights are used in
-    cfg.dtype (``convert.params_from_numpy`` stores them so)."""
+def remat_policy_of(cfg: LlamaConfig) -> Callable:
+    """cfg.remat_policy -> the ``context_fn`` of ``torch.utils.checkpoint``:
+    "full" recomputes the whole block; "dots" saves the outputs of the
+    projection matmuls (``aten.mm``; the reference's dots without batch
+    dimensions) and recomputes the rest."""
+    if cfg.remat_policy == "full":
+        return torch.utils.checkpoint.noop_context_fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            [torch.ops.aten.mm.default],
+        )
+    if cfg.remat_policy == "save_proj":
+        raise NotImplementedError(
+            "remat_policy=save_proj is not yet ported to PyTorch (ROADMAP item 12)"
+        )
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V] fp32, or the final hidden state
+    [B, T, D] (post final_norm, pre lm_head) when ``return_hidden``, which the
+    chunked cross-entropy uses. Every weight is cast to cfg.dtype on use, so
+    fp32 masters and weights stored in cfg.dtype give the same result. Under
+    cfg.remat each block is recomputed in the backward pass (when gradients
+    are recorded)."""
     adt = dtype_of(cfg.dtype)
     tokens = tokens.to(params["embed"].device)
-    x = params["embed"].to(adt)[tokens]
+    x = params["embed"].to(adt)[tokens.long()]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = remat_policy_of(cfg) if remat else None
     for layer in range(cfg.n_layers):
-        x = transformer_block(x, params, layer, cfg, positions)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                transformer_block, x, params, layer, cfg, positions,
+                use_reentrant=False, context_fn=context_fn,
+            )
+        else:
+            x = transformer_block(x, params, layer, cfg, positions)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x.float() @ params["lm_head"].float()
+    if return_hidden:
+        return x
+    # bf16 x bf16 products are exact in fp32: an fp32 product of the rounded
+    # operands is the reference's dot with fp32 accumulation.
+    return x.float() @ params["lm_head"].to(adt).float()
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of -log p(target) over targets >= 0, their count); logits fp32,
+    targets -1 = ignore."""
+    mask = targets >= 0
+    safe = torch.where(mask, targets, 0).long()
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
+def _chunk_nll(x_blk: torch.Tensor, t_blk: torch.Tensor, lm_head: torch.Tensor):
+    return _nll_sum(x_blk.float() @ lm_head.float(), t_blk)
+
+
+def _chunked_nll(
+    x: torch.Tensor,        # [B, T, D] final hidden (post final_norm)
+    lm_head: torch.Tensor,  # [D, V] in the activation dtype
+    targets: torch.Tensor,  # [B, T]; -1 = ignore
+    chunk: int,
+):
+    """Cross-entropy without materializing [B,T,V] fp32 logits: the sequence
+    goes in chunks, each chunk's logits and log-softmax are recomputed in the
+    backward pass (``torch.utils.checkpoint``). Returns (total nll, count)."""
+    total_nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    total_cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        nll, cnt = torch.utils.checkpoint.checkpoint(
+            _chunk_nll, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], lm_head,
+            use_reentrant=False,
+        )
+        total_nll = total_nll + nll
+        total_cnt = total_cnt + cnt
+    return total_nll, total_cnt
+
+
+def pick_loss_chunk(cfg: LlamaConfig, seq_len: int) -> int:
+    """Largest divisor of seq_len that is <= cfg.loss_chunk, keeping the
+    chunked path for any length; 0 = full logits (loss_chunk off, or no
+    usable divisor)."""
+    if not cfg.loss_chunk:
+        return 0
+    chunk = next(
+        (c for c in range(min(cfg.loss_chunk, seq_len), 0, -1) if seq_len % c == 0), 1
+    )
+    if chunk < max(1, cfg.loss_chunk // 8):
+        warnings.warn(
+            f"loss_chunk={cfg.loss_chunk} has no usable divisor of seq_len="
+            f"{seq_len} (best {chunk}); falling back to full logits",
+            stacklevel=3,
+        )
+        return 0
+    return chunk
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over targets >= 0 (-1 = ignore); logits fp32."""
+    total, count = _nll_sum(logits, targets)
+    return total / torch.clamp(count, min=1)
+
+
+def loss_fn(
+    params: Params,
+    tokens: torch.Tensor,   # [B, T]
+    targets: torch.Tensor,  # [B, T]; -1 = ignore
+    cfg: LlamaConfig,
+) -> torch.Tensor:
+    targets = targets.to(params["embed"].device)
+    chunk = pick_loss_chunk(cfg, tokens.shape[1])
+    if chunk:
+        hidden = forward(params, tokens, cfg, return_hidden=True)
+        lm_head = params["lm_head"].to(dtype_of(cfg.dtype))
+        total_nll, total_cnt = _chunked_nll(hidden, lm_head, targets, chunk)
+        return total_nll / torch.clamp(total_cnt, min=1)
+    return masked_ce(forward(params, tokens, cfg), targets)

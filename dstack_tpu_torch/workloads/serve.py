@@ -56,6 +56,7 @@ from dstack_tpu_torch.workloads.kernels.platform import (
     DeviceLike,
     require_sm90,
     resolve_device,
+    set_reference_matmul_precision,
 )
 
 logger = logging.getLogger(__name__)
@@ -1174,15 +1175,6 @@ def create_serve_app(runner: EngineRunner):
     app.router.add_get("/debug/traces", debug_traces)
     app.router.add_get("/metrics", metrics)
     return app
-
-
-def set_reference_matmul_precision() -> None:
-    """Full fp32 matmuls and fp32 reductions in bf16 matmuls on the card, as
-    the JAX engine's fp32-accumulating dots (PyTorch's defaults allow bf16
-    split-K reductions)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def main() -> None:

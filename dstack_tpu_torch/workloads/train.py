@@ -1,0 +1,455 @@
+"""Training on one device: AdamW with global-norm clipping, gradient
+accumulation, the timed loop and the CLI.
+
+The port of ``dstack_tpu/workloads/train.py`` without a mesh. One call of
+the step function is one optimizer update, as the JAX package's jitted step;
+the port updates the parameters and the optimizer's moments in place instead
+of returning new ones. Parameters are fp32 masters (cfg.param_dtype) and the
+forward runs in cfg.dtype (``model.forward`` casts each weight on use), so
+gradients reach the masters through those casts as ``jax.grad`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from dstack_tpu_torch.workloads import data as data_lib
+from dstack_tpu_torch.workloads import model as model_lib
+from dstack_tpu_torch.workloads import telemetry as telemetry_lib
+from dstack_tpu_torch.workloads.config import LlamaConfig
+from dstack_tpu_torch.workloads.kernels import platform
+
+Params = Dict[str, torch.Tensor]
+
+# The JAX package's MoE presets: named here so a command line that asks for
+# one gets "not yet ported" rather than an unknown-choice error.
+MOE_PRESET_NAMES = ("mixtral_8x7b", "moe_test")
+
+# Dense bf16 tensor-core peak of one H100 SXM for MFU (NVIDIA H100 data
+# sheet: 989 TFLOP/s without sparsity).
+_H100_BF16_FLOPS = 989e12
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """optax.chain(clip_by_global_norm(grad_clip), adamw(...)) as a recipe;
+    ``build`` makes the AdamW over a parameter dict (torch's optimizer needs
+    its tensors, optax's transformation does not)."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+
+    def build(self, params: Params) -> torch.optim.AdamW:
+        # optax.adamw decays every leaf, as one param group with weight_decay
+        # does here: p -= lr * (adam_update + wd * p); eps is optax's default.
+        return torch.optim.AdamW(
+            list(params.values()), lr=self.learning_rate, betas=(self.b1, self.b2),
+            eps=1e-8, weight_decay=self.weight_decay,
+        )
+
+
+def make_optimizer(
+    learning_rate: float = 3e-4,
+    weight_decay: float = 0.1,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    grad_clip: float = 1.0,
+    mu_dtype: Optional[str] = None,
+) -> OptimizerConfig:
+    """AdamW with global-norm clipping; the first moment stays fp32."""
+    if mu_dtype not in (None, "float32"):
+        raise NotImplementedError(
+            f"mu_dtype={mu_dtype} is not yet ported to PyTorch (ROADMAP item 12)"
+        )
+    return OptimizerConfig(learning_rate, weight_decay, b1, b2, grad_clip)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Params
+    opt: torch.optim.AdamW
+    step: int = 0
+
+
+def init_train_state(
+    cfg: LlamaConfig,
+    optimizer: OptimizerConfig,
+    device: Optional[torch.device] = None,
+    params: Optional[Params] = None,
+) -> TrainState:
+    """Synthetic parameters from seed 0 on ``device`` (or the given
+    ``params``, used as they are), made trainable, and their optimizer."""
+    if params is None:
+        device = torch.device(device)
+        params = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    for p in params.values():
+        p.requires_grad_(True)
+    return TrainState(params=params, opt=optimizer.build(params))
+
+
+def check_microbatch(batch: int, grad_accum: int, data_shards: int,
+                     axes_label: str = "dp*fsdp") -> None:
+    """A microbatch smaller than (or ragged over) the data-shard count
+    silently reshards in a perf-tuned step: fail loudly. Meshless, as here,
+    there is one data shard, as in the reference's meshless step."""
+    if grad_accum > 1 and (batch // grad_accum) % data_shards != 0:
+        raise ValueError(
+            f"microbatch {batch}//{grad_accum} must be a multiple of the "
+            f"{data_shards} data shards ({axes_label}); grow --batch or "
+            f"shrink --grad-accum"
+        )
+
+
+def value_and_grad(loss_fn, params: Params, *args, **kwargs) -> Tuple[torch.Tensor, Params]:
+    """(loss, {name: d loss / d param}) of ``loss_fn(params, *args, **kwargs)``."""
+    loss = loss_fn(params, *args, **kwargs)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def accumulate_grads(loss_fn, params: Params, tokens, targets, grad_accum: int,
+                     **loss_kwargs) -> Tuple[torch.Tensor, Params]:
+    """(mean loss, mean grads) over ``grad_accum`` microbatches: the batch
+    splits row-major into [A, B/A, T]; each microbatch's grads add into fp32
+    accumulators, and the mean comes back in each param's dtype. Peak
+    activation memory is one microbatch's."""
+    b = tokens.shape[0]
+    if b % grad_accum != 0:
+        raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}")
+    mb = b // grad_accum
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()}
+    loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(grad_accum):
+        rows = slice(i * mb, (i + 1) * mb)
+        loss, grads = value_and_grad(loss_fn, params, tokens[rows], targets[rows], **loss_kwargs)
+        for k, g in grads.items():
+            acc[k] += g.float()
+        loss_sum = loss_sum + loss
+    grads = {k: (acc[k] / grad_accum).to(p.dtype) for k, p in params.items()}
+    return loss_sum / grad_accum, grads
+
+
+def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (optax.global_norm)."""
+    return torch.sqrt(sum(torch.linalg.vector_norm(g.float()).square() for g in grads))
+
+
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor) -> None:
+    """optax.clip_by_global_norm in place: each g stays as it is when norm <
+    max_norm, else becomes (g / norm) * max_norm. No host sync."""
+    keep = norm < max_norm
+    div = torch.where(keep, 1.0, norm)
+    mul = torch.where(keep, 1.0, max_norm)
+    for g in grads:
+        g.div_(div).mul_(mul)
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig, grad_accum: int = 1):
+    """Returns (state, tokens, targets) -> (state, metrics): one optimizer
+    update, over ``grad_accum`` microbatches. metrics holds 0-dim tensors
+    (``loss``, the unclipped ``grad_norm``) and the new ``step``."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
+        check_microbatch(tokens.shape[0], grad_accum, 1)
+        if grad_accum == 1:
+            loss, grads = value_and_grad(model_lib.loss_fn, state.params, tokens, targets, cfg=cfg)
+        else:
+            loss, grads = accumulate_grads(
+                model_lib.loss_fn, state.params, tokens, targets, grad_accum, cfg=cfg
+            )
+        grad_norm = global_norm(grads.values())
+        clip_by_global_norm_(grads.values(), optimizer.grad_clip, grad_norm)
+        for name, p in state.params.items():
+            p.grad = grads[name]
+        state.opt.step()
+        state.opt.zero_grad(set_to_none=True)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
+
+    return step
+
+
+def _step_time_stats(times) -> Dict[str, float]:
+    """p50/p90/mean seconds from a list of per-step wall times."""
+    if not times:
+        return {}
+    s = sorted(times)
+    pick = lambda q: s[min(len(s) - 1, int(q * len(s)))]  # noqa: E731
+    return {
+        "p50_s": pick(0.50),
+        "p90_s": pick(0.90),
+        "mean_s": sum(s) / len(s),
+    }
+
+
+def _device_peak_flops(device: torch.device) -> float:
+    """Dense bf16 peak of the card for MFU: ``_H100_BF16_FLOPS`` on an H100;
+    0 for the CPU or any other card, and then no MFU is reported."""
+    if device.type != "cuda":
+        return 0.0
+    return _H100_BF16_FLOPS if "h100" in torch.cuda.get_device_name(device).lower() else 0.0
+
+
+def _timed_loop(steps: int, batch: int, seq: int, do_step,
+                flops_per_step: float = 0.0, telemetry=None,
+                step_extras=None, on_step=None,
+                device: Optional[torch.device] = None) -> Dict[str, float]:
+    """Shared throughput loop: ``do_step()`` advances the state and returns
+    the loss as a 0-dim tensor; reading it as a float waits for the device
+    each step, as the reference blocks on each step.
+
+    The first call (kernel builds, library set-up, first step) is reported
+    as ``compile_s``, apart from the steady state, whose p50/p90 step times
+    give tokens/s and, on a card with a known peak, MFU. Every step lands on
+    the telemetry channel with the reference's keys: compile_start /
+    compile_end marks around the first call, then one ``step`` point per
+    iteration, then run_end. ``on_step(step, loss)`` fires after every
+    step."""
+    if telemetry is None:
+        telemetry = telemetry_lib.get_emitter()
+    if steps <= 0:
+        print("training done (0 steps)", flush=True)
+        return {}
+    device = torch.device("cpu") if device is None else torch.device(device)
+    peak_flops = _device_peak_flops(device) if flops_per_step else 0.0
+
+    telemetry.mark("compile_start", steps=steps, batch=batch, seq=seq)
+    t0 = time.perf_counter()
+    loss = float(do_step())
+    compile_s = time.perf_counter() - t0
+    telemetry.mark("compile_end", compile_s=compile_s)
+    print(f"step 1/{steps} loss={loss:.4f} compile+first-step {compile_s:.2f}s", flush=True)
+    if on_step is not None:
+        on_step(1, loss)
+
+    times = []
+    for i in range(1, steps):
+        t0 = time.perf_counter()
+        loss = float(do_step())
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        point = {
+            "loss": round(loss, 6),
+            "tokens_per_sec": round(batch * seq / max(dt, 1e-9), 2),
+        }
+        if flops_per_step:
+            fps = flops_per_step / max(dt, 1e-9)
+            point["tf_per_sec"] = round(fps / 1e12, 3)
+            if peak_flops:
+                point["mfu"] = round(fps / peak_flops, 5)
+        if step_extras is not None:
+            try:
+                point.update(step_extras())
+            except Exception:
+                pass  # extras are advisory; never let them kill the loop
+        telemetry.step(i + 1, round(dt, 6), **point)
+        if on_step is not None:
+            on_step(i + 1, loss)
+        if (i + 1) % 10 == 0 or i == steps - 1:
+            window = times[-10:]
+            dt = sum(window) / len(window)
+            tf = (f" {flops_per_step / max(dt, 1e-9) / 1e12:.1f} TF/s"
+                  if flops_per_step else "")
+            print(f"step {i + 1}/{steps} loss={loss:.4f} "
+                  f"{batch * seq / max(dt, 1e-9):,.0f} tok/s{tf}", flush=True)
+
+    stats = _step_time_stats(times)
+    stats["compile_s"] = compile_s
+    if times:
+        p50 = stats["p50_s"]
+        stats["tokens_per_sec"] = batch * seq / max(p50, 1e-9)
+        summary = (f"done: {steps} steps, compile {compile_s:.2f}s, "
+                   f"step p50 {p50 * 1000:.1f}ms p90 {stats['p90_s'] * 1000:.1f}ms, "
+                   f"{stats['tokens_per_sec']:,.0f} tok/s")
+        if flops_per_step:
+            stats["tf_per_sec"] = flops_per_step / max(p50, 1e-9) / 1e12
+            summary += f" {stats['tf_per_sec']:.1f} TF/s"
+            if peak_flops:
+                stats["mfu"] = flops_per_step / max(p50, 1e-9) / peak_flops
+                summary += f" MFU {stats['mfu']:.4f}"
+        print(summary, flush=True)
+    else:
+        print("training done", flush=True)
+    telemetry.mark(
+        "run_end",
+        steps=steps,
+        compile_s=round(compile_s, 4),
+        tokens_per_sec=round(stats.get("tokens_per_sec", 0.0), 2),
+        **{k: v for k, v in telemetry.stats().items() if k != "buffered"},
+    )
+    telemetry.flush()
+    return stats
+
+
+def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
+    """--attn-impl / --quant -> config fields (empty flag = keep the config
+    default). The reference's other perf flags are not ported yet and are
+    refused before this (``_unported``)."""
+    reps = {}
+    if args.attn_impl:
+        reps["attn_impl"] = args.attn_impl
+    if args.quant:
+        reps["quant"] = args.quant
+    return dataclasses.replace(cfg, **reps) if reps else cfg
+
+
+def train(
+    cfg: LlamaConfig,
+    *,
+    steps: int,
+    batch: int,
+    seq: int,
+    device: torch.device,
+    grad_accum: int = 1,
+    prefetch: int = 2,
+    data_path: Optional[str] = None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    telemetry=None,
+) -> Dict[str, float]:
+    """Train ``cfg`` for ``steps`` updates on ``device`` from synthetic
+    parameters and the input pipeline; returns the timed loop's stats."""
+    optimizer = make_optimizer()
+    state = init_train_state(cfg, optimizer, device)
+    step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum)
+    feed = data_lib.input_pipeline(
+        batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
+    )
+    flops_per_step = cfg.flops_per_token(seq) * batch * seq
+    box = {"state": state}
+    feed_wait = {"s": 0.0}
+
+    def do_step():
+        t0 = time.perf_counter()
+        tokens, targets = next(feed)
+        feed_wait["s"] = time.perf_counter() - t0
+        box["state"], metrics = step_fn(box["state"], tokens, targets)
+        return metrics["loss"]
+
+    try:
+        return _timed_loop(steps, batch, seq, do_step, flops_per_step,
+                           telemetry=telemetry,
+                           step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
+                           on_step=on_step, device=device)
+    finally:
+        feed.close()
+
+
+def _unported(args) -> Optional[str]:
+    """The first flag of the JAX entry point that the port does not have
+    yet, with its ROADMAP item."""
+    checks = (
+        (args.config in MOE_PRESET_NAMES, f"MoE config {args.config}", 9),
+        (args.draft_head, "--draft-head", 8),
+        (args.checkpoint_every or args.checkpoint_dir or args.resume,
+         "--checkpoint-every/--checkpoint-dir/--resume", 4),
+        (args.tp > 1 or args.tp_overlap or args.fsdp_overlap or args.multislice or args.ep,
+         "--tp/--tp-overlap/--fsdp-overlap/--multislice/--ep (meshes)", 6),
+        (args.quant in ("int8", "fp8"), f"--quant {args.quant}", 3),
+        (args.attn_window, "--attn-window", 7),
+        (args.autotune, "--autotune", 10),
+        (args.mu_dtype == "bfloat16", "--mu-dtype bfloat16", 12),
+    )
+    for hit, what, item in checks:
+        if hit:
+            return f"{what} is not yet ported to PyTorch (ROADMAP item {item})"
+    return None
+
+
+def main(argv=None) -> Dict[str, float]:
+    """``python -m dstack_tpu_torch.workloads.train``: the runnable training
+    entry point, on the CUDA card unless ``--device cpu``. Synthetic data by
+    default (``--data tokens.bin`` feeds a packed corpus); prints per-step
+    throughput and, on a known card, MFU."""
+    import argparse
+
+    from dstack_tpu_torch.workloads.config import ATTN_IMPLS, PRESETS, get_config, validate_config
+
+    parser = argparse.ArgumentParser(prog="dstack_tpu_torch.workloads.train")
+    parser.add_argument("--config", default="test",
+                        choices=sorted(PRESETS) + sorted(MOE_PRESET_NAMES))
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch", type=int, default=0,
+                        help="global batch (0 = 2 per microbatch)")
+    parser.add_argument("--seq", type=int, default=0, help="sequence length (0 = config max)")
+    parser.add_argument("--grad-accum", type=int, default=1, dest="grad_accum",
+                        help="microbatches per optimizer update (fp32 grad"
+                             " accumulators; batch must divide evenly)")
+    parser.add_argument("--remat-policy", default="", dest="remat_policy",
+                        choices=["", "full", "dots", "save_proj"],
+                        help="rematerialization policy override (config default if empty)")
+    parser.add_argument("--attn-impl", default="", dest="attn_impl",
+                        choices=[""] + list(ATTN_IMPLS),
+                        help="attention core: flash (the CUDA flash kernels),"
+                             " flash_tpu/auto (the same kernels under the public"
+                             " kernel's contract), xla/blockwise, plain"
+                             " (config default if empty)")
+    parser.add_argument("--prefetch", type=int, default=2,
+                        help="input prefetch depth: batches staged on the device"
+                             " ahead of the step (0 = synchronous feed)")
+    parser.add_argument("--data", default="",
+                        help="flat binary token-id file (np.uint16) to train"
+                             " on; empty = synthetic tokens")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; raises without one) or cpu")
+    # Flags of the JAX entry point that the port does not have yet: they
+    # parse, then raise naming their ROADMAP item.
+    parser.add_argument("--mu-dtype", default="", dest="mu_dtype",
+                        choices=["", "float32", "bfloat16"])
+    parser.add_argument("--quant", default="", choices=["", "none", "int8", "fp8"])
+    parser.add_argument("--attn-window", type=int, default=0, dest="attn_window")
+    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--tp-overlap", action="store_true", dest="tp_overlap")
+    parser.add_argument("--fsdp-overlap", action="store_true", dest="fsdp_overlap")
+    parser.add_argument("--multislice", action="store_true")
+    parser.add_argument("--ep", type=int, default=0)
+    parser.add_argument("--autotune", action="store_true")
+    parser.add_argument("--checkpoint-every", type=int, default=0, dest="checkpoint_every")
+    parser.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--draft-head", action="store_true", dest="draft_head")
+    args = parser.parse_args(argv)
+
+    missing = _unported(args)
+    if missing:
+        raise NotImplementedError(missing)
+    device = platform.resolve_device(args.device)
+    if device.type == "cuda":
+        platform.set_reference_matmul_precision()
+    cfg = get_config(args.config)
+    if args.remat_policy:
+        cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
+    cfg = apply_perf_overrides(cfg, args)
+    model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
+    batch = args.batch or 2 * args.grad_accum
+    seq = args.seq or cfg.max_seq_len
+    validate_config(cfg, seq=seq)
+
+    print(f"config={args.config} device={device} batch={batch} seq={seq} "
+          f"grad_accum={args.grad_accum} attn_impl={cfg.attn_impl} "
+          f"remat={cfg.remat_policy if cfg.remat else 'off'} prefetch={args.prefetch} "
+          f"params={cfg.num_params() / 1e9:.3f}B", flush=True)
+    telemetry = telemetry_lib.get_emitter()
+    telemetry.set_identity(proc=0)
+    telemetry.mark("run_start", workload="train", config=args.config, devices=1,
+                   batch=batch, seq=seq, grad_accum=args.grad_accum)
+    try:
+        return train(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
+                     grad_accum=args.grad_accum, prefetch=args.prefetch,
+                     data_path=args.data or None, telemetry=telemetry)
+    finally:
+        telemetry.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -86,3 +86,35 @@ def test_init_params_layout_matches_jax():
     assert 0.9 < std < 1.1, "normal / sqrt(fan_in), as the JAX init"
     again = tmodel.init_params(TTINY, torch.Generator().manual_seed(0), CPU)
     assert all(torch.equal(got[k], again[k]) for k in got), "seeded: reproducible"
+
+
+def test_weights_are_cast_to_the_activation_dtype_on_use():
+    """fp32 master weights under dtype=bfloat16 give, bit for bit, the
+    forward of the same weights stored in bf16 (every projection and the
+    lm_head cast on use, as the reference does), and the gradients reach the
+    fp32 masters."""
+    cfg = tget_config("test", **{**TINY_KW, "dtype": "bfloat16", "remat": True})
+    masters = tmodel.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    stored = {k: v.to(torch.bfloat16) for k, v in masters.items()}
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 16)))
+    with torch.no_grad():
+        assert torch.equal(tmodel.forward(masters, tokens, cfg), tmodel.forward(stored, tokens, cfg))
+        hidden = tmodel.forward(masters, tokens, cfg, return_hidden=True)
+    assert hidden.dtype == torch.bfloat16 and hidden.shape == (2, 16, cfg.d_model)
+    for v in masters.values():
+        v.requires_grad_(True)
+    tmodel.loss_fn(masters, tokens, tokens, cfg).backward()
+    for k, v in masters.items():
+        assert v.grad.dtype == torch.float32 and torch.isfinite(v.grad).all(), k
+        assert v.grad.abs().sum() > 0, k
+
+
+@pytest.mark.parametrize("seq,chunk", [(32, 8), (30, 8), (7, 64)])
+def test_pick_loss_chunk_matches_jax(seq, chunk):
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = tmodel.pick_loss_chunk(tget_config("test", loss_chunk=chunk), seq)
+        ref = jmodel.pick_loss_chunk(jget_config("test", loss_chunk=chunk), seq)
+    assert got == ref
