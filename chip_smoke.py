@@ -42,7 +42,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              with attn_impl=flash (the kernels) against attn_impl=blockwise
              (plain PyTorch) from the same parameters and batches; then
              attention_core's flash, flash_tpu and auto routes launch the
-             kernels at T = 1024, 1000 and 63 on bf16 inputs.
+             kernels at T = 1024, 1000 and 63 on bf16 inputs;
+9. splash  - the splash forward, dq and dk/dv kernels against their plain
+             versions at llama3_1b heads, T 8192 bf16, windows 4096, 0 and
+             1024 and 4096 with four packed documents, plus fp32 (T 1024),
+             a ragged T = 72 and causal=False with documents, all at atol
+             2e-5; the readings of planted band faults (the first or last
+             live tile of each band dropped), which that limit must fail;
+             splash at window 0 against the flash kernels; per window the
+             times beside the plain versions', SDPA's under the same mask
+             and the bounds; the window-1024 forward under 0.4x the window-0
+             one;
+10. train splash - train.main with the training example's flags
+             (--attn-impl splash --attn-window 4096 --grad-accum 4
+             --mu-dtype bfloat16 --remat-policy full --prefetch 2, llama3_1b,
+             seq 8192, batch 8, 3 steps): losses finite and falling, splash
+             launches exactly 2 x 16 x 4 x 3 / 16 x 4 x 3 / 16 x 4 x 3 and no
+             flash launch; then train.train at batch 2, grad_accum 1, 5
+             steps, window 4096, with torch.profiler over the last step;
+11. splash identity - fp32, llama3_1b width with 2 layers, seq 1024,
+             window 256: 3 steps on the splash kernels against 3 on
+             splash_reference, with the fp32 and the bf16 first moment; the
+             splash route launches the forward kernel at T = 1000 and 63.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -68,6 +89,7 @@ FP32_FLOP_PER_S = 67e12
 
 KERNEL_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/paged_attention.cu"
 FLASH_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/flash_attention.cu"
+SPLASH_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/splash_attention.cu"
 # llama3_8b attention geometry and the serving example's pool.
 H, KH, D, PAGE, POOL, SLOTS, TABLE = 32, 8, 128, 16, 4096, 16, 512
 CHUNK = 512
@@ -338,14 +360,16 @@ def flash_planted_faults(label, q3, k3, v3, do3) -> None:
     torch.cuda.empty_cache()
 
 
-def flash_bounds(b, h, kh, d, t, item) -> dict:
+def flash_bounds(b, h, kh, d, t, item, pairs=None, doc_bytes=0, names=None) -> dict:
     """(bound_ms, bound_by) per flash kernel for causal T = S = t: each input
     read once and each output written once against 3.35 TB/s; the products
-    the t(t+1)/2 live (query, key) pairs of each head need (fwd: QK and PV;
-    dq: QK, dO V, dS K; dk/dv: QK, dO V, P^T dO, dS^T Q) at the peak of the
-    inputs' type."""
-    pairs = b * h * t * (t + 1) / 2
-    q_bytes, kv_bytes = b * h * t * d * item, 2 * b * kh * t * d * item
+    the live (query, key) pairs need (default t(t+1)/2 for each head; fwd:
+    QK and PV; dq: QK, dO V, dS K; dk/dv: QK, dO V, P^T dO, dS^T Q) at the
+    peak of the inputs' type. ``doc_bytes`` adds document planes read once;
+    ``names`` renames the three kernels (splash)."""
+    if pairs is None:
+        pairs = b * h * t * (t + 1) / 2
+    q_bytes, kv_bytes = b * h * t * d * item, 2 * b * kh * t * d * item + doc_bytes
     f32_rows, f32_q = b * h * t * 4, b * h * t * d * 4
     work = {
         "flash_fwd": (4 * d * pairs, q_bytes + kv_bytes + f32_q + f32_rows),
@@ -355,9 +379,10 @@ def flash_bounds(b, h, kh, d, t, item) -> dict:
     }
     peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
     out = {}
-    for name, (flops, nbytes) in work.items():
+    for i, (name, (flops, nbytes)) in enumerate(work.items()):
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        out[name] = (float(max(t_ops, t_bytes) * 1e3), "operations" if t_ops >= t_bytes else "bytes")
+        out[names[i] if names else name] = (
+            float(max(t_ops, t_bytes) * 1e3), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
@@ -430,6 +455,291 @@ def flash_timing(label, b, h, kh, d, t, q3, k3, v3, do3) -> dict:
             f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']})")
     return out
+
+
+# -- phase 3b: splash kernels ---------------------------------------------------
+
+# llama3_1b heads (B 2, H 16, Kh 8, D 128) at T = S = 8192, bf16: the windows
+# compared and timed; the first (the training example's) is the kernels line's.
+SPLASH_GEOMETRY = (2, 16, 8, 128, 8192)
+SPLASH_WINDOWS = (4096, 0, 1024)
+# Four packed documents of uneven length in each 8192-token row.
+SPLASH_DOCS = (3000, 1500, 2692, 1000)
+# Tolerance of every splash comparison, as flash's: kernel and plain version
+# compute in fp32 and differ in summation order alone.
+SPLASH_TOL = FLASH_TOL
+# The kernels' tile edge (bf16 and fp32 at D 128): the bounds of the planted
+# faults follow it.
+SPLASH_TILE = 64
+
+
+def doc_plane(lengths, b):
+    """[b, sum(lengths)] int32 on the card: document i covers lengths[i]
+    positions of every row."""
+    import torch
+
+    row = np.concatenate([np.full(n, i, np.int32) for i, n in enumerate(lengths)])
+    return torch.from_numpy(np.stack([row] * b)).cuda()
+
+
+def live_pairs(b, h, t, causal, window, lengths=None) -> float:
+    """(query, key) pairs the splash mask leaves live over B*H heads, for
+    these inputs (T = S = t)."""
+    qp = np.arange(t, dtype=np.int64)
+    start = np.zeros(t, np.int64)
+    if lengths:
+        start = np.repeat(np.cumsum((0,) + tuple(lengths))[:-1], lengths)
+    lo = np.maximum(start, qp - window + 1) if window else start
+    if causal:
+        per_row = qp - lo + 1
+    else:
+        end = np.repeat(np.cumsum(lengths), lengths) if lengths else np.full(t, t)
+        per_row = end - lo
+    return float(b * h * per_row.sum())
+
+
+def splash_run(q3, k3, v3, do3, docs, causal, window, plain: bool) -> list:
+    """[o, lse, dq, dk, dv] of the kernels (plain=False) or their plain
+    versions, the backward on the plain forward's lse and delta."""
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    ro, rlse = splash.splash_fwd_plain(q3, k3, v3, docs, docs, causal, window)
+    args = (q3, k3, v3, do3, rlse, (do3 * ro).sum(-1), docs, docs, causal, window)
+    if plain:
+        return [ro, rlse, splash.splash_bwd_dq_plain(*args), *splash.splash_bwd_dkv_plain(*args)]
+    o, lse = splash.splash_fwd(q3, k3, v3, docs, docs, causal, window)
+    return [o, lse, splash.splash_bwd_dq(*args), *splash.splash_bwd_dkv(*args)]
+
+
+def splash_compare(label, q3, k3, v3, do3, docs, causal, window) -> dict:
+    """Each splash kernel against its plain version on the same inputs;
+    max |error| per kernel."""
+    import torch
+
+    got = splash_run(q3, k3, v3, do3, docs, causal, window, plain=False)
+    torch.cuda.synchronize()
+    ref = splash_run(q3, k3, v3, do3, docs, causal, window, plain=True)
+    errs = {}
+    for name, idx in (("splash_fwd", (0, 1)), ("splash_bwd_dq", (2,)), ("splash_bwd_dkv", (3, 4))):
+        errs[name] = 0.0
+        for i in idx:
+            if not bool(torch.isfinite(got[i]).all()):
+                raise AssertionError(f"{name} {label}: non-finite output")
+            torch.testing.assert_close(got[i], ref[i], atol=SPLASH_TOL, rtol=0)
+            errs[name] = max(errs[name], float((got[i] - ref[i]).abs().max()))
+        log(f"kernel {name} {label} {str(q3.dtype)[6:]} causal={causal} window={window}"
+            f" docs={'yes' if docs is not None else 'no'}: max_abs_err {errs[name]:.3e}"
+            f" (max |ref| {max(float(ref[i].abs().max()) for i in idx):.3g};"
+            f" atol {SPLASH_TOL:g}) ok")
+    return errs
+
+
+class planted_band_fault:
+    """While active, the plain versions' element mask also drops one tile
+    pair per tile of the band, as a kernel with an off-by-one in its loop
+    bounds would: ``drop(row_tile, key_tile)`` is True where a pair is
+    dropped."""
+
+    def __init__(self, drop):
+        self.drop = drop
+
+    def __enter__(self):
+        import torch
+
+        from dstack_tpu_torch.workloads.kernels import splash
+
+        self.inner = inner = splash._block_mask
+        drop = self.drop
+
+        def mask(r0, r1, s0, s1, causal, window, docq, dock, device):
+            m = inner(r0, r1, s0, s1, causal, window, docq, dock, device)
+            rows = torch.arange(r0, r1, device=device)[:, None] // SPLASH_TILE
+            keys = torch.arange(s0, s1, device=device)[None, :] // SPLASH_TILE
+            keep = ~drop(rows, keys)
+            return keep if m is None else m & keep
+
+        splash._block_mask = mask
+        return self
+
+    def __exit__(self, *exc):
+        from dstack_tpu_torch.workloads.kernels import splash
+
+        splash._block_mask = self.inner
+
+
+def splash_planted_faults(label, q3, k3, v3, do3, window) -> None:
+    """What kernels with an off-by-one at the band's edges would read
+    against the plain versions, computed by the plain versions: the forward
+    and dq dropping each q tile's first live KV tile (lo) or its last
+    (hi - 1), dk/dv dropping each KV tile's first or last live q tile. Each
+    reading must lie far outside SPLASH_TOL."""
+    import torch
+
+    t = q3.shape[1]
+    n = -(-t // SPLASH_TILE)
+    # Forward and dq: the first live KV tile of each band is the window's
+    # near edge, the last the causal diagonal; faults go only where a band
+    # holds more than one tile (q tile 0's only tile empties row 0, a
+    # reading of 1e30 that says nothing about the limit). dk/dv: the first
+    # live q tile is the diagonal, the last the window's far edge.
+    first_kv = lambda iq: torch.clamp(iq * SPLASH_TILE - (window - 1), min=0) // SPLASH_TILE
+    last_kv = lambda iq: torch.clamp(iq, max=n - 1)
+    wide = lambda iq: first_kv(iq) < last_kv(iq)
+    last_q = lambda jk: torch.clamp(
+        (torch.clamp((jk + 1) * SPLASH_TILE, max=t) - 1 + window - 1) // SPLASH_TILE, max=n - 1)
+    faults = {
+        "first": (lambda r, c: wide(r) & (c == first_kv(r)), lambda r, c: r == c),
+        "last": (lambda r, c: wide(r) & (c == last_kv(r)), lambda r, c: r == last_q(c)),
+    }
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    ro, rlse = splash.splash_fwd_plain(q3, k3, v3, None, None, True, window)
+    args = (q3, k3, v3, do3, rlse, (do3 * ro).sum(-1), None, None, True, window)
+    ref = {"splash_fwd": (ro, rlse), "splash_bwd_dq": (splash.splash_bwd_dq_plain(*args),),
+           "splash_bwd_dkv": splash.splash_bwd_dkv_plain(*args)}
+    for edge, (kv_drop, q_drop) in faults.items():
+        # Each faulty kernel reads the right residuals (lse, delta) and
+        # drops its own tile pairs.
+        with planted_band_fault(kv_drop):
+            fault = {"splash_fwd": splash.splash_fwd_plain(q3, k3, v3, None, None, True, window),
+                     "splash_bwd_dq": (splash.splash_bwd_dq_plain(*args),)}
+        with planted_band_fault(q_drop):
+            fault["splash_bwd_dkv"] = splash.splash_bwd_dkv_plain(*args)
+        for name, got in fault.items():
+            tile = "live q tile" if name == "splash_bwd_dkv" else "live KV tile"
+            err = max(float((f - r).abs().max()) for f, r in zip(got, ref[name]))
+            if not err > 10 * SPLASH_TOL:
+                raise AssertionError(
+                    f"{name}: dropping the band's {edge} {tile} reads {err:.3e}, within 10x of"
+                    f" atol {SPLASH_TOL:g}")
+            log(f"planted fault {name} {label} window={window} (the band's {edge} {tile} of"
+                f" {SPLASH_TILE} dropped): max |fault - plain| {err:.3e} ="
+                f" {err / SPLASH_TOL:.0f}x atol {SPLASH_TOL:g}; the check fails it")
+        del fault
+    del ref
+    torch.cuda.empty_cache()
+
+
+def splash_matches_flash(q3, k3, v3, do3) -> None:
+    """Splash without a window or documents is flash attention: the splash
+    kernels against the flash kernels on the same inputs."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    got = splash_run(q3, k3, v3, do3, None, True, 0, plain=False)
+    o, lse = flash.flash_fwd(q3, k3, v3, True)
+    ro, rlse = flash.flash_fwd_plain(q3, k3, v3, True)
+    args = (q3, k3, v3, do3, rlse, (do3 * ro).sum(-1), True)
+    want = [o, lse, flash.flash_bwd_dq(*args), *flash.flash_bwd_dkv(*args)]
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=SPLASH_TOL, rtol=0)
+        err = max(err, float((g - w).abs().max()))
+    log(f"splash window=0 == flash kernels (o, lse, dq, dk, dv): max |splash - flash| {err:.3e}"
+        f" (atol {SPLASH_TOL:g}) ok")
+
+
+def splash_timing(q3, k3, v3, do3, window) -> dict:
+    """CUDA-event medians of each splash kernel and its plain version at
+    this window, the SDPA yardstick under the same boolean band mask (its
+    forward for the fwd kernel; its backward, dq, dk and dv together, for
+    both backward kernels; forward+backward printed beside), and the bounds
+    from this window's live pairs."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    b, h, kh, d, t = SPLASH_GEOMETRY
+    o, lse = splash.splash_fwd(q3, k3, v3, None, None, True, window)
+    args = (q3, k3, v3, do3, lse, (do3 * o).sum(-1), None, None, True, window)
+    pairs = {
+        "splash_fwd": (lambda: splash.splash_fwd(q3, k3, v3, None, None, True, window),
+                       lambda: splash.splash_fwd_plain(q3, k3, v3, None, None, True, window)),
+        "splash_bwd_dq": (lambda: splash.splash_bwd_dq(*args),
+                          lambda: splash.splash_bwd_dq_plain(*args)),
+        "splash_bwd_dkv": (lambda: splash.splash_bwd_dkv(*args),
+                           lambda: splash.splash_bwd_dkv_plain(*args)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(t, device="cuda")
+    band = pos[None, :] <= pos[:, None]
+    if window:
+        band &= pos[None, :] > pos[:, None] - window
+    q4 = q3.reshape(b, h, t, d).detach().requires_grad_(True)
+    k4 = k3.reshape(b, kh, t, d).detach().requires_grad_(True)
+    v4 = v3.reshape(b, kh, t, d).detach().requires_grad_(True)
+    call = lambda: sdpa(q4, k4, v4, attn_mask=band, enable_gqa=True)  # noqa: E731
+    out4 = call()
+    do4 = do3.reshape(b, h, t, d).to(out4.dtype)
+    library_fwd = time_ms(call, iters=10)
+    library_bwd = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
+                          iters=10)
+    library_both = time_ms(lambda: torch.autograd.grad(call(), (q4, k4, v4), do4), iters=10)
+    del out4
+    live = live_pairs(b, h, t, True, window)
+    bounds = flash_bounds(b, h, kh, d, t, q3.element_size(), pairs=live,
+                          names=list(pairs))
+    log(f"splash window={window}: {live / (b * h):.0f} live (query, key) pairs per head"
+        f" ({100 * live / (b * h * t * (t + 1) / 2):.1f}% of causal); yardstick"
+        f" scaled_dot_product_attention(attn_mask=[T, T] bool band, enable_gqa=True):"
+        f" fwd {library_fwd:.4f} ms, bwd {library_bwd:.4f} ms, fwd+bwd {library_both:.4f} ms")
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        entry = {"ms": time_ms(kernel, iters=10), "plain_ms": time_ms(plain, iters=10),
+                 "library_ms": library_fwd if name == "splash_fwd" else library_bwd}
+        entry["bound_ms"], entry["bound_by"] = bounds[name]
+        out[name] = entry
+        log(f"kernel {name} window={window} bf16 timing: {entry['ms']:.4f} ms, plain"
+            f" {entry['plain_ms']:.4f} ms, sdpa {'fwd' if name == 'splash_fwd' else 'bwd'}"
+            f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
+            f" ({entry['bound_by']}); {entry['ms'] / entry['bound_ms']:.1f}x the bound")
+    return out
+
+
+def phase_splash() -> dict:
+    """The splash kernels against their plain versions at llama3_1b heads
+    (T 8192 bf16 at windows 4096, 0 and 1024, and 4096 with documents; fp32
+    at T 1024; a ragged T 72; causal=False with documents), the planted band
+    faults, splash W 0 against the flash kernels, the times per window, and
+    the skipping: the W 1024 forward under 0.4x the W 0 forward."""
+    import torch
+
+    b, h, kh, d, t = SPLASH_GEOMETRY
+    report = {name: {"max_abs_err": 0.0} for name in ("splash_fwd", "splash_bwd_dq",
+                                                      "splash_bwd_dkv")}
+
+    def keep(errs):
+        for name, err in errs.items():
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+    x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=30)
+    docs = doc_plane(SPLASH_DOCS, b)
+    for window in SPLASH_WINDOWS:
+        keep(splash_compare("llama3_1b heads, T=8192", *x, None, True, window))
+    keep(splash_compare(f"llama3_1b heads, T=8192, docs {SPLASH_DOCS}", *x, docs, True, 4096))
+    splash_planted_faults("llama3_1b heads, T=8192", *x, SPLASH_WINDOWS[0])
+    splash_matches_flash(*x)
+    timing = {window: splash_timing(*x, window) for window in SPLASH_WINDOWS}
+    ratio = timing[1024]["splash_fwd"]["ms"] / timing[0]["splash_fwd"]["ms"]
+    log(f"splash skipping: fwd window=1024 {timing[1024]['splash_fwd']['ms']:.4f} ms /"
+        f" window=0 {timing[0]['splash_fwd']['ms']:.4f} ms = {ratio:.3f} (must be < 0.4)")
+    if not ratio < 0.4:
+        raise AssertionError(f"the window=1024 forward takes {ratio:.3f}x the window=0 forward")
+    del x, docs
+    torch.cuda.empty_cache()
+    for label, t_len, dtype, causal, window, lengths in (
+        ("T=1024", 1024, torch.float32, True, 256, None),
+        ("ragged T=72", 72, torch.bfloat16, True, 40, None),
+        ("ragged T=72", 72, torch.float32, True, 40, None),
+        ("T=1024, docs (300, 700, 24)", 1024, torch.bfloat16, False, 0, (300, 700, 24)),
+    ):
+        x = flash_inputs(b, h, kh, d, t_len, dtype, 31)
+        docs = doc_plane(lengths, b) if lengths else None
+        keep(splash_compare(f"llama3_1b heads, {label}", *x, docs, causal, window))
+    for name, entry in report.items():
+        entry.update(timing[SPLASH_WINDOWS[0]][name])
+    return report
 
 
 # -- phase 4: the serving path -----------------------------------------------
@@ -726,10 +1036,10 @@ def phase_http(cfg, params) -> None:
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 8192
 
 
-def profile_train_step(label: str, card: str):
+def profile_train_step(label: str, card: str, kernels: str = "flash_"):
     """An on_step hook for train.train that runs torch.profiler over the last
-    step and prints the device busy share, the flash kernels' share and the
-    top kernels by device time."""
+    step and prints the device busy share, the share of the kernels whose
+    names start with ``kernels`` and the top kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -750,9 +1060,9 @@ def profile_train_step(label: str, card: str):
                 if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
             ]
             busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
-            flash_ms = sum(e.self_device_time_total for e in events if "flash_" in e.key) / 1e3
+            flash_ms = sum(e.self_device_time_total for e in events if kernels in e.key) / 1e3
             log(f"profile train step ({label}): wall {wall_ms:.2f} ms, device busy"
-                f" {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), flash kernels"
+                f" {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {kernels.rstrip('_')} kernels"
                 f" {flash_ms:.2f} ms ({100 * flash_ms / busy_ms:.1f}% of busy) [{card}]")
             for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
                 ms = e.self_device_time_total / 1e3
@@ -809,45 +1119,64 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+def three_steps(cfg, init, batches, mu_dtype=None):
+    """(loss and grad norm per step, parameters) after 3 updates of cfg
+    from ``init`` on ``batches``."""
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+
+    optimizer = train.make_optimizer(mu_dtype=mu_dtype)
+    state = train.init_train_state(cfg, optimizer, params={k: v.clone() for k, v in init.items()})
+    step = train.make_train_step(cfg, optimizer)
+    metrics = []
+    for tokens, targets in batches:
+        state, m = step(state, torch.from_numpy(tokens).cuda(), torch.from_numpy(targets).cuda())
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+    return metrics, {k: v.detach() for k, v in state.params.items()}
+
+
+def check_same_training(name, run, ref_name, ref) -> float:
+    """Losses and grad norms of two three_steps runs within 1e-4 relative,
+    each parameter tensor within 1e-4 of its norm (norm-wise: AdamW's
+    sign-like step can move an entry whose gradient is rounding noise by up
+    to lr on one side only); returns the worst parameter difference."""
+    (km, kp), (rm, rp) = run, ref
+    for i, ((kl, kg), (rl, rg)) in enumerate(zip(km, rm)):
+        if abs(kl - rl) > 1e-4 * abs(rl) or abs(kg - rg) > 1e-4 * abs(rg):
+            raise AssertionError(f"step {i + 1}: {name} loss/grad norm {kl}/{kg} !="
+                                 f" {ref_name} {rl}/{rg}")
+    worst = max(float((kp[k] - rp[k]).norm() / rp[k].norm()) for k in rp)
+    if worst > 1e-4:
+        raise AssertionError(f"{name}: parameters after 3 steps differ by {worst:.3e} of their"
+                             f" norm from {ref_name}")
+    return worst
+
+
 def phase_train_identity() -> None:
     """fp32, llama3_1b width with 2 layers: 3 steps on the flash kernels
-    against 3 on the blockwise walk from the same parameters and batches.
-    Losses and grad norms within 1e-4 relative; each parameter tensor within
-    1e-4 of its norm (norm-wise: AdamW's sign-like step can move an entry
-    whose gradient is rounding noise by up to lr on one side only)."""
+    against 3 on the blockwise walk from the same parameters and batches,
+    within check_same_training's tolerances."""
     import dataclasses
 
     import torch
 
-    from dstack_tpu_torch.workloads import attention, data, model, train
+    from dstack_tpu_torch.workloads import attention, data, model
     from dstack_tpu_torch.workloads.config import get_config
     from dstack_tpu_torch.workloads.kernels import flash
 
     base = get_config("llama3_1b", n_layers=2, dtype="float32", param_dtype="float32")
     dev = torch.device("cuda")
     init = model.init_params(base, torch.Generator(device=dev).manual_seed(3), dev)
-    batches = list(zip(range(3), data.synthetic_batches(base.vocab_size, 2, 1024, seed=3)))
+    batches = [b for _, b in zip(range(3), data.synthetic_batches(base.vocab_size, 2, 1024, seed=3))]
     runs = {}
     for impl in ("flash", "blockwise"):
-        cfg = dataclasses.replace(base, attn_impl=impl)
-        optimizer = train.make_optimizer()
-        state = train.init_train_state(cfg, optimizer, params={k: v.clone() for k, v in init.items()})
-        step = train.make_train_step(cfg, optimizer)
         flash.reset_launches()
-        metrics = []
-        for _, (tokens, targets) in batches:
-            state, m = step(state, torch.from_numpy(tokens).to(dev), torch.from_numpy(targets).to(dev))
-            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[impl] = three_steps(dataclasses.replace(base, attn_impl=impl), init, batches)
         if (impl == "flash") != (flash.launches["flash_fwd"] > 0):
             raise AssertionError(f"attn_impl={impl}: flash launches {flash.launches}")
-        runs[impl] = (metrics, {k: v.detach() for k, v in state.params.items()})
     (fm, fp), (bm, bp) = runs["flash"], runs["blockwise"]
-    for i, ((fl, fg), (bl, bg)) in enumerate(zip(fm, bm)):
-        if abs(fl - bl) > 1e-4 * abs(bl) or abs(fg - bg) > 1e-4 * abs(bg):
-            raise AssertionError(f"step {i + 1}: flash loss/grad norm {fl}/{fg} != blockwise {bl}/{bg}")
-    worst = max(float((fp[k] - bp[k]).norm() / bp[k].norm()) for k in bp)
-    if worst > 1e-4:
-        raise AssertionError(f"parameters after 3 steps differ by {worst:.3e} of their norm")
+    worst = check_same_training("flash", runs["flash"], "blockwise", runs["blockwise"])
     max_abs = max(float((fp[k] - bp[k]).abs().max()) for k in bp)
     log(f"train identity: fp32 llama3_1b width, 2 layers, seq 1024: flash kernels =="
         f" blockwise over 3 steps: losses {[round(x[0], 6) for x in fm]} vs"
@@ -873,6 +1202,151 @@ def phase_train_identity() -> None:
                                    rtol=0 if impl == "flash" else 2 ** -7)
     log("train identity: flash_tpu and auto return bf16 for bf16 q on the card; every flash"
         " route launches the forward kernel at T = 1024, 1000 and 63 and matches blockwise")
+
+
+# -- phase 9: the splash training path -------------------------------------------
+
+# The training example's single-card command line (examples/
+# train-llama-v5p.dstack.yml: --attn-impl splash --attn-window 4096
+# --grad-accum 4 --mu-dtype bfloat16 --remat-policy full --prefetch 2) at
+# llama3_1b and seq 8192; batch 8 is the CLI's default for grad_accum 4.
+SPLASH_MAIN_ARGV = ["--config", "llama3_1b", "--attn-impl", "splash", "--attn-window", "4096",
+                    "--grad-accum", "4", "--mu-dtype", "bfloat16", "--remat-policy", "full",
+                    "--prefetch", "2", "--seq", "8192", "--steps", "3"]
+
+
+def check_splash_launches(label, cfg, microbatches, steps) -> dict:
+    """The splash launches of a run: exactly 2 x layers x microbatches x
+    steps forwards (the forward and again under remat) and layers x
+    microbatches x steps of each backward kernel; no flash launch."""
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    got = dict(splash.launches)
+    calls = cfg.n_layers * microbatches * steps
+    want = {"splash_fwd": 2 * calls, "splash_bwd_dq": calls, "splash_bwd_dkv": calls}
+    if got != want or any(flash.launches.values()):
+        raise AssertionError(f"{label}: splash launches {got} != {want}, flash {flash.launches}")
+    return got
+
+
+def phase_train_splash(card: str) -> dict:
+    """train.main with the example's flags (losses finite and falling, exact
+    launch counts), then train.train at batch 2 x 8192, grad_accum 1, 5
+    steps, window 4096, with a profiled step, beside phase_train's flash
+    run of the same shape."""
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    cfg = get_config("llama3_1b", attn_impl="splash", attn_window=4096, remat=True,
+                     remat_policy="full")
+    losses = []
+    inner = train.train
+
+    def train_recording_losses(*args, **kwargs):
+        return inner(*args, on_step=lambda step, loss: losses.append(loss), **kwargs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    splash.reset_launches()
+    flash.reset_launches()
+    train.train = train_recording_losses
+    try:
+        stats = train.main(SPLASH_MAIN_ARGV)
+    finally:
+        train.train = inner
+    torch.cuda.synchronize()
+    launches = check_splash_launches("train.main", cfg, 4, 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != 3 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train.main {' '.join(SPLASH_MAIN_ARGV)}: losses {losses}")
+    log(f"train.main {' '.join(SPLASH_MAIN_ARGV)} (batch 8): losses"
+        f" {[round(x, 4) for x in losses]}, compile+first-step {stats['compile_s']:.2f} s, step p50"
+        f" {stats['p50_s'] * 1e3:.1f} ms, {stats['tokens_per_sec']:.1f} tokens/s,"
+        f" {stats['tf_per_sec']:.2f} TF/s, MFU {stats['mfu']:.4f} (causal attention count),"
+        f" peak memory {peak_gb:.2f} GB, launches {launches} [{card}]")
+
+    losses.clear()
+    profiler = profile_train_step("splash window=4096", card, kernels="splash_")
+
+    def on_step(step, loss):
+        losses.append(loss)
+        profiler(step, loss)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    splash.reset_launches()
+    flash.reset_launches()
+    stats = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        device=torch.device("cuda"), on_step=on_step)
+    got = check_splash_launches("train.train", cfg, 1, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train.train splash window=4096: losses {losses}")
+    log(f"train llama3_1b splash window=4096 batch {TRAIN_BATCH} seq {TRAIN_SEQ} grad_accum=1"
+        f" (fp32 first moment, as phase 7): losses {[round(x, 4) for x in losses]}, step p50"
+        f" {stats['p50_s'] * 1e3:.1f} ms p90 {stats['p90_s'] * 1e3:.1f} ms,"
+        f" {stats['tokens_per_sec']:.1f} tokens/s, {stats['tf_per_sec']:.2f} TF/s, MFU"
+        f" {stats['mfu']:.4f} (causal attention count), peak memory {peak_gb:.2f} GB,"
+        f" launches {got} [{card}]")
+    for name, n in got.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_splash_identity() -> None:
+    """fp32, llama3_1b width with 2 layers, seq 1024, window 256: 3 steps on
+    the splash kernels against 3 with attention on splash_reference, from
+    the same parameters and batches, with the fp32 and the bf16 first
+    moment, within check_same_training's tolerances. Then attention_core's
+    splash route launches the forward kernel at T = 1000 and 63."""
+    import torch
+
+    from dstack_tpu_torch.workloads import attention, data, model
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    cfg = get_config("llama3_1b", n_layers=2, dtype="float32", param_dtype="float32",
+                     attn_impl="splash", attn_window=256)
+    dev = torch.device("cuda")
+    init = model.init_params(cfg, torch.Generator(device=dev).manual_seed(4), dev)
+    batches = [b for _, b in zip(range(3), data.synthetic_batches(cfg.vocab_size, 2, 1024, seed=4))]
+    for mu_dtype in (None, "bfloat16"):
+        splash.reset_launches()
+        kernels = three_steps(cfg, init, batches, mu_dtype)
+        if splash.launches["splash_fwd"] != 2 * 3 * cfg.n_layers:
+            raise AssertionError(f"splash identity: launches {splash.launches}")
+        attention.splash_attention = splash.splash_reference
+        try:
+            splash.reset_launches()
+            reference = three_steps(cfg, init, batches, mu_dtype)
+        finally:
+            attention.splash_attention = splash.splash_attention
+        if any(splash.launches.values()):
+            raise AssertionError(f"the reference run launched {splash.launches}")
+        worst = check_same_training(f"splash (mu_dtype={mu_dtype})", kernels,
+                                    "splash_reference", reference)
+        (km, _), (rm, _) = kernels, reference
+        log(f"splash identity (mu_dtype={mu_dtype or 'float32'}): fp32 llama3_1b width, 2 layers,"
+            f" seq 1024, window 256: splash kernels == splash_reference over 3 steps: losses"
+            f" {[round(x[0], 6) for x in km]} vs {[round(x[0], 6) for x in rm]}, grad norms"
+            f" {[round(x[1], 6) for x in km]} vs {[round(x[1], 6) for x in rm]}, params"
+            f" {worst:.2e} of norm")
+    # The splash route launches the kernel at every length on the card.
+    for t, window in ((1000, 100), (63, 16)):
+        q = torch.randn((2, t, 16, 128), device=dev, dtype=torch.bfloat16)
+        kv = torch.randn((2, t, 8, 128), device=dev, dtype=torch.bfloat16)
+        splash.reset_launches()
+        out = attention.attention_core(q, kv, kv, "splash", window=window)
+        if splash.launches["splash_fwd"] != 1 or out.dtype != torch.float32:
+            raise AssertionError(f"splash at T={t}: launches {splash.launches}, {out.dtype}")
+        ref = splash.splash_reference(q, kv, kv, window=window)
+        torch.testing.assert_close(out, ref, atol=SPLASH_TOL, rtol=0)
+    log("splash identity: attention_core's splash route launches the forward kernel at"
+        " T = 1000 and 63 and matches splash_reference")
 
 
 def main() -> int:
@@ -903,6 +1377,9 @@ def main() -> int:
     del params
     launches.update(phase_train(card))
     phase_train_identity()
+    report.update(phase_splash())
+    launches.update(phase_train_splash(card))
+    phase_splash_identity()
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",
@@ -910,12 +1387,16 @@ def main() -> int:
         "flash_fwd": "dstack_tpu/workloads/kernels/flash.py:57",
         "flash_bwd_dq": "dstack_tpu/workloads/kernels/flash.py:165",
         "flash_bwd_dkv": "dstack_tpu/workloads/kernels/flash.py:218",
+        "splash_fwd": "dstack_tpu/workloads/kernels/splash.py:134",
+        "splash_bwd_dq": "dstack_tpu/workloads/kernels/splash.py:230",
+        "splash_bwd_dkv": "dstack_tpu/workloads/kernels/splash.py:279",
     }
+    sources = {"paged": KERNEL_SOURCE, "flash": FLASH_SOURCE, "splash": SPLASH_SOURCE}
     kernels = []
     for name, entry in report.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": FLASH_SOURCE if name.startswith("flash") else KERNEL_SOURCE,
+            "source": sources[name.split("_")[0]],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],

@@ -3,7 +3,8 @@ forward's dispatch, and the gather references of paged attention.
 
 Ports ``dstack_tpu/workloads/attention.py``: ``blockwise_attention`` and its
 online-softmax helpers, ``plain_attention``, ``flash_attention_tpu`` (on the
-port's flash kernels) and a meshless ``attention_core``, and
+port's flash kernels) and a meshless ``attention_core`` (which also routes
+to the splash kernels), and
 ``paged_decode_attention`` / ``paged_chunk_attention``, the gather references
 that the serving engine's ``decode_impl="plain"`` runs. Layouts are the JAX
 package's: q [B, T, H, D],
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from dstack_tpu_torch.workloads.kernels.flash import flash_attention, pick_flash_block
+from dstack_tpu_torch.workloads.kernels.splash import splash_attention, splash_reference
 
 NEG_INF = -1e30
 
@@ -186,6 +188,8 @@ def attention_core(
     mesh=None,
     *,
     causal: bool = True,
+    window: int = 0,
+    doc_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The one attention dispatch of the training forward, without a mesh.
 
@@ -193,12 +197,16 @@ def attention_core(
     - ``flash``: the flash kernels (``kernels/flash.py``) at every length on
       a CUDA device; on the CPU their plain versions, or blockwise when a
       length is not block-divisible;
+    - ``splash``: the block-sparse kernels (``kernels/splash.py``) under
+      causal, ``window`` and same-``doc_ids`` masks, at every length on a
+      CUDA device; on the CPU their plain versions, or the masked reference
+      (``splash_reference``) when a length is not block-divisible. The only
+      core that honours ``window`` and ``doc_ids``; the others ignore them;
     - ``flash_tpu``: the public kernel's contract on the same kernels
       (CUDA only; blockwise elsewhere, as the reference off a TPU);
     - ``plain``: materialized scores; ``xla``/``blockwise``: the online-softmax
       walk;
-    - ``splash`` and any mesh (sequence parallelism included) are not ported
-      yet and raise.
+    - any mesh (sequence parallelism included) is not ported yet and raises.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -208,14 +216,15 @@ def attention_core(
     impl = attn_impl
     if impl == "auto":
         impl = "flash_tpu" if flash_available(q.device) else "blockwise"
+    off_menu = q.device.type == "cpu" and (
+        pick_flash_block(q.shape[1]) is None or pick_flash_block(k.shape[1]) is None
+    )
     if impl == "splash":
-        raise NotImplementedError(
-            "attn_impl=splash is not yet ported to PyTorch (ROADMAP item 7)"
-        )
+        if off_menu:
+            return splash_reference(q, k, v, causal=causal, window=window, doc_ids=doc_ids)
+        return splash_attention(q, k, v, causal=causal, window=window, doc_ids=doc_ids)
     if impl == "flash":
-        if q.device.type == "cpu" and (
-            pick_flash_block(q.shape[1]) is None or pick_flash_block(k.shape[1]) is None
-        ):
+        if off_menu:
             return blockwise_attention(q, k, v, causal=causal)
         return flash_attention(q, k, v, causal=causal)
     if impl == "flash_tpu":

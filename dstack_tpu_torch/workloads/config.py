@@ -135,13 +135,9 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None) -> None:
                 f"blocks); attn_impl={cfg.attn_impl!r} would silently ignore "
                 f"the window"
             )
-    if cfg.attn_impl == "splash":
-        raise NotImplementedError(
-            "attn_impl=splash is not yet ported to PyTorch (ROADMAP item 7)"
-        )
-    if cfg.attn_impl in ("flash", "flash_tpu") and seq:
+    if cfg.attn_impl in ("flash", "flash_tpu", "splash") and seq:
         # Each impl has its own block menu: the public kernel's contract
-        # takes 512/256/128 only, the in-repo kernel's goes down to 8.
+        # takes 512/256/128 only, the in-repo kernels' go down to 8.
         if cfg.attn_impl == "flash_tpu":
             from dstack_tpu_torch.workloads.attention import _flash_block as _pick
         else:

@@ -1,0 +1,622 @@
+// Splash (block-sparse flash) attention forward and backward for training,
+// for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of dstack_tpu/workloads/kernels/splash.py:
+//   - splash_fwd_launch     -> `_splash_fwd_kernel` (through `_splash_fwd_3d`):
+//     the online-softmax forward over the live KV tiles, o and lse;
+//   - splash_bwd_dq_launch  -> `_splash_bwd_dq_kernel` (through
+//     `_splash_bwd_3d`): dq over the same live KV tiles;
+//   - splash_bwd_dkv_launch -> `_splash_bwd_dkv_kernel` (through
+//     `_splash_bwd_3d`): dk and dv of one KV tile over the transposed band
+//     of q tiles, summed over the n_rep query heads of its KV head.
+//
+// What they compute (the Pallas kernels' semantics): flash attention
+// (csrc/flash_attention.cu: layouts, GQA, scale, NEG_INF guards, fp32 out)
+// under the mask causal (key <= query) AND window (key > query - window,
+// window 0 = none) AND same document (docq[b, query] == dock[b, key], only
+// when document planes are given). The doc row of q row r is batch r / H,
+// that of KV row g batch g / Kh. A row that sees no key has o = 0, lse =
+// -1e30 and zero gradients.
+//
+// Block sparsity. The causal and window bounds are loop bounds at this
+// kernel's own tile edge (not the TPU kernel's block):
+//   - fwd and dq: q tile [q0, q0 + TILE) walks KV tiles [lo, hi), lo =
+//     max(0, q0 - (window - 1)) / TILE (clamped before dividing: C division
+//     truncates toward zero, the reference floors), hi = the tile after the
+//     one holding the tile's last row (causal);
+//   - dk/dv: KV tile [k0, k0 + TILE) walks q tiles [k0 / TILE, hi), hi = the
+//     tile after the one holding row last_key + window - 1.
+// Inside a live tile the element mask applies; document ids are element
+// masks only, as on the TPU (a tile wholly across documents is still read).
+//
+// Design: flash_attention.cu's CUDA-core machinery (256 threads as 16 x 16
+// over a TILE x TILE score tile, TILE = 64 or 32 where shared memory is
+// short, padded shared rows, fp32 products, p or ds staged in shared
+// memory), plus the document ids of the KV tile (fwd, dq) or q tile (dk/dv)
+// in shared memory. One block owns one output tile: no atomics, the result
+// is deterministic.
+//
+// Bound at the train shapes (llama3_1b: B 2, H 16, Kh 8, D 128, T = S =
+// 8192, bf16, window 4096): 25,167,872 live (query, key) pairs per head;
+// the forward needs 4 D operations a pair, 4.1e11 in all (0.42 ms at 989
+// TFLOP/s bf16), against 0.27 GB moved once (0.08 ms at 3.35 TB/s): bound by
+// operations, as are dq (6 D a pair) and dk/dv (8 D). The products run on
+// CUDA cores in fp32 (67 TFLOP/s peak), so the kernels cannot come near
+// that bound; tensor-core products are later work, as for flash.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int THREADS = 256;  // 16 x 16
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on sm_90
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Elements p[0], p[1] as floats (p at an even element of a padded row).
+__device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0], p[1]); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Reductions over the 16 lanes (one half-warp) that share a row.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
+}
+
+// Row padding in elements that makes a row an odd number of 32-bit words.
+template <typename T>
+struct Pad {
+  static constexpr int value = 1;
+};
+template <>
+struct Pad<__nv_bfloat16> {
+  static constexpr int value = 2;
+};
+
+// Shared memory of the largest kernel (dk/dv) at a tile edge: K, V and Q
+// tiles of T, a do tile and two score tiles of floats, lse, delta and the q
+// tile's document ids.
+template <typename T, int D>
+constexpr size_t dkv_smem_bytes(int tile) {
+  return 3u * tile * (D + Pad<T>::value) * sizeof(T) + static_cast<size_t>(tile) * (D + 1) * 4 +
+         2u * tile * (tile + 1) * 4 + 3u * tile * 4;
+}
+
+// Tile geometry for inputs of type T and head dim D.
+template <typename T, int D>
+struct Geo {
+  static constexpr int LD = D + Pad<T>::value;  // a q/k/v tile row, elements of T
+  static constexpr int LDF = D + 1;             // a do tile row, floats
+  static constexpr int TILE = dkv_smem_bytes<T, D>(64) <= SMEM_LIMIT ? 64 : 32;
+  static constexpr int R = TILE / 16;   // rows (and columns) of a thread's score sub-tile
+  static constexpr int LDS = TILE + 1;  // a score tile row, floats
+  static constexpr int NJ = D / 16;     // output columns a thread owns
+};
+
+// Copy rows [row0, row0 + TILE) of a row-major [n_rows, D] matrix into a
+// shared tile of rows of LD elements, 32-bit words at a time; rows past
+// n_rows are zero.
+template <typename T, int D, int LD, int TILE>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
+                                          int n_rows) {
+  constexpr int WPR = D * static_cast<int>(sizeof(T)) / 4;
+  constexpr int LDW = LD * static_cast<int>(sizeof(T)) / 4;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  for (int i = threadIdx.x; i < TILE * WPR; i += THREADS) {
+    const int r = i / WPR;
+    const int c = i % WPR;
+    const int g = row0 + r;
+    d[r * LDW + c] = g < n_rows ? s[static_cast<size_t>(g) * WPR + c] : 0u;
+  }
+}
+
+// Document ids [pos0, pos0 + TILE) of one row of a doc plane into shared
+// memory (0 past n; callers mask those positions anyway).
+template <int TILE>
+__device__ __forceinline__ void load_docs(int* dst, const int* __restrict__ row, int pos0, int n) {
+  for (int c = threadIdx.x; c < TILE; c += THREADS) dst[c] = pos0 + c < n ? row[pos0 + c] : 0;
+}
+
+// acc[i][j] = sum_d A[ty*R + i][d] * B[tx + 16 j][d] over shared tiles.
+template <int R, int D, typename TA, typename TB>
+__device__ __forceinline__ void dot_rows(float (&acc)[R][R], const TA* A, int lda, const TB* B,
+                                         int ldb, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 2) {
+    float2 a[R], b[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = load2(A + (ty * R + i) * lda + d);
+#pragma unroll
+    for (int j = 0; j < R; ++j) b[j] = load2(B + (tx + 16 * j) * ldb + d);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+      }
+  }
+}
+
+// out[i][jj] += sum_c P[ty*R + i][c] * V[c][tx + 16 jj]: P a float score
+// tile, V a shared tile whose rows past the valid ones are zero.
+template <int R, int NJ, int TILE, typename TV>
+__device__ __forceinline__ void add_pv(float (&out)[R][NJ], const float* P, int ldp,
+                                       const TV* V, int ldv, int ty, int tx) {
+#pragma unroll 2
+  for (int c = 0; c < TILE; ++c) {
+    float p[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = P[(ty * R + i) * ldp + c];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const float v = to_float(V[c * ldv + tx + 16 * jj]);
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[i][jj] = fmaf(p[i], v, out[i][jj]);
+    }
+  }
+}
+
+// Lengths, heads and the mask of one launch.
+struct Band {
+  int t_len, s_len, n_rep, heads, kv_heads, causal, window;
+  float scale;
+
+  // Key kp exists and query qp sees it under causal and window masking.
+  __device__ __forceinline__ bool sees(int qp, int kp) const {
+    return kp < s_len && (!causal || kp <= qp) && (window == 0 || kp > qp - window);
+  }
+  // [kv_lo, kv_hi): the KV tiles rows [q0, q0 + tile) see.
+  __device__ __forceinline__ int kv_lo(int q0, int tile) const {
+    return window ? max(0, q0 - (window - 1)) / tile : 0;
+  }
+  __device__ __forceinline__ int kv_hi(int q0, int tile) const {
+    const int n_kv = (s_len + tile - 1) / tile;
+    return causal ? min(n_kv, (min(t_len, q0 + tile) - 1) / tile + 1) : n_kv;
+  }
+  // [q_lo, q_hi): the q tiles that see some key of [k0, k0 + tile).
+  __device__ __forceinline__ int q_lo(int k0, int tile) const { return causal ? k0 / tile : 0; }
+  __device__ __forceinline__ int q_hi(int k0, int tile) const {
+    const int n_q = (t_len + tile - 1) / tile;
+    const int last_key = min(s_len, k0 + tile) - 1;
+    return window ? min(n_q, (last_key + window - 1) / tile + 1) : n_q;
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const int* __restrict__ docq, const int* __restrict__ dock,
+                      float* __restrict__ o, float* __restrict__ lse, Band bd) {
+  using G = Geo<T, D>;
+  constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDS = G::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + TILE * LD;
+  T* v_s = k_s + TILE * LD;
+  float* p_s = reinterpret_cast<float*>(v_s + TILE * LD);
+  int* dk_s = reinterpret_cast<int*>(p_s + TILE * LDS);
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n_q = (bd.t_len + TILE - 1) / TILE;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * TILE;
+  const int bh = blockIdx.y;
+  const int batch = bh / bd.heads;
+  const T* qb = q + static_cast<size_t>(bh) * bd.t_len * D;
+  const T* kb = k + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const T* vb = v + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const bool docs = docq != nullptr;
+  const int lo = bd.kv_lo(q0, TILE), hi = bd.kv_hi(q0, TILE);
+
+  load_tile<T, D, LD, TILE>(q_s, qb, q0, bd.t_len);
+  float m[R], l[R], acc[R][NJ];
+  int doc_r[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
+    doc_r[i] = docs && qp < bd.t_len ? docq[static_cast<size_t>(batch) * bd.t_len + qp] : 0;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+
+  for (int jk = lo; jk < hi; ++jk) {
+    const int k0 = jk * TILE;
+    __syncthreads();  // every thread is done with the previous tile
+    load_tile<T, D, LD, TILE>(k_s, kb, k0, bd.s_len);
+    load_tile<T, D, LD, TILE>(v_s, vb, k0, bd.s_len);
+    if (docs) load_docs<TILE>(dk_s, dock + static_cast<size_t>(batch) * bd.s_len, k0, bd.s_len);
+    __syncthreads();
+    float s[R][R];
+    dot_rows<R, D>(s, q_s, LD, k_s, LD, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
+      bool ok[R];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int c = tx + 16 * j;
+        ok[j] = bd.sees(qp, k0 + c) && (!docs || doc_r[i] == dk_s[c]);
+        s[i][j] = ok[j] ? s[i][j] * bd.scale : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float safe_m = m_new == NEG_INF ? 0.f : m_new;
+      const float corr = m[i] == NEG_INF ? 0.f : expf(m[i] - safe_m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - safe_m) : 0.f;
+        sum += p;
+        p_s[(ty * R + i) * LDS + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= corr;
+    }
+    __syncthreads();
+    add_pv<R, NJ, TILE>(acc, p_s, LDS, v_s, LD, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
+    if (qp >= bd.t_len) continue;
+    const float l_safe = fmaxf(l[i], 1e-20f);
+    float* orow = o + (static_cast<size_t>(bh) * bd.t_len + qp) * D;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) orow[tx + 16 * jj] = acc[i][jj] / l_safe;
+    if (tx == 0)
+      lse[static_cast<size_t>(bh) * bd.t_len + qp] =
+          (m[i] == NEG_INF ? NEG_INF : m[i]) + logf(l_safe);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ docq, const int* __restrict__ dock,
+                         float* __restrict__ dq, Band bd) {
+  using G = Geo<T, D>;
+  constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDF = G::LDF, LDS = G::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + TILE * LD;
+  T* v_s = k_s + TILE * LD;
+  float* do_s = reinterpret_cast<float*>(v_s + TILE * LD);
+  float* ds_s = do_s + TILE * LDF;
+  int* dk_s = reinterpret_cast<int*>(ds_s + TILE * LDS);
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n_q = (bd.t_len + TILE - 1) / TILE;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * TILE;
+  const int bh = blockIdx.y;
+  const int batch = bh / bd.heads;
+  const size_t row_base = static_cast<size_t>(bh) * bd.t_len;
+  const T* kb = k + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const T* vb = v + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const bool docs = docq != nullptr;
+  const int lo = bd.kv_lo(q0, TILE), hi = bd.kv_hi(q0, TILE);
+
+  load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, bd.t_len);
+  load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, bd.t_len);
+  float lse_r[R], delta_r[R], acc[R][NJ];
+  int doc_r[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
+    const bool in = qp < bd.t_len;
+    lse_r[i] = in ? lse[row_base + qp] : NEG_INF;
+    delta_r[i] = in ? delta[row_base + qp] : 0.f;
+    doc_r[i] = docs && in ? docq[static_cast<size_t>(batch) * bd.t_len + qp] : 0;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+
+  for (int jk = lo; jk < hi; ++jk) {
+    const int k0 = jk * TILE;
+    __syncthreads();
+    load_tile<T, D, LD, TILE>(k_s, kb, k0, bd.s_len);
+    load_tile<T, D, LD, TILE>(v_s, vb, k0, bd.s_len);
+    if (docs) load_docs<TILE>(dk_s, dock + static_cast<size_t>(batch) * bd.s_len, k0, bd.s_len);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+    dot_rows<R, D>(s, q_s, LD, k_s, LD, ty, tx);
+    dot_rows<R, D>(dp, do_s, LDF, v_s, LD, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = bd.sees(qp, k0 + c) && (!docs || doc_r[i] == dk_s[c]) &&
+                        lse_r[i] != NEG_INF;
+        const float p = ok ? expf(s[i][j] * bd.scale - lse_r[i]) : 0.f;
+        ds_s[(ty * R + i) * LDS + c] = p * (dp[i][j] - delta_r[i]) * bd.scale;
+      }
+    }
+    __syncthreads();
+    add_pv<R, NJ, TILE>(acc, ds_s, LDS, k_s, LD, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
+    if (qp >= bd.t_len) continue;
+    float* row = dq + (row_base + qp) * D;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) row[tx + 16 * jj] = acc[i][jj];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ docq, const int* __restrict__ dock,
+                          float* __restrict__ dk, float* __restrict__ dv, Band bd) {
+  using G = Geo<T, D>;
+  constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDF = G::LDF, LDS = G::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + TILE * LD;
+  T* q_s = v_s + TILE * LD;
+  float* do_s = reinterpret_cast<float*>(q_s + TILE * LD);
+  float* p_s = do_s + TILE * LDF;
+  float* ds_s = p_s + TILE * LDS;
+  float* lse_s = ds_s + TILE * LDS;
+  float* delta_s = lse_s + TILE;
+  int* dq_s = reinterpret_cast<int*>(delta_s + TILE);
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * TILE;
+  const int bkh = blockIdx.y;
+  // Every q row of this KV row (bkh * n_rep + rep) lies in its batch.
+  const int batch = bkh / bd.kv_heads;
+  const bool docs = docq != nullptr;
+  const int iq_lo = bd.q_lo(k0, TILE), iq_hi = bd.q_hi(k0, TILE);
+
+  load_tile<T, D, LD, TILE>(k_s, k + static_cast<size_t>(bkh) * bd.s_len * D, k0, bd.s_len);
+  load_tile<T, D, LD, TILE>(v_s, v + static_cast<size_t>(bkh) * bd.s_len * D, k0, bd.s_len);
+  float dk_acc[R][NJ], dv_acc[R][NJ];
+  int doc_r[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kp = k0 + ty * R + i;
+    doc_r[i] = docs && kp < bd.s_len ? dock[static_cast<size_t>(batch) * bd.s_len + kp] : 0;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+  }
+
+  for (int rep = 0; rep < bd.n_rep; ++rep) {
+    const size_t row_base = (static_cast<size_t>(bkh) * bd.n_rep + rep) * bd.t_len;
+    for (int iq = iq_lo; iq < iq_hi; ++iq) {
+      const int q0 = iq * TILE;
+      __syncthreads();
+      load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, bd.t_len);
+      load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, bd.t_len);
+      for (int r = threadIdx.x; r < TILE; r += THREADS) {
+        const bool in = q0 + r < bd.t_len;
+        lse_s[r] = in ? lse[row_base + q0 + r] : NEG_INF;
+        delta_s[r] = in ? delta[row_base + q0 + r] : 0.f;
+      }
+      if (docs) load_docs<TILE>(dq_s, docq + static_cast<size_t>(batch) * bd.t_len, q0, bd.t_len);
+      __syncthreads();
+      // Transposed scores: rows are this block's keys, columns the queries.
+      float st[R][R], dpt[R][R];
+      dot_rows<R, D>(st, k_s, LD, q_s, LD, ty, tx);
+      dot_rows<R, D>(dpt, v_s, LD, do_s, LDF, ty, tx);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int kp = k0 + ty * R + i;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int c = tx + 16 * j;
+          const int qp = q0 + c;
+          const float l = lse_s[c];
+          const bool ok = qp < bd.t_len && bd.sees(qp, kp) && (!docs || dq_s[c] == doc_r[i]) &&
+                          l != NEG_INF;
+          const float p = ok ? expf(st[i][j] * bd.scale - l) : 0.f;
+          p_s[(ty * R + i) * LDS + c] = p;
+          ds_s[(ty * R + i) * LDS + c] = p * (dpt[i][j] - delta_s[c]) * bd.scale;
+        }
+      }
+      __syncthreads();
+      add_pv<R, NJ, TILE>(dv_acc, p_s, LDS, do_s, LDF, ty, tx);
+      add_pv<R, NJ, TILE>(dk_acc, ds_s, LDS, q_s, LD, ty, tx);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kp = k0 + ty * R + i;
+    if (kp >= bd.s_len) continue;
+    const size_t off = (static_cast<size_t>(bkh) * bd.s_len + kp) * D;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      dk[off + tx + 16 * jj] = dk_acc[i][jj];
+      dv[off + tx + 16 * jj] = dv_acc[i][jj];
+    }
+  }
+}
+
+struct Shape {
+  int b, bh, bkh, t_len, s_len, causal, window;
+  float scale;
+  cudaStream_t stream;
+  Band band() const {
+    return Band{t_len, s_len, bh / bkh, bh / b, bkh / b, causal, window, scale};
+  }
+};
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+struct FwdArgs {
+  const void *q, *k, *v;
+  const int *docq, *dock;
+  float *o, *lse;
+  Shape sh;
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    using G = Geo<T, D>;
+    const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDS * 4u + G::TILE * 4u;
+    auto kernel = splash_fwd_kernel<T, D>;
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
+    kernel<<<grid, THREADS, smem, sh.stream>>>(static_cast<const T*>(q),
+                                               static_cast<const T*>(k),
+                                               static_cast<const T*>(v), docq, dock, o, lse,
+                                               sh.band());
+    return cudaGetLastError();
+  }
+};
+
+struct DqArgs {
+  const void *q, *k, *v;
+  const float *dout, *lse, *delta;
+  const int *docq, *dock;
+  float* dq;
+  Shape sh;
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    using G = Geo<T, D>;
+    const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDF * 4u +
+                        G::TILE * G::LDS * 4u + G::TILE * 4u;
+    auto kernel = splash_bwd_dq_kernel<T, D>;
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
+    kernel<<<grid, THREADS, smem, sh.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
+        delta, docq, dock, dq, sh.band());
+    return cudaGetLastError();
+  }
+};
+
+struct DkvArgs {
+  const void *q, *k, *v;
+  const float *dout, *lse, *delta;
+  const int *docq, *dock;
+  float *dk, *dv;
+  Shape sh;
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    using G = Geo<T, D>;
+    const size_t smem = dkv_smem_bytes<T, D>(G::TILE);
+    auto kernel = splash_bwd_dkv_kernel<T, D>;
+    const cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((sh.s_len + G::TILE - 1) / G::TILE, sh.bkh);
+    kernel<<<grid, THREADS, smem, sh.stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
+        delta, docq, dock, dk, dv, sh.band());
+    return cudaGetLastError();
+  }
+};
+
+// args.launch<T, D>() for the runtime dtype code (0 = float32, 1 = bfloat16)
+// and head dim D = 32, 64, ..., 256. Before it, the shape is validated and an
+// error left by an earlier call of this library (a refused
+// cudaFuncSetAttribute, say) is cleared, so a launch reports only its own.
+template <typename T, typename Args>
+cudaError_t by_head_dim(int D, const Args& args) {
+  switch (D) {
+    case 32: return args.template launch<T, 32>();
+    case 64: return args.template launch<T, 64>();
+    case 96: return args.template launch<T, 96>();
+    case 128: return args.template launch<T, 128>();
+    case 160: return args.template launch<T, 160>();
+    case 192: return args.template launch<T, 192>();
+    case 224: return args.template launch<T, 224>();
+    case 256: return args.template launch<T, 256>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Args>
+int dispatch(int dtype, int D, const Args& args) {
+  (void)cudaGetLastError();
+  const Shape& sh = args.sh;
+  if (sh.b <= 0 || sh.bkh <= 0 || sh.bh % sh.bkh != 0 || sh.bh % sh.b != 0 ||
+      sh.bkh % sh.b != 0 || sh.t_len < 0 || sh.s_len < 0 || sh.window < 0 ||
+      (args.docq == nullptr) != (args.dock == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.bh == 0 || sh.t_len == 0 || sh.s_len == 0) return static_cast<int>(cudaSuccess);
+  if (dtype == 0) return static_cast<int>(by_head_dim<float>(D, args));
+  if (dtype == 1) return static_cast<int>(by_head_dim<__nv_bfloat16>(D, args));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). q [BH, T, D],
+// k/v [BKh, S, D]; docq [B, T] and dock [B, S] int32, or both null (no
+// document mask; B is then 1); o [BH, T, D] and lse [BH, T] fp32. window 0
+// means no window.
+int splash_fwd_launch(int dtype, const void* q, const void* k, const void* v, const int* docq,
+                      const int* dock, float* o, float* lse, int B, int BH, int BKh, int T, int S,
+                      int D, int causal, int window, float scale, void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, FwdArgs{q, k, v, docq, dock, o, lse, sh});
+}
+
+// do [BH, T, D], lse and delta [BH, T], all fp32; dq [BH, T, D] fp32.
+int splash_bwd_dq_launch(int dtype, const void* q, const void* k, const void* v,
+                         const float* dout, const float* lse, const float* delta,
+                         const int* docq, const int* dock, float* dq, int B, int BH, int BKh,
+                         int T, int S, int D, int causal, int window, float scale, void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, DqArgs{q, k, v, dout, lse, delta, docq, dock, dq, sh});
+}
+
+// As dq; dk, dv [BKh, S, D] fp32.
+int splash_bwd_dkv_launch(int dtype, const void* q, const void* k, const void* v,
+                          const float* dout, const float* lse, const float* delta,
+                          const int* docq, const int* dock, float* dk, float* dv, int B, int BH,
+                          int BKh, int T, int S, int D, int causal, int window, float scale,
+                          void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, DkvArgs{q, k, v, dout, lse, delta, docq, dock, dk, dv, sh});
+}
+
+const char* splash_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -198,38 +198,38 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check(q3, k3, v3, do3=None, lse=None, delta=None) -> None:
-    """Raise on anything the kernels do not take."""
+def _check(q3, k3, v3, do3=None, lse=None, delta=None, what="flash attention kernel") -> None:
+    """Raise on anything the kernels do not take (``what`` names them)."""
     tensors = [t for t in (q3, k3, v3, do3, lse, delta) if t is not None]
     dev = q3.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("flash attention kernel: every tensor must be on one CUDA device")
+        raise ValueError(f"{what}: every tensor must be on one CUDA device")
     if q3.dtype not in _DTYPE_CODES or k3.dtype != q3.dtype or v3.dtype != q3.dtype:
         raise ValueError(
-            f"flash attention kernel: q, k and v must share float32 or bfloat16,"
+            f"{what}: q, k and v must share float32 or bfloat16,"
             f" got {q3.dtype}/{k3.dtype}/{v3.dtype}"
         )
     if any(t.dtype != torch.float32 for t in (do3, lse, delta) if t is not None):
-        raise ValueError("flash attention kernel: do, lse and delta must be float32")
+        raise ValueError(f"{what}: do, lse and delta must be float32")
     if q3.dim() != 3 or k3.dim() != 3 or k3.shape != v3.shape:
         raise ValueError(
-            f"flash attention kernel: q [B*H, T, D] and k, v [B*Kh, S, D] expected,"
+            f"{what}: q [B*H, T, D] and k, v [B*Kh, S, D] expected,"
             f" got {tuple(q3.shape)}, {tuple(k3.shape)}, {tuple(v3.shape)}"
         )
     bh, t, d = q3.shape
     bkh, _, dk = k3.shape
     if dk != d or d % 32 or d > 256:
-        raise ValueError(f"flash attention kernel: D must be a multiple of 32 up to 256, got {d}")
+        raise ValueError(f"{what}: D must be a multiple of 32 up to 256, got {d}")
     if bkh == 0 or bh % bkh:
-        raise ValueError(f"flash attention kernel: B*H={bh} must be a multiple of B*Kh={bkh}")
+        raise ValueError(f"{what}: B*H={bh} must be a multiple of B*Kh={bkh}")
     if do3 is not None and do3.shape != q3.shape:
-        raise ValueError("flash attention kernel: do must match q")
+        raise ValueError(f"{what}: do must match q")
     if any(x is not None and x.shape != (bh, t) for x in (lse, delta)):
-        raise ValueError("flash attention kernel: lse and delta must be [B*H, T]")
+        raise ValueError(f"{what}: lse and delta must be [B*H, T]")
     if any(not x.is_contiguous() for x in tensors):
-        raise ValueError("flash attention kernel: every tensor must be contiguous")
+        raise ValueError(f"{what}: every tensor must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("flash attention kernel: every tensor must be 16-byte aligned")
+        raise ValueError(f"{what}: every tensor must be 16-byte aligned")
 
 
 def _shape_args(q3, k3, causal: bool):

@@ -114,7 +114,7 @@ def attention_sublayer(
     v = _proj(h_in, params["wv"][layer]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = attention_core(q, k, v, cfg.attn_impl)
+    o = attention_core(q, k, v, cfg.attn_impl, window=cfg.attn_window)
     o = o.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
     return x + _proj(o, params["wo"][layer])
 

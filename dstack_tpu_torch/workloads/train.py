@@ -38,21 +38,90 @@ _H100_BF16_FLOPS = 989e12
 class OptimizerConfig:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(...)) as a recipe;
     ``build`` makes the AdamW over a parameter dict (torch's optimizer needs
-    its tensors, optax's transformation does not)."""
+    its tensors, optax's transformation does not). ``mu_dtype`` "bfloat16"
+    keeps the first moment in bf16, as optax's ``mu_dtype``."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     b1: float = 0.9
     b2: float = 0.95
     grad_clip: float = 1.0
+    mu_dtype: Optional[str] = None
 
-    def build(self, params: Params) -> torch.optim.AdamW:
+    def build(self, params: Params) -> torch.optim.Optimizer:
         # optax.adamw decays every leaf, as one param group with weight_decay
         # does here: p -= lr * (adam_update + wd * p); eps is optax's default.
-        return torch.optim.AdamW(
+        cls = AdamWBf16Mu if self.mu_dtype == "bfloat16" else torch.optim.AdamW
+        return cls(
             list(params.values()), lr=self.learning_rate, betas=(self.b1, self.b2),
             eps=1e-8, weight_decay=self.weight_decay,
         )
+
+
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """optax.adamw(mu_dtype=bfloat16): the first moment is stored in bf16,
+    the second moment and the parameters in their own dtype (fp32).
+
+    Rounding follows the jitted optax update: ``mu = (1 - b1) * g + b1 *
+    mu_bf16`` in fp32, with b1 rounded to bf16 (JAX casts the Python float
+    to the moment's dtype) but the product not rounded (XLA drops the
+    bf16 round trip inside the fused update; eager optax would round it);
+    the update uses that fp32 mu, and mu is stored rounded to bf16. Then, in
+    fp32, ``p += -lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)`` with the
+    bias corrections ``1 - b**count`` computed in fp32. torch.optim.AdamW
+    keeps mu in the parameter dtype, hence this class."""
+
+    def __init__(self, params, lr: float, betas: Tuple[float, float], eps: float,
+                 weight_decay: float):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamWBf16Mu.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(
+                        step=0, mu=torch.zeros_like(p, dtype=torch.bfloat16),
+                        nu=torch.zeros_like(p, dtype=torch.float32),
+                    )
+            states = [self.state[p] for p in params]
+            grads = [p.grad.float() for p in params]
+            mus = [st["mu"] for st in states]
+            nus = [st["nu"] for st in states]
+            b1, b2 = group["betas"]
+            count = states[0]["step"] + 1
+            for st in states:
+                st["step"] = count
+            b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16).item()
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            decayed = [m.float() for m in mus]
+            torch._foreach_mul_(decayed, b1_bf16)
+            torch._foreach_add_(mu, decayed)
+            del decayed
+            torch._foreach_mul_(nus, b2)
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_add_(nus, sq)
+            del sq
+            for m_store, m in zip(mus, mu):
+                m_store.copy_(m)
+            f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+            bc1 = (1.0 - f32(b1) ** count).item()
+            bc2 = (1.0 - f32(b2) ** count).item()
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(mu, bc1)
+            torch._foreach_div_(mu, denom)
+            torch._foreach_add_(mu, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(mu, -group["lr"])
+            torch._foreach_add_(params, mu)
+        return None
 
 
 def make_optimizer(
@@ -63,18 +132,21 @@ def make_optimizer(
     grad_clip: float = 1.0,
     mu_dtype: Optional[str] = None,
 ) -> OptimizerConfig:
-    """AdamW with global-norm clipping; the first moment stays fp32."""
-    if mu_dtype not in (None, "float32"):
+    """AdamW with global-norm clipping. ``mu_dtype="bfloat16"`` stores the
+    first moment in bf16 (half its memory; the second moment and the master
+    parameters stay fp32)."""
+    if mu_dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(
-            f"mu_dtype={mu_dtype} is not yet ported to PyTorch (ROADMAP item 12)"
+            f"mu_dtype={mu_dtype} is not yet ported to PyTorch (float32 and bfloat16 are)"
         )
-    return OptimizerConfig(learning_rate, weight_decay, b1, b2, grad_clip)
+    return OptimizerConfig(learning_rate, weight_decay, b1, b2, grad_clip,
+                           None if mu_dtype == "float32" else mu_dtype)
 
 
 @dataclasses.dataclass
 class TrainState:
     params: Params
-    opt: torch.optim.AdamW
+    opt: torch.optim.Optimizer
     step: int = 0
 
 
@@ -293,14 +365,16 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
 
 
 def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
-    """--attn-impl / --quant -> config fields (empty flag = keep the config
-    default). The reference's other perf flags are not ported yet and are
-    refused before this (``_unported``)."""
+    """--attn-impl / --quant / --attn-window -> config fields (empty flag =
+    keep the config default). The reference's other perf flags are not
+    ported yet and are refused before this (``_unported``)."""
     reps = {}
     if args.attn_impl:
         reps["attn_impl"] = args.attn_impl
     if args.quant:
         reps["quant"] = args.quant
+    if args.attn_window:
+        reps["attn_window"] = args.attn_window
     return dataclasses.replace(cfg, **reps) if reps else cfg
 
 
@@ -316,10 +390,11 @@ def train(
     data_path: Optional[str] = None,
     on_step: Optional[Callable[[int, float], None]] = None,
     telemetry=None,
+    mu_dtype: Optional[str] = None,
 ) -> Dict[str, float]:
     """Train ``cfg`` for ``steps`` updates on ``device`` from synthetic
     parameters and the input pipeline; returns the timed loop's stats."""
-    optimizer = make_optimizer()
+    optimizer = make_optimizer(mu_dtype=mu_dtype)
     state = init_train_state(cfg, optimizer, device)
     step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum)
     feed = data_lib.input_pipeline(
@@ -356,9 +431,7 @@ def _unported(args) -> Optional[str]:
         (args.tp > 1 or args.tp_overlap or args.fsdp_overlap or args.multislice or args.ep,
          "--tp/--tp-overlap/--fsdp-overlap/--multislice/--ep (meshes)", 6),
         (args.quant in ("int8", "fp8"), f"--quant {args.quant}", 3),
-        (args.attn_window, "--attn-window", 7),
         (args.autotune, "--autotune", 10),
-        (args.mu_dtype == "bfloat16", "--mu-dtype bfloat16", 12),
     )
     for hit, what, item in checks:
         if hit:
@@ -392,8 +465,16 @@ def main(argv=None) -> Dict[str, float]:
                         choices=[""] + list(ATTN_IMPLS),
                         help="attention core: flash (the CUDA flash kernels),"
                              " flash_tpu/auto (the same kernels under the public"
-                             " kernel's contract), xla/blockwise, plain"
-                             " (config default if empty)")
+                             " kernel's contract), splash (the CUDA block-sparse"
+                             " kernels: causal/local-window/document masks skip"
+                             " dead tiles), xla/blockwise, plain (config default"
+                             " if empty)")
+    parser.add_argument("--attn-window", type=int, default=0, dest="attn_window",
+                        help="local-attention window W for --attn-impl splash:"
+                             " each query sees keys [i-W+1, i] (0 = dense causal)")
+    parser.add_argument("--mu-dtype", default="", dest="mu_dtype",
+                        choices=["", "float32", "bfloat16"],
+                        help="Adam first-moment dtype (bfloat16 halves its memory)")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="input prefetch depth: batches staged on the device"
                              " ahead of the step (0 = synchronous feed)")
@@ -404,10 +485,7 @@ def main(argv=None) -> Dict[str, float]:
                         help="cuda (default; raises without one) or cpu")
     # Flags of the JAX entry point that the port does not have yet: they
     # parse, then raise naming their ROADMAP item.
-    parser.add_argument("--mu-dtype", default="", dest="mu_dtype",
-                        choices=["", "float32", "bfloat16"])
     parser.add_argument("--quant", default="", choices=["", "none", "int8", "fp8"])
-    parser.add_argument("--attn-window", type=int, default=0, dest="attn_window")
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--tp-overlap", action="store_true", dest="tp_overlap")
     parser.add_argument("--fsdp-overlap", action="store_true", dest="fsdp_overlap")
@@ -437,6 +515,7 @@ def main(argv=None) -> Dict[str, float]:
 
     print(f"config={args.config} device={device} batch={batch} seq={seq} "
           f"grad_accum={args.grad_accum} attn_impl={cfg.attn_impl} "
+          f"attn_window={cfg.attn_window} mu_dtype={args.mu_dtype or 'float32'} "
           f"remat={cfg.remat_policy if cfg.remat else 'off'} prefetch={args.prefetch} "
           f"params={cfg.num_params() / 1e9:.3f}B", flush=True)
     telemetry = telemetry_lib.get_emitter()
@@ -446,7 +525,8 @@ def main(argv=None) -> Dict[str, float]:
     try:
         return train(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
                      grad_accum=args.grad_accum, prefetch=args.prefetch,
-                     data_path=args.data or None, telemetry=telemetry)
+                     data_path=args.data or None, telemetry=telemetry,
+                     mu_dtype=args.mu_dtype or None)
     finally:
         telemetry.close()
 

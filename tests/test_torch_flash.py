@@ -11,7 +11,7 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   autograd function against jax.grad of the JAX kernel, atol 1e-4 (the JAX
   tests' tolerance for the same check);
 - the dispatch (block-divisible lengths, the blockwise fallback, the
-  ``flash_tpu`` contract, splash not ported), the wrappers' CPU path and
+  ``flash_tpu`` contract, meshes not ported), the wrappers' CPU path and
   launch counters, and the build of the CUDA source.
 """
 
@@ -162,9 +162,8 @@ class TestDispatch:
                 call()
 
     def test_splash_and_meshes_are_not_ported(self):
+        """Splash is ported (tests/test_torch_splash.py); a mesh is not."""
         q, k, v = (t(x) for x in qkv(8))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tattn.attention_core(q, k, v, "splash")
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tattn.attention_core(q, k, v, "flash", mesh=object())
 

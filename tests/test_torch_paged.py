@@ -191,7 +191,7 @@ class TestWrappers:
         argv = build.nvcc_argv("nvcc", build.CSRC_DIR / "paged_attention.cu", tmp_path / "x.so")
         assert "arch=compute_90a,code=sm_90a" in argv
         assert {"-shared", "-O3", "-std=c++17"} <= set(argv)
-        assert build.sources() == ["flash_attention", "paged_attention"]
+        assert build.sources() == ["flash_attention", "paged_attention", "splash_attention"]
         lib = build.library_path("paged_attention")
         assert lib.parent == build.BUILD_DIR and lib.parent.parent.name == "build"
         assert len(lib.stem.split("-")[-1]) == 16  # the source hash

@@ -170,6 +170,7 @@ def test_the_port_imports_nothing_of_jax():
         "import sys, chip_smoke, dstack_tpu_torch.workloads.serve\n"
         "import dstack_tpu_torch.workloads.kernels.build, dstack_tpu_torch.workloads.convert\n"
         "import dstack_tpu_torch.workloads.train, dstack_tpu_torch.workloads.kernels.flash\n"
+        "import dstack_tpu_torch.workloads.kernels.splash\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dstack_tpu' or m.startswith('dstack_tpu.')]\n"
         "print(bad)\n"

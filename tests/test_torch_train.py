@@ -5,9 +5,10 @@ the port, and both sides see the same tokens (numpy, seeded). fp32 on both
 sides, so only the summation order differs: losses, gradients and grad
 norms agree within 1e-5, and so do the parameters after three AdamW steps
 but for AdamW-amplified rounding noise in a few entries (bounded in
-test_train_steps_match_jax). Also here: the
-clip and the optimizer against optax, the data sources against the JAX
-package's, the timed loop's telemetry keys, and the CLI.
+test_train_steps_match_jax). Also here: the splash loss and gradients
+under a window, the clip and the optimizer (fp32 and bf16 first moment)
+against optax, the data sources against the JAX package's, the timed loop's
+telemetry keys, and the CLI.
 """
 
 import json
@@ -183,6 +184,73 @@ def test_adamw_matches_optax_on_the_same_grads():
         np.testing.assert_allclose(p.numpy(), np.asarray(w), atol=1e-6)
 
 
+def test_bf16_mu_adamw_matches_optax_on_the_same_grads():
+    """optax.adamw(mu_dtype=bfloat16) against the port's AdamWBf16Mu, fed
+    identical gradients for 3 steps: the bf16 first moment bit for bit, the
+    fp32 second moment and the parameters within 1e-6."""
+    rng = np.random.RandomState(5)
+    params = [rng.randn(6, 5).astype(np.float32), rng.randn(9).astype(np.float32)]
+    grads = [[rng.randn(*p.shape).astype(np.float32) * s for p in params] for s in (3.0, 0.1, 1.0)]
+    optimizer = ttrain.make_optimizer(mu_dtype="bfloat16")
+    tx = optax.adamw(optimizer.learning_rate, b1=optimizer.b1, b2=optimizer.b2,
+                     weight_decay=optimizer.weight_decay, mu_dtype=jnp.bfloat16)
+    jp = [jnp.asarray(p) for p in params]
+    opt_state = tx.init(jp)
+    update = jax.jit(tx.update)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    opt = optimizer.build(dict(enumerate(tp)))
+    assert isinstance(opt, ttrain.AdamWBf16Mu)
+    for g in grads:
+        updates, opt_state = update([jnp.asarray(x) for x in g], opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x.copy())
+        opt.step()
+    adam = opt_state[0]
+    for p, w, mu, nu in zip(tp, jp, adam.mu, adam.nu):
+        state = opt.state[p]
+        assert state["mu"].dtype == torch.bfloat16 and state["nu"].dtype == torch.float32
+        np.testing.assert_array_equal(state["mu"].view(torch.int16).numpy(),
+                                      np.asarray(mu).view(np.int16))
+        np.testing.assert_allclose(state["nu"].numpy(), np.asarray(nu), atol=1e-6)
+        np.testing.assert_allclose(p.numpy(), np.asarray(w), atol=1e-6)
+
+
+@pytest.mark.parametrize("mu_dtype,cls", [(None, torch.optim.AdamW),
+                                          ("float32", torch.optim.AdamW),
+                                          ("bfloat16", ttrain.AdamWBf16Mu)])
+def test_make_optimizer_builds_the_first_moment_dtype(mu_dtype, cls):
+    params = {"w": torch.ones(4, 3, requires_grad=True)}
+    opt = ttrain.make_optimizer(mu_dtype=mu_dtype).build(params)
+    assert type(opt) is cls
+    params["w"].grad = torch.full((4, 3), 0.5)
+    opt.step()
+    assert bool((params["w"] < 1).all())
+
+
+def test_splash_loss_and_grads_match_jax(np_params):
+    """attn_impl=splash with a window of 32 over 64 tokens (the kernels'
+    plain versions on the CPU; the Pallas kernels in interpret mode in JAX)."""
+    jcfg, tcfg = cfgs(attn_impl="splash", attn_window=32, remat=True)
+    rng = np.random.RandomState(6)
+    tokens = rng.randint(0, TINY_KW["vocab_size"], (B, 64)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    ref_loss, ref_grads = jax.value_and_grad(jmodel.loss_fn)(np_params, tokens, targets, jcfg)
+    loss, grads = ttrain.value_and_grad(
+        tmodel.loss_fn, torch_params(np_params), torch.from_numpy(tokens),
+        torch.from_numpy(targets), cfg=tcfg,
+    )
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=TOL)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref_grads[k]), atol=TOL, err_msg=k)
+
+
+def test_apply_perf_overrides_takes_the_window():
+    args = type("Args", (), dict(attn_impl="splash", quant="", attn_window=64))()
+    cfg = ttrain.apply_perf_overrides(tget_config("test"), args)
+    assert (cfg.attn_impl, cfg.attn_window) == ("splash", 64)
+
+
 @pytest.mark.parametrize("scale", [0.1, 10.0], ids=["under-the-clip", "clipped"])
 def test_clip_matches_optax(scale):
     rng = np.random.RandomState(3)
@@ -198,7 +266,7 @@ def test_clip_matches_optax(scale):
 
 def test_unported_optimizer_options_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.make_optimizer(mu_dtype="bfloat16")
+        ttrain.make_optimizer(mu_dtype="float16")
     with pytest.raises(ValueError, match="grad_accum"):
         ttrain.make_train_step(cfgs()[1], ttrain.make_optimizer(), grad_accum=0)
     with pytest.raises(ValueError, match="data shards"):
@@ -272,6 +340,13 @@ def test_main_runs_on_the_cpu_when_asked():
     assert "mfu" not in stats, "no MFU is reported for the CPU"
 
 
+def test_main_runs_splash_with_a_window_and_a_bf16_first_moment_on_the_cpu():
+    stats = ttrain.main(["--device", "cpu", "--config", "test", "--attn-impl", "splash",
+                         "--attn-window", "16", "--mu-dtype", "bfloat16", "--grad-accum", "2",
+                         "--remat-policy", "full", "--steps", "2", "--seq", "32"])
+    assert stats["compile_s"] > 0 and stats["tokens_per_sec"] > 0
+
+
 def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -281,8 +356,7 @@ def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize(
     "argv",
     [["--tp", "2"], ["--quant", "int8"], ["--checkpoint-dir", "ckpt"], ["--config", "moe_test"],
-     ["--attn-window", "8"], ["--mu-dtype", "bfloat16"], ["--draft-head"], ["--autotune"],
-     ["--remat-policy", "save_proj"], ["--attn-impl", "splash"]],
+     ["--draft-head"], ["--autotune"], ["--remat-policy", "save_proj"]],
     ids=lambda a: a[-1] if len(a) == 1 else a[0].lstrip("-"),
 )
 def test_unported_flags_raise_naming_their_item(argv):
