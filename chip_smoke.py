@@ -15,10 +15,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. flash   - the flash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b and llama3_8b attention geometry (B 2,
              T = S = 8192, bf16, causal), plus fp32 inputs, a ragged last
-             tile (T = 72) and causal=False, all at atol 2e-5; the readings
-             of planted faults (one tile dropped), which that limit must
-             fail; times at llama3_1b beside the plain versions', SDPA's and
-             the bounds;
+             tile (T = 72), causal=False and a do of bf16 values (what
+             training feeds dk/dv), all at atol 2e-5; at llama3_1b the
+             dk/dv kernel and the plain dk/dv versions (flash, and splash at
+             window 0) against fp64 sums per KV head, at the same limit; the
+             readings of planted faults (one tile dropped), which that limit
+             must fail;
+             times at llama3_1b beside the plain versions', SDPA's and the
+             bounds. On bf16 inputs at D 32/64/128 the forward and dk/dv run
+             on tensor cores (mma.sync with split-bf16 operands, so that the
+             products stay exact); dq, fp32 inputs and other head dims run on
+             CUDA cores. The log names the instantiation each launch runs;
 4. serve   - the serving engine on llama3_8b (full width and depth, bf16,
              synthetic weights from a seeded torch.Generator) answers 16
              requests through EngineRunner.submit, whole-prompt and with
@@ -108,6 +115,47 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def demangle(names: list) -> dict:
+    """Kernel names as the toolkit's cu++filt (beside nvcc) gives them,
+    without parameter lists; where it is missing or fails, as ptxas gives
+    them."""
+    from pathlib import Path
+
+    from dstack_tpu_torch.workloads.kernels import build
+
+    tool = Path(build.find_nvcc()).with_name("cu++filt")
+    same = {n: n for n in names}
+    if not names or not tool.is_file():
+        return same
+    out = subprocess.run([str(tool), "-p", *names], capture_output=True, text=True, timeout=60)
+    lines = out.stdout.splitlines()
+    if out.returncode or len(lines) != len(names):
+        return same
+    return {n: line.replace("(anonymous namespace)::", "") for n, line in zip(names, lines)}
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per kernel from nvcc's -Xptxas -v output: registers, spill
+    stores and loads, stack."""
+    import re
+
+    found, name, usage = [], None, {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name] = f"stack {m.group(1)} B, spill stores {m.group(2)} B, loads {m.group(3)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.append((name, f"{m.group(1)} registers, {usage.get(name, 'no spill line')}"))
+    names = demangle([n for n, _ in found])
+    return [f"{names[n]}: {line}" for n, line in found]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -267,14 +315,24 @@ def phase_kernels() -> dict:
 # (name, B, H, Kh, D, T) of the flash comparisons; the first is timed.
 FLASH_GEOMETRIES = (("llama3_1b", 2, 16, 8, 128, 8192), ("llama3_8b", 2, 32, 8, 128, 8192))
 # Tolerance of every flash comparison (o, lse, dq, dk, dv; bf16 and fp32
-# inputs), absolute only: kernel and plain version both compute in fp32 and
-# differ in summation order alone. The largest |kernel - plain| measured on
-# an H100 over all these cases is 1.9e-6 (lse near 10, gradients up to ~11),
-# so 2e-5 keeps a 10x margin. phase_flash also plants a fault (one 64-row
-# tile dropped) and requires each reading to lie far outside this limit.
+# inputs), absolute only. On bf16 inputs the forward and dk/dv run on tensor
+# cores with each fp32 operand (p, ds, do) split into three bf16 terms and
+# the six leading products of p^T do kept, so every product is exact and the
+# kernels differ from an exact computation in the order and rounding of the
+# sums alone (mma truncates each result toward zero). fp32 sums over the
+# 16,384 queries of a llama3_1b KV head at T 8192, which the plain dk/dv
+# versions took before, lie several times 1e-5 from the exact sums, so the
+# plain dk/dv versions sum in fp64; flash_dkv_against_fp64 holds the kernel
+# and both plain versions to this limit against an fp64 computation and
+# prints how far the fp32 sums lie. The largest |kernel - plain| over these
+# cases was 3.5e-6 (dk/dv at llama3_8b), 6x inside 2e-5.
+# phase_flash also plants a fault (one tile dropped) and requires each
+# reading to lie far outside this limit.
 FLASH_TOL = 2e-5
-# The kernels' tile edge: the fault plants drop one tile of this many rows.
+# The kernels' tile edges: the forward's and dq's KV tiles, and dk/dv's q
+# tiles. The fault plants drop one tile of this many rows.
 FLASH_TILE = 64
+FLASH_DKV_Q_TILE = 32
 
 
 def flash_inputs(b, h, kh, d, t, dtype, seed):
@@ -320,6 +378,79 @@ def flash_compare(label, q3, k3, v3, do3, causal) -> dict:
     return errs
 
 
+def flash_dkv_against_fp64(label, q3, k3, v3, do3) -> None:
+    """dk/dv against an exact computation: per KV head, scores, p, ds and the
+    sums over every query in fp64 from the same inputs, lse and delta. The
+    tensor-core kernel, the plain version and the splash plain version at
+    window 0 (the yardsticks of every dk/dv comparison) must each lie within
+    FLASH_TOL of it. The plain version's own p and ds summed by fp32 GEMMs,
+    as the plain versions summed them before they took fp64 sums, are read
+    beside them with the device kernels those GEMMs ran, and not held to the
+    limit: batched over the KV heads (the former form) and one KV head at a
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    bkh, t, d = k3.shape
+    n_rep = q3.shape[0] // bkh
+    ro, lse = flash.flash_fwd_plain(q3, k3, v3, True)
+    delta = (do3 * ro).sum(-1)
+    del ro
+    args = (q3, k3, v3, do3, lse, delta)
+    runs = {"tensor-core kernel": flash.flash_bwd_dkv(*args, True),
+            "plain version": flash.flash_bwd_dkv_plain(*args, True),
+            "splash plain version (window 0)": splash.splash_bwd_dkv_plain(*args, None, None,
+                                                                          True, 0)}
+    mask = torch.ones(t, t, dtype=torch.bool, device=q3.device).tril()
+    worst = dict.fromkeys(runs, 0.0)
+    for g in range(bkh):
+        rows = slice(g * n_rep, (g + 1) * n_rep)
+        qq, dd = q3[rows].double(), do3[rows].double()
+        s = torch.einsum("rtd,sd->rts", qq, k3[g].double()) / d ** 0.5
+        p = torch.exp(s - lse[rows].double()[..., None]).masked_fill_(~mask, 0.0)
+        del s
+        dp = torch.einsum("rtd,sd->rts", dd, v3[g].double())
+        ds = p * (dp - delta[rows].double()[..., None]) / d ** 0.5
+        del dp
+        exact = (torch.einsum("rts,rtd->sd", ds, qq), torch.einsum("rts,rtd->sd", p, dd))
+        del p, ds
+        for run, got in runs.items():
+            err = max(float((x[g].double() - e).abs().max()) for x, e in zip(got, exact))
+            worst[run] = max(worst[run], err)
+    for run, err in worst.items():
+        if not err <= FLASH_TOL:
+            raise AssertionError(f"flash_bwd_dkv {label}: the {run} lies {err:.3e} from fp64"
+                                 f" sums, beyond atol {FLASH_TOL:g}")
+    log(f"kernel flash_bwd_dkv {label}: max |x - fp64| over the {bkh} KV heads: "
+        + ", ".join(f"{run} {err:.3e}" for run, err in worst.items())
+        + f" (atol {FLASH_TOL:g}) ok")
+
+    q, do = flash._grouped(q3, bkh), flash._grouped(do3, bkh)
+    blocks = [(s0, s1, p, ds, q[:, :, r0:], do[:, :, r0:])
+              for s0, s1, r0, p, ds, _ in flash._bwd_blocks(*args, True)]
+    forms = {"batched over the KV heads": lambda a, b: torch.einsum("grts,grtd->gsd", a, b),
+             "one KV head at a time": lambda a, b: [torch.einsum("rts,rtd->sd", x, y)
+                                                    for x, y in zip(a, b)]}
+    plain_dk, plain_dv = runs["plain version"]
+    for form, gemm in forms.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sums = [(gemm(ds, qb), gemm(p, dob)) for _, _, p, ds, qb, dob in blocks]
+            torch.cuda.synchronize()
+        drift = 0.0
+        for (s0, s1, *_), (dk, dv) in zip(blocks, sums):
+            for got, want in ((dk, plain_dk), (dv, plain_dv)):
+                drift = max(drift, max(float((x - w[s0:s1]).abs().max())
+                                       for x, w in zip(got, want)))
+        kernels = sorted(f"{e.key[:120]} x{e.count}" for e in prof.key_averages()
+                         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0)
+        log(f"fp32 sums of the plain version's p and ds {label}, {form}: max |fp32 - fp64"
+            f" sums| {drift:.3e} (not held to the limit); device kernels: {'; '.join(kernels)}")
+    del runs, blocks, forms
+    torch.cuda.empty_cache()
+
+
 def flash_planted_faults(label, q3, k3, v3, do3) -> None:
     """What a kernel that skipped one tile would read against the plain
     version, computed by the plain versions: the forward and dq without the
@@ -339,22 +470,22 @@ def flash_planted_faults(label, q3, k3, v3, do3) -> None:
     dq = flash.flash_bwd_dq_plain(q3, k3, v3, do3, rlse, delta, True)
     fdq = flash.flash_bwd_dq_plain(q3, k3[:, :keep], v3[:, :keep], do3, rlse, delta, True)
     cut_do, cut_delta = do3.clone(), delta.clone()
-    cut_do[:, -FLASH_TILE:] = 0
-    cut_delta[:, -FLASH_TILE:] = 0
+    cut_do[:, -FLASH_DKV_Q_TILE:] = 0
+    cut_delta[:, -FLASH_DKV_Q_TILE:] = 0
     dkv = flash.flash_bwd_dkv_plain(q3, k3, v3, do3, rlse, delta, True)
     fdkv = flash.flash_bwd_dkv_plain(q3, k3, v3, cut_do, rlse, cut_delta, True)
     readings = {
-        "flash_fwd": ("last KV tile", (fo, flse), (ro, rlse)),
-        "flash_bwd_dq": ("last KV tile", (fdq,), (dq,)),
-        "flash_bwd_dkv": ("last q tile", fdkv, dkv),
+        "flash_fwd": ("last KV tile", FLASH_TILE, (fo, flse), (ro, rlse)),
+        "flash_bwd_dq": ("last KV tile", FLASH_TILE, (fdq,), (dq,)),
+        "flash_bwd_dkv": ("last q tile", FLASH_DKV_Q_TILE, fdkv, dkv),
     }
-    for name, (tile, fault, ref) in readings.items():
+    for name, (tile, rows, fault, ref) in readings.items():
         err = max(float((f - r).abs().max()) for f, r in zip(fault, ref))
         if not err > 10 * FLASH_TOL:
             raise AssertionError(
                 f"{name}: a dropped {tile} reads {err:.3e}, within 10x of atol {FLASH_TOL:g}"
             )
-        log(f"planted fault {name} {label} ({tile} of {FLASH_TILE} rows dropped): max |fault -"
+        log(f"planted fault {name} {label} ({tile} of {rows} rows dropped): max |fault -"
             f" plain| {err:.3e} = {err / FLASH_TOL:.0f}x atol {FLASH_TOL:g}; the check fails it")
     del ro, rlse, fo, flse, dq, fdq, dkv, fdkv
     torch.cuda.empty_cache()
@@ -391,10 +522,21 @@ def phase_flash() -> dict:
 
     from dstack_tpu_torch.workloads.kernels import flash
 
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        log(f"kernel {name} bf16 D=128 runs: {flash.instantiation(name, torch.bfloat16, 128)}")
     report = {}
     for i, (label, b, h, kh, d, t) in enumerate(FLASH_GEOMETRIES):
         x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=10 + i)
         errs = flash_compare(label, *x, causal=True)
+        if i == 0:
+            # dk/dv as training feeds it: do holds bf16 values (the model
+            # casts o to bf16), so the kernel skips do's zero low planes.
+            q3, k3, v3, do3 = x
+            errs_bf16_do = flash_compare(f"{label} (do of bf16 values)", q3, k3, v3,
+                                         do3.bfloat16().float(), causal=True)
+            errs = {n: max(e, errs_bf16_do[n]) for n, e in errs.items()}
+            for do_label, d_o in (("fp32 do", do3), ("do of bf16 values", do3.bfloat16().float())):
+                flash_dkv_against_fp64(f"{label}, {do_label}", q3, k3, v3, d_o)
         for name, err in errs.items():
             entry = report.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -454,6 +596,10 @@ def flash_timing(label, b, h, kh, d, t, q3, k3, v3, do3) -> dict:
             f" {entry['plain_ms']:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'}"
             f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']})")
+    do_bf16 = do3.bfloat16().float()
+    ms = time_ms(lambda: flash.flash_bwd_dkv(q3, k3, v3, do_bf16, lse, delta, True))
+    log(f"kernel flash_bwd_dkv {label} bf16 timing with a do of bf16 values (training's"
+        f" inputs): {ms:.4f} ms")
     return out
 
 
@@ -465,8 +611,9 @@ SPLASH_GEOMETRY = (2, 16, 8, 128, 8192)
 SPLASH_WINDOWS = (4096, 0, 1024)
 # Four packed documents of uneven length in each 8192-token row.
 SPLASH_DOCS = (3000, 1500, 2692, 1000)
-# Tolerance of every splash comparison, as flash's: kernel and plain version
-# compute in fp32 and differ in summation order alone.
+# Tolerance of every splash comparison, as flash's: the CUDA-core kernels
+# compute in fp32 and differ from the plain versions (whose dk/dv sums are
+# fp64) in the order and rounding of the sums.
 SPLASH_TOL = FLASH_TOL
 # The kernels' tile edge (bf16 and fp32 at D 128): the bounds of the planted
 # faults follow it.
@@ -1368,6 +1515,9 @@ def main() -> int:
     t0 = time.monotonic()
     libs = build.build_all()
     log(f"build: {', '.join(p.name for p in libs)} in {time.monotonic() - t0:.1f} s")
+    for name, text in sorted(build.build_logs.items()):
+        for line in ptxas_summary(text):
+            log(f"ptxas {name}: {line}")
 
     report = phase_kernels()
     report.update(phase_flash())

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles into ``<repo>/build/torch_kernels/
 <name>-<hash>.so``, a shared library with a plain C interface loaded through
-``ctypes``; the hash covers the source and the compiler flags, so an edited
-source builds anew and an unchanged one loads the library already built.
+``ctypes``; the hash covers the source, every header in ``csrc/`` (the
+sources include them) and the compiler flags, so an edited source or header
+builds anew and an unchanged one loads the library already built. The
+compiler's output of each build (``-Xptxas -v``: registers, spills and
+shared memory per kernel) stays in ``build_logs``.
 Builds happen at first use (or all at once, in parallel, through
 ``build_all``), never at import. A missing ``nvcc`` or a failed build raises:
 there is no fallback to the plain PyTorch versions on a CUDA device.
@@ -25,11 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc's output per source built by this process.
+build_logs: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -52,9 +57,10 @@ def nvcc_argv(nvcc: str, source: Path, output: Path) -> List[str]:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
-    the source and of the flags."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes())
+    the source, of every ``csrc/*.cuh`` header and of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -88,6 +94,7 @@ def build_all(names: Sequence[str] = ()) -> List[Path]:
                 tmp.unlink(missing_ok=True)
                 failures.append(f"{' '.join(argv)}\n{log}")
             else:
+                build_logs[name] = log
                 os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

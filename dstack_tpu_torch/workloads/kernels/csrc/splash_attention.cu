@@ -25,7 +25,14 @@
 //     truncates toward zero, the reference floors), hi = the tile after the
 //     one holding the tile's last row (causal);
 //   - dk/dv: KV tile [k0, k0 + TILE) walks q tiles [k0 / TILE, hi), hi = the
-//     tile after the one holding row last_key + window - 1.
+//     tile after the one holding row last_key + window - 1. It walks them
+//     from the farthest (hi - 1) toward the diagonal, the n_rep heads
+//     interleaved per q tile and each tile's queries last to first: the
+//     fp32 FMAs into dk and dv then meet the small terms first, while the
+//     sums are still small. fp32 sums walked from the diagonal over the
+//     16,384 queries of a llama3_1b KV head at T 8192 drift from the exact
+//     sums by about twice the tolerance against flash's tensor-core dk/dv
+//     (chip_smoke.py prints the drift of fp32 GEMMs walked so).
 // Inside a live tile the element mask applies; document ids are element
 // masks only, as on the TPU (a tile wholly across documents is still read).
 //
@@ -159,11 +166,13 @@ __device__ __forceinline__ void dot_rows(float (&acc)[R][R], const TA* A, int ld
 
 // out[i][jj] += sum_c P[ty*R + i][c] * V[c][tx + 16 jj]: P a float score
 // tile, V a shared tile whose rows past the valid ones are zero.
-template <int R, int NJ, int TILE, typename TV>
+// With LAST_FIRST the columns run from c = TILE - 1 down to 0.
+template <int R, int NJ, int TILE, bool LAST_FIRST = false, typename TV>
 __device__ __forceinline__ void add_pv(float (&out)[R][NJ], const float* P, int ldp,
                                        const TV* V, int ldv, int ty, int tx) {
 #pragma unroll 2
-  for (int c = 0; c < TILE; ++c) {
+  for (int cc = 0; cc < TILE; ++cc) {
+    const int c = LAST_FIRST ? TILE - 1 - cc : cc;
     float p[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) p[i] = P[(ty * R + i) * ldp + c];
@@ -413,10 +422,12 @@ __global__ void __launch_bounds__(THREADS)
     for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
   }
 
-  for (int rep = 0; rep < bd.n_rep; ++rep) {
-    const size_t row_base = (static_cast<size_t>(bkh) * bd.n_rep + rep) * bd.t_len;
-    for (int iq = iq_lo; iq < iq_hi; ++iq) {
-      const int q0 = iq * TILE;
+  // From the farthest q tile of the band toward the diagonal, the heads
+  // interleaved (see the note at the top).
+  for (int iq = iq_hi - 1; iq >= iq_lo; --iq) {
+    const int q0 = iq * TILE;
+    for (int rep = 0; rep < bd.n_rep; ++rep) {
+      const size_t row_base = (static_cast<size_t>(bkh) * bd.n_rep + rep) * bd.t_len;
       __syncthreads();
       load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, bd.t_len);
       load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, bd.t_len);
@@ -447,8 +458,8 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
       __syncthreads();
-      add_pv<R, NJ, TILE>(dv_acc, p_s, LDS, do_s, LDF, ty, tx);
-      add_pv<R, NJ, TILE>(dk_acc, ds_s, LDS, q_s, LD, ty, tx);
+      add_pv<R, NJ, TILE, true>(dv_acc, p_s, LDS, do_s, LDF, ty, tx);
+      add_pv<R, NJ, TILE, true>(dk_acc, ds_s, LDS, q_s, LD, ty, tx);
     }
   }
 

@@ -7,7 +7,10 @@ through ``_flash_fwd_3d``; ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
 through ``_flash_bwd_3d``); the source is ``csrc/flash_attention.cu``. Each
 wrapper takes the plain version for tensors that lie on the CPU, and
 launches its kernel for CUDA tensors or raises; ``launches`` counts the
-kernel launches per wrapper.
+kernel launches per wrapper. The forward and dk/dv run on bf16 tensor cores
+for bf16 inputs at D = 32, 64 and 128, with fp32 operands split into bf16
+terms so that every product stays exact; fp32 inputs, other head dims and
+dq run on CUDA cores (``instantiation`` names what a launch runs).
 
 Layout is the Pallas kernels': q3 [B*H, T, D], k3/v3 [B*Kh, S, D], with the
 query heads of one KV head adjacent (row b*H + g*n_rep + r reads KV row
@@ -163,14 +166,21 @@ def flash_bwd_dkv_plain(
     q3, k3, v3, do3, lse, delta, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B*Kh, S, D] fp32 of ``_bwd_dkv_kernel``: each KV block sums
-    p^T @ do and ds^T @ q over the n_rep query heads of its KV row."""
+    p^T @ do and ds^T @ q over the n_rep query heads of its KV row.
+
+    Those sums run over up to n_rep x T products of fp32 values, and they
+    are taken in fp64 (rounded to fp32 once, at the end): summed by fp32
+    GEMMs over the 16,384 queries of a llama3_1b KV head at T 8192, they
+    drift from the exact sums by about twice the kernels' tolerance on an
+    H100. ``chip_smoke.py`` holds these sums, and the kernel, to that
+    tolerance against an fp64 computation and prints the fp32 drift."""
     bkh = k3.shape[0]
-    q, do = _grouped(q3, bkh), _grouped(do3, bkh)
+    q, do = _grouped(q3, bkh).double(), _grouped(do3, bkh).double()
     dk = torch.zeros(k3.shape, dtype=torch.float32, device=k3.device)
     dv = torch.zeros_like(dk)
     for s0, s1, r0, p, ds, _ in _bwd_blocks(q3, k3, v3, do3, lse, delta, causal):
-        dv[:, s0:s1] = torch.einsum("grts,grtd->gsd", p, do[:, :, r0:])
-        dk[:, s0:s1] = torch.einsum("grts,grtd->gsd", ds, q[:, :, r0:])
+        dv[:, s0:s1] = torch.einsum("grts,grtd->gsd", p.double(), do[:, :, r0:]).float()
+        dk[:, s0:s1] = torch.einsum("grts,grtd->gsd", ds.double(), q[:, :, r0:]).float()
     return dk, dv
 
 
@@ -191,7 +201,20 @@ def _library() -> ctypes.CDLL:
         fn.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_instantiation.argtypes = [i32, i32, i32]
+    lib.flash_instantiation.restype = ctypes.c_char_p
     return lib
+
+
+def instantiation(name: str, dtype: torch.dtype, d: int) -> str:
+    """What a launch of wrapper ``name`` runs on the card for inputs of
+    ``dtype`` and head dim ``d``, as the library's dispatch decides it (the
+    kernel, its route and its mma work a live pair). Builds the library."""
+    which = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").index(name)
+    desc = _library().flash_instantiation(which, _DTYPE_CODES[dtype], d)
+    if desc is None:
+        raise ValueError(f"{name}: no kernel for {dtype} at D={d}")
+    return f"{desc.decode()}, D={d}"
 
 
 def _on_cpu(*tensors) -> bool:

@@ -211,15 +211,16 @@ def splash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool,
                          window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B*Kh, S, D] fp32 of ``_splash_bwd_dkv_kernel``: each KV
     block sums p^T @ do and ds^T @ q over the n_rep query heads of its KV
-    row and the rows of its transposed band."""
+    row and the rows of its transposed band, in fp64 and rounded to fp32
+    once (as ``flash.flash_bwd_dkv_plain``, whose docstring says why)."""
     bkh = k3.shape[0]
-    q, do = _grouped(q3, bkh), _grouped(do3, bkh)
+    q, do = _grouped(q3, bkh).double(), _grouped(do3, bkh).double()
     dk = torch.zeros(k3.shape, dtype=torch.float32, device=k3.device)
     dv = torch.zeros_like(dk)
     for s0, s1, r0, r1, p, ds, _ in _bwd_blocks(q3, k3, v3, do3, lse, delta, docq, dock,
                                                 causal, window):
-        dv[:, s0:s1] = torch.einsum("grts,grtd->gsd", p, do[:, :, r0:r1])
-        dk[:, s0:s1] = torch.einsum("grts,grtd->gsd", ds, q[:, :, r0:r1])
+        dv[:, s0:s1] = torch.einsum("grts,grtd->gsd", p.double(), do[:, :, r0:r1]).float()
+        dk[:, s0:s1] = torch.einsum("grts,grtd->gsd", ds.double(), q[:, :, r0:r1]).float()
     return dk, dv
 
 

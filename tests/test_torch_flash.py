@@ -12,8 +12,14 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   tests' tolerance for the same check);
 - the dispatch (block-divisible lengths, the blockwise fallback, the
   ``flash_tpu`` contract, meshes not ported), the wrappers' CPU path and
-  launch counters, and the build of the CUDA source.
+  launch counters, and the build of the CUDA source (its library path
+  follows the headers it includes);
+- the split-bf16 products of the tensor-core kernels, emulated in fp64:
+  three bf16 terms hold fp32 values exactly, and every product the kernels
+  issue stays within half the card tolerance.
 """
+
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -210,11 +216,100 @@ class TestWrappers:
         argv = build.nvcc_argv("nvcc", build.CSRC_DIR / "flash_attention.cu", tmp_path / "x.so")
         assert "arch=compute_90a,code=sm_90a" in argv
 
+    def test_library_path_changes_when_a_header_changes(self, tmp_path, monkeypatch):
+        """The sources include ``csrc/*.cuh``, so an edited header must build a
+        new library and never load one built from the old header."""
+        csrc = tmp_path / "csrc"
+        shutil.copytree(build.CSRC_DIR, csrc)
+        monkeypatch.setattr(build, "CSRC_DIR", csrc)
+        before = build.library_path("flash_attention")
+        assert build.library_path("flash_attention") == before  # stable
+        header = csrc / "attention_mma.cuh"
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = build.library_path("flash_attention")
+        assert after != before and after.parent == before.parent
+        (csrc / "extra.cuh").write_text("// a new header\n")
+        assert build.library_path("flash_attention") not in (before, after)
+
+
+# -- the split-bf16 products of the tensor-core kernels ----------------------
+#
+# csrc/flash_attention.cu runs the forward and dk/dv on bf16 tensor cores and
+# keeps the fp32 contract by writing each fp32 operand as a sum of bf16 terms
+# (t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1)) with one mma per
+# term: P.V with P in 3 terms, dS^T.Q with dS^T in 3 terms, V.dO^T over the 3
+# planes of dO, and P^T.dO over the 6 products of terms i + j < 3. Below, an
+# emulation of exactly those products in fp64 on one head of the llama3_1b
+# geometry (D 128), cut to T 512.
+
+SPLIT_TERMS = 3
+PDO_PRODUCTS = [(i, j) for i in range(SPLIT_TERMS) for j in range(SPLIT_TERMS) if i + j < SPLIT_TERMS]
+
+
+def split_bf16(x32: torch.Tensor, terms: int = SPLIT_TERMS):
+    """The bf16 terms of fp32 values, as fp64 tensors; each residual is
+    exact in fp32."""
+    out, r = [], x32.clone()
+    for _ in range(terms):
+        t_ = r.to(torch.bfloat16).to(torch.float32)
+        out.append(t_.double())
+        r = r - t_
+    return out
+
+
+@pytest.fixture(scope="module")
+def split_operands():
+    """One causal head at T 512, D 128: bf16 q, k, v, fp32 do, and the fp32
+    p and ds the kernels compute (here in fp64, then rounded to fp32)."""
+    rng = np.random.RandomState(40)
+    t_len, d = 512, 128
+    q, k, v = (torch.from_numpy(rng.randn(t_len, d)).to(torch.bfloat16).double() for _ in range(3))
+    do = torch.from_numpy(rng.randn(t_len, d).astype(np.float32))
+    s = (q @ k.T) / np.sqrt(d)
+    s = s.masked_fill(torch.ones(t_len, t_len, dtype=torch.bool).triu(1), -np.inf)
+    p = torch.softmax(s, -1)
+    o = p @ v
+    delta = (do.double() * o).sum(-1, keepdim=True)
+    ds = p * (do.double() @ v.T - delta) / np.sqrt(d)
+    return dict(q=q, k=k, v=v, do=do, p=p.float(), ds=ds.float())
+
+
+def test_three_bf16_terms_hold_fp32_values_exactly(split_operands):
+    rng = np.random.RandomState(41)
+    wide = torch.from_numpy((rng.randn(4096) * np.exp(rng.uniform(-60, 60, 4096))).astype(np.float32))
+    for name, x in (("p", split_operands["p"]), ("ds", split_operands["ds"]),
+                    ("do", split_operands["do"]), ("wide", wide)):
+        terms = split_bf16(x)
+        assert torch.equal(sum(terms), x.double()), name
+        # Two terms are not enough: the third holds bits of most values.
+        assert not torch.equal(sum(terms[:2]), x.double()), name
+
+
+def test_split_products_stay_within_half_the_card_tolerance(split_operands):
+    """Each product the kernels issue, from the kept terms, against the fp64
+    product of the fp32 operands: under 1e-5 (half of chip_smoke.py's atol
+    2e-5); one bf16 term alone would be far outside it."""
+    x = split_operands
+    p, ds, do = x["p"], x["ds"], x["do"]
+    pt, dst, dot = split_bf16(p), split_bf16(ds), split_bf16(do)
+    products = {
+        "P.V": (sum(t_ @ x["v"] for t_ in pt), p.double() @ x["v"], pt[0] @ x["v"]),
+        "dS^T.Q": (sum(t_.T @ x["q"] for t_ in dst), ds.double().T @ x["q"], dst[0].T @ x["q"]),
+        "V.dO^T": (sum(x["v"] @ t_.T for t_ in dot), x["v"] @ do.double().T, x["v"] @ dot[0].T),
+        "P^T.dO": (sum(pt[i].T @ dot[j] for i, j in PDO_PRODUCTS), p.double().T @ do.double(),
+                   pt[0].T @ dot[0]),
+    }
+    for name, (kept, exact, one_term) in products.items():
+        err = float((kept - exact).abs().max())
+        assert err < 1e-5, f"{name}: {err:.3e}"
+        assert float((one_term - exact).abs().max()) > 1e-5, name
+
 
 # Card tolerance, atol only: the largest |kernel - plain| measured by
-# chip_smoke.py on an H100 is 1.9e-6 (o, lse and gradients alike), so 2e-5
-# keeps a 10x margin; a kernel that drops one 64-row tile is off by far more
-# (chip_smoke.py prints that reading beside the limit).
+# chip_smoke.py on an H100 is 3.1e-6 (dk/dv of the tensor-core kernel at T
+# 8192, against plain sums taken in fp64), 6x inside 2e-5; a kernel that
+# drops one tile is off by far more (chip_smoke.py prints that reading
+# beside the limit).
 CARD_TOL = 2e-5
 
 
