@@ -11,28 +11,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              against its plain PyTorch version (fp32 outputs; bf16 inputs at
              atol 1e-4 / rtol 1e-3, where only the summation order differs,
              and fp32 inputs at atol 1e-5 / rtol 1e-5), and its time beside
-             the plain version's, a library yardstick's and its bound;
+             the plain version's, a library yardstick's and its bound; the
+             readings of planted chunk faults (the walk one page short, the
+             causal edge one position late), which those limits must fail;
+             the chunk kernel at other page sizes (12, 32, 64), head dims
+             and GQA ratios.
+             The bf16 chunk kernel at D 32/64/128 runs on tensor cores
+             (mma.sync, P split into bf16 terms); decode, fp32 and other
+             head dims run on CUDA cores. The log names each instantiation;
 3. flash   - the flash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b and llama3_8b attention geometry (B 2,
              T = S = 8192, bf16, causal), plus fp32 inputs, a ragged last
              tile (T = 72), causal=False and a do of bf16 values (what
-             training feeds dk/dv), all at atol 2e-5; at llama3_1b the
-             dk/dv kernel and the plain dk/dv versions (flash, and splash at
-             window 0) against fp64 sums per KV head, at the same limit; the
-             readings of planted faults (one tile dropped), which that limit
-             must fail;
+             training feeds dq and dk/dv), all at atol 2e-5; at llama3_1b
+             the dq and dk/dv kernels and the plain versions (flash dq and
+             dk/dv, and splash dk/dv at window 0) against fp64 sums per
+             head, at the same limit; the readings of planted faults (one
+             tile dropped), which that limit must fail;
              times at llama3_1b beside the plain versions', SDPA's and the
-             bounds. On bf16 inputs at D 32/64/128 the forward and dk/dv run
-             on tensor cores (mma.sync with split-bf16 operands, so that the
-             products stay exact); dq, fp32 inputs and other head dims run on
-             CUDA cores. The log names the instantiation each launch runs;
+             bounds, dq and dk/dv also on a do of bf16 values. On bf16
+             inputs at D 32/64/128 all three run on tensor cores (mma.sync
+             with split-bf16 operands, so that the products stay exact);
+             fp32 inputs and other head dims run on CUDA cores. The log
+             names the instantiation each launch runs;
 4. serve   - the serving engine on llama3_8b (full width and depth, bf16,
              synthetic weights from a seeded torch.Generator) answers 16
              requests through EngineRunner.submit, whole-prompt and with
              prefill_chunk=512; the kernels' launch counts must match the
              decode steps and chunk steps of that run; then torch.profiler
-             over a prefill step and five decode steps says where the time
-             goes;
+             over a prefill step, five decode steps and one chunk step (16
+             mid-prefill slots at prefill_chunk=512) says where the time
+             goes and the chunk kernel's share of a chunk step;
 5. identity- in fp32 (llama3_8b width, 2 layers) the kernel engine is
              token-identical to the plain engine, whole-prompt and chunked,
              and to the full-forward greedy reference on two prompts;
@@ -245,11 +254,91 @@ def kernel_bounds(x):
     return out
 
 
+def log_instantiations(module, names, tensor_core) -> None:
+    """Print what each wrapper runs at bf16 D 128, fp32 D 128 and bf16 D 96,
+    and fail unless the wrappers in ``tensor_core`` run on tensor cores
+    exactly at bf16 D 128 and the others never do."""
+    import torch
+
+    for name in names:
+        for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.bfloat16, 96)):
+            desc = module.instantiation(name, dtype, d)
+            log(f"kernel {name} {str(dtype)[6:]} D={d} runs: {desc}")
+            want = name in tensor_core and dtype == torch.bfloat16 and d == 128
+            if desc.startswith("bf16 tensor cores") != want:
+                raise AssertionError(f"{name} {dtype} D={d} runs {desc}")
+
+
+def paged_planted_faults(label, x, atol, rtol) -> None:
+    """What a chunk kernel with an off-by-one would read against the plain
+    version, computed by the plain version on shifted inputs: the walk one
+    page short (each slot's kv_len cut back to the start of its last page,
+    so every row that sees into that page loses it) and the causal edge one
+    position late (starts + 1: row i also sees position start + i + 1 where
+    the slot holds it). Each reading, in units of the limit (|fault - plain|
+    / (atol + rtol |plain|), which assert_close fails above 1), must lie
+    over 10."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    args = (x["qc"], x["k_pages"], x["v_pages"], x["table"])
+    lens, starts = x["kv_lens"], x["starts"]
+    ref = paged.paged_chunk_attention_plain(*args, starts, lens)
+    short = torch.where(lens > 0, (lens - 1) // PAGE * PAGE, lens)
+    faults = {"the walk one page short": paged.paged_chunk_attention_plain(*args, starts, short),
+              "the causal edge one position late":
+                  paged.paged_chunk_attention_plain(*args, starts + 1, lens)}
+    for fault, got in faults.items():
+        diff = (got - ref).abs()
+        err = float(diff.max())
+        excess = float((diff / (atol + rtol * ref.abs())).max())
+        if not excess > 10:
+            raise AssertionError(f"paged_chunk_attention {label}: {fault} reads {err:.3e},"
+                                 f" {excess:.2f}x the limit")
+        log(f"planted fault paged_chunk_attention {label} ({fault}): max |fault - plain|"
+            f" {err:.3e} = {excess:.0f}x the limit (atol {atol:g}, rtol {rtol:g}); the check"
+            f" fails it")
+
+
+def paged_chunk_shapes() -> None:
+    """The chunk kernel off the serving example's geometry, against the plain
+    version (bf16, atol 1e-4 / rtol 1e-3): pages of 12 rows (a 64-key tile
+    gathers across page boundaries), 32 and 64 rows, D 64 and 32, n_rep 1,
+    2 and 8; three slots of 100 chunk rows (kv_len 0; 90 from position 0;
+    300 from position 250) in a shuffled pool."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    lens = torch.tensor([0, 90, 300], dtype=torch.int32, device="cuda")
+    starts = torch.tensor([0, 0, 250], dtype=torch.int32, device="cuda")
+    for page, d, n_rep in ((12, 128, 4), (16, 64, 1), (32, 32, 2), (64, 128, 8)):
+        gen = torch.Generator(device="cuda").manual_seed(page)
+        n_pages = -(-300 // page)
+        pool = 3 * n_pages + 2
+        k_pages, v_pages = (torch.randn((pool, page, 2, d), generator=gen, device="cuda").bfloat16()
+                            for _ in range(2))
+        table = torch.from_numpy(
+            np.random.RandomState(page).permutation(pool)[:3 * n_pages].reshape(3, n_pages)
+        ).int().cuda()
+        qc = torch.randn((3, 100, 2 * n_rep, d), generator=gen, device="cuda").bfloat16()
+        args = (qc, k_pages, v_pages, table, starts, lens)
+        got, ref = paged.paged_chunk_attention_cuda(*args), paged.paged_chunk_attention_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+        if bool(got[0].abs().max() != 0):
+            raise AssertionError(f"page {page}: kv_len 0 rows are not zero")
+        log(f"kernel paged_chunk_attention bf16 page {page} D={d} n_rep {n_rep}: max_abs_err"
+            f" {float((got - ref).abs().max()):.3e} (atol 1e-4, rtol 1e-3) ok")
+
+
 def phase_kernels() -> dict:
     import torch
 
     from dstack_tpu_torch.workloads.kernels import paged
 
+    log_instantiations(paged, paged.launches, {"paged_chunk_attention"})
     report = {}
     for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 1e-3)):
         x = kernel_inputs(dtype)
@@ -279,6 +368,7 @@ def phase_kernels() -> dict:
                 f" (atol {atol:g}, rtol {rtol:g}) ok")
             if dtype == torch.bfloat16:
                 report[name] = {"max_abs_err": err, "kernel": kernel, "plain": plain}
+        paged_planted_faults(str(dtype)[6:], x, atol, rtol)
         if dtype == torch.bfloat16:
             bounds = kernel_bounds(x)
             k_dense, v_dense = dense_kv(x)
@@ -307,6 +397,7 @@ def phase_kernels() -> dict:
             del k_dense, v_dense
         del x
         torch.cuda.empty_cache()
+    paged_chunk_shapes()
     return report
 
 
@@ -315,23 +406,25 @@ def phase_kernels() -> dict:
 # (name, B, H, Kh, D, T) of the flash comparisons; the first is timed.
 FLASH_GEOMETRIES = (("llama3_1b", 2, 16, 8, 128, 8192), ("llama3_8b", 2, 32, 8, 128, 8192))
 # Tolerance of every flash comparison (o, lse, dq, dk, dv; bf16 and fp32
-# inputs), absolute only. On bf16 inputs the forward and dk/dv run on tensor
+# inputs), absolute only. On bf16 inputs the three kernels run on tensor
 # cores with each fp32 operand (p, ds, do) split into three bf16 terms and
 # the six leading products of p^T do kept, so every product is exact and the
 # kernels differ from an exact computation in the order and rounding of the
 # sums alone (mma truncates each result toward zero). fp32 sums over the
 # 16,384 queries of a llama3_1b KV head at T 8192, which the plain dk/dv
 # versions took before, lie several times 1e-5 from the exact sums, so the
-# plain dk/dv versions sum in fp64; flash_dkv_against_fp64 holds the kernel
-# and both plain versions to this limit against an fp64 computation and
-# prints how far the fp32 sums lie. The largest |kernel - plain| over these
-# cases was 3.5e-6 (dk/dv at llama3_8b), 6x inside 2e-5.
+# plain dk/dv versions sum in fp64; flash_bwd_against_fp64 holds the dq and
+# dk/dv kernels and their plain versions to this limit against an fp64
+# computation and prints how far the fp32 dk/dv sums lie. The largest
+# |kernel - plain| over these cases was 3.5e-6 (dk/dv at llama3_8b), 6x
+# inside 2e-5.
 # phase_flash also plants a fault (one tile dropped) and requires each
 # reading to lie far outside this limit.
 FLASH_TOL = 2e-5
-# The kernels' tile edges: the forward's and dq's KV tiles, and dk/dv's q
-# tiles. The fault plants drop one tile of this many rows.
+# The kernels' tile edges: the forward's KV tiles, dq's KV tiles and dk/dv's
+# q tiles. The fault plants drop one tile of this many rows.
 FLASH_TILE = 64
+FLASH_DQ_KV_TILE = 32
 FLASH_DKV_Q_TILE = 32
 
 
@@ -378,16 +471,16 @@ def flash_compare(label, q3, k3, v3, do3, causal) -> dict:
     return errs
 
 
-def flash_dkv_against_fp64(label, q3, k3, v3, do3) -> None:
-    """dk/dv against an exact computation: per KV head, scores, p, ds and the
-    sums over every query in fp64 from the same inputs, lse and delta. The
-    tensor-core kernel, the plain version and the splash plain version at
-    window 0 (the yardsticks of every dk/dv comparison) must each lie within
-    FLASH_TOL of it. The plain version's own p and ds summed by fp32 GEMMs,
-    as the plain versions summed them before they took fp64 sums, are read
-    beside them with the device kernels those GEMMs ran, and not held to the
-    limit: batched over the KV heads (the former form) and one KV head at a
-    time."""
+def flash_bwd_against_fp64(label, q3, k3, v3, do3) -> None:
+    """dq and dk/dv against an exact computation: per KV head, scores, p, ds
+    and the sums over every key (dq) and every query (dk, dv) in fp64 from
+    the same inputs, lse and delta. The tensor-core kernels, the plain
+    versions and the splash plain dk/dv at window 0 (the yardsticks of every
+    dq and dk/dv comparison) must each lie within FLASH_TOL of it. The plain
+    dk/dv version's own p and ds summed by fp32 GEMMs, as the plain versions
+    summed them before they took fp64 sums, are read beside them with the
+    device kernels those GEMMs ran, and not held to the limit: batched over
+    the KV heads (the former form) and one KV head at a time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -403,8 +496,11 @@ def flash_dkv_against_fp64(label, q3, k3, v3, do3) -> None:
             "plain version": flash.flash_bwd_dkv_plain(*args, True),
             "splash plain version (window 0)": splash.splash_bwd_dkv_plain(*args, None, None,
                                                                           True, 0)}
+    dq_runs = {"tensor-core kernel": flash.flash_bwd_dq(*args, True),
+               "plain version": flash.flash_bwd_dq_plain(*args, True)}
     mask = torch.ones(t, t, dtype=torch.bool, device=q3.device).tril()
     worst = dict.fromkeys(runs, 0.0)
+    worst_dq = dict.fromkeys(dq_runs, 0.0)
     for g in range(bkh):
         rows = slice(g * n_rep, (g + 1) * n_rep)
         qq, dd = q3[rows].double(), do3[rows].double()
@@ -415,17 +511,23 @@ def flash_dkv_against_fp64(label, q3, k3, v3, do3) -> None:
         ds = p * (dp - delta[rows].double()[..., None]) / d ** 0.5
         del dp
         exact = (torch.einsum("rts,rtd->sd", ds, qq), torch.einsum("rts,rtd->sd", p, dd))
+        exact_dq = torch.einsum("rts,sd->rtd", ds, k3[g].double())
         del p, ds
         for run, got in runs.items():
             err = max(float((x[g].double() - e).abs().max()) for x, e in zip(got, exact))
             worst[run] = max(worst[run], err)
-    for run, err in worst.items():
-        if not err <= FLASH_TOL:
-            raise AssertionError(f"flash_bwd_dkv {label}: the {run} lies {err:.3e} from fp64"
-                                 f" sums, beyond atol {FLASH_TOL:g}")
-    log(f"kernel flash_bwd_dkv {label}: max |x - fp64| over the {bkh} KV heads: "
-        + ", ".join(f"{run} {err:.3e}" for run, err in worst.items())
-        + f" (atol {FLASH_TOL:g}) ok")
+        for run, got in dq_runs.items():
+            worst_dq[run] = max(worst_dq[run], float((got[rows].double() - exact_dq).abs().max()))
+        del exact, exact_dq
+    for name, found, heads in (("flash_bwd_dq", worst_dq, f"{bkh * n_rep} heads"),
+                               ("flash_bwd_dkv", worst, f"{bkh} KV heads")):
+        for run, err in found.items():
+            if not err <= FLASH_TOL:
+                raise AssertionError(f"{name} {label}: the {run} lies {err:.3e} from fp64"
+                                     f" sums, beyond atol {FLASH_TOL:g}")
+        log(f"kernel {name} {label}: max |x - fp64| over the {heads}: "
+            + ", ".join(f"{run} {err:.3e}" for run, err in found.items())
+            + f" (atol {FLASH_TOL:g}) ok")
 
     q, do = flash._grouped(q3, bkh), flash._grouped(do3, bkh)
     blocks = [(s0, s1, p, ds, q[:, :, r0:], do[:, :, r0:])
@@ -447,28 +549,29 @@ def flash_dkv_against_fp64(label, q3, k3, v3, do3) -> None:
                          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0)
         log(f"fp32 sums of the plain version's p and ds {label}, {form}: max |fp32 - fp64"
             f" sums| {drift:.3e} (not held to the limit); device kernels: {'; '.join(kernels)}")
-    del runs, blocks, forms
+    del runs, dq_runs, blocks, forms
     torch.cuda.empty_cache()
 
 
 def flash_planted_faults(label, q3, k3, v3, do3) -> None:
     """What a kernel that skipped one tile would read against the plain
-    version, computed by the plain versions: the forward and dq without the
-    last KV tile, dk/dv without the last q tile (its do and delta rows set
-    to 0, which removes exactly that tile's terms). Under causal masking the
-    last rows spread their softmax over the most keys, so these tiles carry
-    the smallest weights and their loss is the hardest to see. Each reading
-    must lie far outside FLASH_TOL."""
+    version, computed by the plain versions: the forward and dq without
+    their last KV tile, dk/dv without the last q tile (its do and delta rows
+    set to 0, which removes exactly that tile's terms). Under causal masking
+    the last rows spread their softmax over the most keys, so these tiles
+    carry the smallest weights and their loss is the hardest to see. Each
+    reading must lie far outside FLASH_TOL."""
     import torch
 
     from dstack_tpu_torch.workloads.kernels import flash
 
     keep = k3.shape[1] - FLASH_TILE
+    keep_dq = k3.shape[1] - FLASH_DQ_KV_TILE
     ro, rlse = flash.flash_fwd_plain(q3, k3, v3, True)
     delta = (do3 * ro).sum(-1)
     fo, flse = flash.flash_fwd_plain(q3, k3[:, :keep], v3[:, :keep], True)
     dq = flash.flash_bwd_dq_plain(q3, k3, v3, do3, rlse, delta, True)
-    fdq = flash.flash_bwd_dq_plain(q3, k3[:, :keep], v3[:, :keep], do3, rlse, delta, True)
+    fdq = flash.flash_bwd_dq_plain(q3, k3[:, :keep_dq], v3[:, :keep_dq], do3, rlse, delta, True)
     cut_do, cut_delta = do3.clone(), delta.clone()
     cut_do[:, -FLASH_DKV_Q_TILE:] = 0
     cut_delta[:, -FLASH_DKV_Q_TILE:] = 0
@@ -476,7 +579,7 @@ def flash_planted_faults(label, q3, k3, v3, do3) -> None:
     fdkv = flash.flash_bwd_dkv_plain(q3, k3, v3, cut_do, rlse, cut_delta, True)
     readings = {
         "flash_fwd": ("last KV tile", FLASH_TILE, (fo, flse), (ro, rlse)),
-        "flash_bwd_dq": ("last KV tile", FLASH_TILE, (fdq,), (dq,)),
+        "flash_bwd_dq": ("last KV tile", FLASH_DQ_KV_TILE, (fdq,), (dq,)),
         "flash_bwd_dkv": ("last q tile", FLASH_DKV_Q_TILE, fdkv, dkv),
     }
     for name, (tile, rows, fault, ref) in readings.items():
@@ -522,21 +625,20 @@ def phase_flash() -> dict:
 
     from dstack_tpu_torch.workloads.kernels import flash
 
-    for name in ("flash_fwd", "flash_bwd_dkv"):
-        log(f"kernel {name} bf16 D=128 runs: {flash.instantiation(name, torch.bfloat16, 128)}")
+    log_instantiations(flash, flash.launches, set(flash.launches))
     report = {}
     for i, (label, b, h, kh, d, t) in enumerate(FLASH_GEOMETRIES):
         x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=10 + i)
         errs = flash_compare(label, *x, causal=True)
         if i == 0:
-            # dk/dv as training feeds it: do holds bf16 values (the model
-            # casts o to bf16), so the kernel skips do's zero low planes.
+            # dq and dk/dv as training feeds them: do holds bf16 values (the
+            # model casts o to bf16), so the kernels skip do's zero low planes.
             q3, k3, v3, do3 = x
             errs_bf16_do = flash_compare(f"{label} (do of bf16 values)", q3, k3, v3,
                                          do3.bfloat16().float(), causal=True)
             errs = {n: max(e, errs_bf16_do[n]) for n, e in errs.items()}
             for do_label, d_o in (("fp32 do", do3), ("do of bf16 values", do3.bfloat16().float())):
-                flash_dkv_against_fp64(f"{label}, {do_label}", q3, k3, v3, d_o)
+                flash_bwd_against_fp64(f"{label}, {do_label}", q3, k3, v3, d_o)
         for name, err in errs.items():
             entry = report.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -597,9 +699,10 @@ def flash_timing(label, b, h, kh, d, t, q3, k3, v3, do3) -> dict:
             f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']})")
     do_bf16 = do3.bfloat16().float()
-    ms = time_ms(lambda: flash.flash_bwd_dkv(q3, k3, v3, do_bf16, lse, delta, True))
-    log(f"kernel flash_bwd_dkv {label} bf16 timing with a do of bf16 values (training's"
-        f" inputs): {ms:.4f} ms")
+    for name, kernel in (("flash_bwd_dq", flash.flash_bwd_dq), ("flash_bwd_dkv", flash.flash_bwd_dkv)):
+        ms = time_ms(lambda: kernel(q3, k3, v3, do_bf16, lse, delta, True))
+        log(f"kernel {name} {label} bf16 timing with a do of bf16 values (training's"
+            f" inputs): {ms:.4f} ms")
     return out
 
 
@@ -1022,13 +1125,43 @@ def phase_serve(card: str) -> dict:
     return launches
 
 
-def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> None:
-    """Where a step's time goes: torch.profiler over the first engine step
-    (admission, whole-prompt prefill, first decode) and over the decode
-    steps after it; device busy share and the top operations by device time."""
+def profile_window(label: str, run, card: str, share_of: str = "") -> None:
+    """torch.profiler over run(): wall and device busy time, the share of the
+    kernels whose names hold ``share_of`` (when given), and the top
+    operations by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    # Kernel rows only: an operator's row repeats its kernels' time.
+    events = [
+        e for e in prof.key_averages()
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
+    share = ""
+    if share_of:
+        ms = sum(e.self_device_time_total for e in events if share_of in e.key) / 1e3
+        share = (f", {share_of} {ms:.2f} ms ({100 * ms / busy_ms:.1f}% of busy,"
+                 f" {100 * ms / wall_ms:.1f}% of wall)")
+    log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms"
+        f" ({100 * busy_ms / wall_ms:.1f}%){share} [{card}]")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+
+def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> None:
+    """Where a step's time goes: torch.profiler over the first engine step
+    (admission, whole-prompt prefill, first decode) and over the decode
+    steps after it; then, at prefill_chunk=512, over one chunk step of 16
+    slots in mid-prefill (16 prompts of 1536 tokens: the profiled step is
+    their second chunk, positions 512-1023), with the chunk kernel's share."""
     from dstack_tpu_torch.workloads import serve
 
     engine = serve.ServeEngine(
@@ -1036,27 +1169,29 @@ def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> Non
     )
     for p in prompts:
         engine.submit(p, max_new_tokens=decode_steps + 2)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for label, steps in (("prefill step", 1), (f"{decode_steps} decode steps", decode_steps)):
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            for _ in range(steps):
-                engine.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-        # Kernel rows only: an operator's row repeats its kernels' time.
-        events = [
-            e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-        ]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
-        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms"
-            f" ({100 * busy_ms / wall_ms:.1f}%) [{card}]")
-        for e in top:
-            ms = e.self_device_time_total / 1e3
-            log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+    def steps(n):
+        return lambda: [engine.step() for _ in range(n)]
+
+    profile_window("prefill step", steps(1), card)
+    profile_window(f"{decode_steps} decode steps", steps(decode_steps), card)
+    while engine.has_work():
+        engine.step()
+    del engine
+
+    engine = serve.ServeEngine(
+        cfg, serve.EngineConfig(max_batch=16, num_pages=4096, page_size=16, prefill_chunk=CHUNK),
+        params=params,
+    )
+    rng = np.random.RandomState(2)
+    for _ in range(16):
+        engine.submit(rng.randint(0, cfg.vocab_size, 3 * CHUNK).tolist(), max_new_tokens=1)
+    engine.step()  # admits all 16 and runs their first chunk
+    starts = [engine.slots[s].pos for s in range(16)]
+    if starts != [CHUNK] * 16:
+        raise AssertionError(f"after one chunk step the slots stand at {starts}")
+    profile_window(f"chunk step (16 slots mid-prefill, prefill_chunk={CHUNK})", steps(1), card,
+                   share_of="paged_chunk_mma_kernel")
     while engine.has_work():
         engine.step()
     del engine

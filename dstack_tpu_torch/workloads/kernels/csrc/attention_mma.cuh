@@ -2,14 +2,16 @@
 // ldmatrix and mma.sync wrappers, the lane geometry of m16n8k16 fragments,
 // fragment conversions, the split of fp32 values into bf16 terms, and the
 // cp.async copies that fill a ring of shared-memory tiles. Used by
-// flash_attention.cu's flash_fwd_mma_kernel and flash_bwd_dkv_mma_kernel,
-// which replace the Pallas `_fwd_kernel` and `_bwd_dkv_kernel`
-// (dstack_tpu/workloads/kernels/flash.py); that source states their bound
-// on this card and their design.
+// flash_attention.cu's flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel and
+// flash_bwd_dkv_mma_kernel, which replace the Pallas `_fwd_kernel`,
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` (dstack_tpu/workloads/kernels/
+// flash.py), and by paged_attention.cu's paged_chunk_mma_kernel, which
+// replaces `_paged_chunk_kernel` (dstack_tpu/workloads/kernels/paged.py);
+// those sources state their bounds on this card and their designs.
 //
 // The kernels that include it keep the fp32 contract of the Pallas kernels
-// they replace (dstack_tpu/workloads/kernels/flash.py upcasts q, k, v, p and
-// ds to fp32 before every dot) on bf16 tensor cores:
+// they replace (which upcast q, k, v, p and ds to fp32 before every dot) on
+// bf16 tensor cores:
 //   - bf16 inputs lose nothing when upcast, so a product of two bf16 tiles
 //     with fp32 accumulation (mma.sync ... .f32.bf16.bf16.f32) is exact in
 //     its products and differs from an fp32 dot in the order of the sums;
@@ -42,6 +44,26 @@
 namespace attn_mma {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The (input type, head dim) pairs whose kernels run on the tensor cores:
+// bf16 at D = 32, 64 and 128 (every preset's head dim). A source picks its
+// tensor-core or CUDA-core kernel from this at compile time.
+template <typename T, int D>
+struct TensorCore {
+  static constexpr bool value = false;
+};
+template <>
+struct TensorCore<__nv_bfloat16, 32> {
+  static constexpr bool value = true;
+};
+template <>
+struct TensorCore<__nv_bfloat16, 64> {
+  static constexpr bool value = true;
+};
+template <>
+struct TensorCore<__nv_bfloat16, 128> {
+  static constexpr bool value = true;
+};
 
 // Padded row of a shared bf16 tile with `cols` columns, in elements.
 __host__ __device__ constexpr int padded(int cols) { return cols + 8; }
@@ -149,6 +171,28 @@ __device__ __forceinline__ void c_to_a_split(const float (&c0)[4], const float (
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[i][r] = t[r][i];
+}
+
+// Four fp32 values (a float4 at element `off` of a tile) into the 3 bf16
+// planes of a shared tile, planes `stride` elements apart; nz[0] and nz[1]
+// note a nonzero in plane 1 and plane 2 (sign bits ignored).
+__device__ __forceinline__ void split_to_planes(float4 x, __nv_bfloat16* planes, int stride,
+                                                int off, bool (&nz)[2]) {
+  uint32_t t01[3], t23[3];
+  split_bf16x2<3>(x.x, x.y, t01);
+  split_bf16x2<3>(x.z, x.w, t23);
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    *reinterpret_cast<uint2*>(planes + p * stride + off) = make_uint2(t01[p], t23[p]);
+  nz[0] |= ((t01[1] | t23[1]) & 0x7fff7fffu) != 0;
+  nz[1] |= ((t01[2] | t23[2]) & 0x7fff7fffu) != 0;
+}
+
+// How many leading planes hold anything over the whole block, from every
+// thread's split_to_planes flags; a barrier (every thread must call it),
+// after which the planes are visible to the block.
+__device__ __forceinline__ int live_planes(const bool (&nz)[2]) {
+  return __syncthreads_or(nz[1]) ? 3 : (__syncthreads_or(nz[0]) ? 2 : 1);
 }
 
 // -- row reductions over the 4 lanes (one quad) that share a fragment row ------

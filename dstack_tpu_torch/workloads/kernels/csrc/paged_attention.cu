@@ -6,38 +6,75 @@
 //   - paged_chunk_attention_launch  -> dstack_tpu/workloads/kernels/paged.py
 //     `_paged_chunk_kernel` (paged_chunk_attention_pallas): C queries per slot
 //     at positions starts[s] + i.
-// Decode is the C == 1 case of the chunk walk (start = kv_len - 1), so both
-// entry points launch the same kernel body.
 //
-// What it computes (the Pallas kernels' semantics): query row i of slot s,
+// What they compute (the Pallas kernels' semantics): query row i of slot s,
 // head h attends over positions pos < min(kv_len, start + i + 1) of its KV
 // head h / n_rep, reading the slot's pages in page-table order. Accumulation
-// is fp32: scale 1/sqrt(D), masked scores -1e30, online softmax per page with
-// the NEG_INF-safe max, output o / max(l, 1e-20) in fp32 (zeros when a row
-// sees no position, e.g. kv_len == 0).
+// is fp32: scale 1/sqrt(D), masked scores -1e30, online softmax with the
+// NEG_INF-safe max, output o / max(l, 1e-20) in fp32 (zeros when a row sees
+// no position, e.g. kv_len == 0). Rows past a slot's valid chunk tokens
+// still attend all kv_len positions, as the Pallas kernel's rows do.
 //
-// Design: one block per (slot, KV head, tile of query rows), one warp per
-// (query row, head of the GQA group). Each lane holds D/32 elements of its
-// query and of the accumulator. The block walks the pages that the tile's
-// last row can see; each page's K and V rows of this KV head are staged in
-// shared memory with cp.async, double-buffered so page p+1 loads while page p
-// computes. Scores come from warp reductions; lane t keeps the score of page
-// row t, so the softmax max and sum are warp reductions too.
+// Two instantiations, chosen at compile time per (type, D) in
+// TensorCore<T, D>, never as a path taken when a launch fails:
+//   - the chunk entry point on bf16 q and pages at D = 32, 64, 128 runs
+//     paged_chunk_mma_kernel on the tensor cores;
+//   - decode (every type and D), and the chunk entry point on fp32 or at
+//     other head dims, run paged_attention_kernel on CUDA cores: decode is
+//     its C == 1 case (start = kv_len - 1).
 //
-// Bound: the kernels are memory-bound at decode. One token of one layer's
-// K+V at llama3_8b geometry (8 KV heads x 128 x bf16, K and V) is 4 KB, so a
-// decode step's least time is the K/V bytes of the slots' live positions
-// over the card's memory rate (3.35 TB/s on an H100 SXM). The chunk walk at
-// C = 512 does enough score work to be bound by operations instead.
+// paged_chunk_mma_kernel. Bound: at the serving example's chunk (16 slots x
+// C 512, llama3_8b: H 32, Kh 8, D 128, bf16) the score and PV products of the
+// live pairs take 0.2171 ms at the card's bf16 rate and the K/V, q and out
+// bytes less (chip_smoke.kernel_bounds): bound by operations. The CUDA-core
+// walk above it ran those products as 32-lane shuffled dot products and
+// re-read every visible page once per 4 chunk rows (128 times a slot at C
+// 512). Design (flash_attention.cu's flash_fwd_mma_kernel, whose numerics
+// attention_mma.cuh states):
+//   - GQA fold: a block owns 64 folded rows of one (slot, KV head), 16 a
+//     warp; folded row r is chunk row r / n_rep of head kh * n_rep + r %
+//     n_rep, as the Pallas kernel folds them. At llama3_8b (n_rep 4) a block
+//     holds 16 chunk rows x 4 heads and one K/V tile serves all four heads:
+//     32 reads of each visible position per (slot, KV head) at C 512, not
+//     128. (128 folded rows over 8 warps would halve that again, at twice
+//     the shared memory and one block an SM; not taken.)
+//   - K/V tiles of 64 keys gathered row by row through the page table (key
+//     pos lives at page page_table[s][pos / page], row pos % page), 16-byte
+//     cp.async copies zero-filled past the tile's last visible position, in
+//     a 2-stage ring: the next tile's gather overlaps this tile's math. The
+//     address is computed per row, so every page size runs this path.
+//   - S = Q K^T in place over D / 16 mma (bf16 products are exact in fp32);
+//     the online softmax per row over a quad; P from its C fragments to A
+//     fragments in 3 bf16 terms (c_to_a_split) and O += P_i V with V through
+//     ldmatrix.trans, the tile's 64 keys summed in a zeroed tile that
+//     add_tile puts into O. mma work a live pair: 1 + 3 = 4 units of D
+//     multiply-adds, against a plain bf16 kernel's 2.
+//   - Masks: folded row r sees pos < min(kv_len, start + r / n_rep + 1);
+//     only tiles that cross the block's first row's limit pay for the
+//     compares, and the walk ends at the last position the block's last
+//     row sees. Blocks of the last rows, which see the most, start first.
 //
-// Left for later: split-KV across blocks (one long slot is one block per KV
-// head today, so a batch of few long slots leaves SMs idle); TMA page loads;
-// tensor-core (mma / wgmma) score and PV products for the chunk walk, whose
-// blocks today re-read every visible page once per tile of rows.
+// paged_attention_kernel (CUDA cores): one block per (slot, KV head, tile of
+// query rows), one warp per (query row, head of the GQA group). Each lane
+// holds D/32 elements of its query and of the accumulator. The block walks
+// the pages that the tile's last row can see; each page's K and V rows of
+// this KV head are staged in shared memory with cp.async, double-buffered so
+// page p+1 loads while page p computes. Scores come from warp reductions;
+// lane t keeps the score of page row t, so the softmax max and sum are warp
+// reductions too. Decode is memory-bound: one token of one layer's K+V at
+// llama3_8b geometry (8 KV heads x 128 x bf16, K and V) is 4 KB, so a decode
+// step's least time is the K/V bytes of the slots' live positions over the
+// card's memory rate (3.35 TB/s on an H100 SXM).
+//
+// Left for later: split-KV decode across blocks (one long slot is one block
+// per KV head today, so a batch of few long slots leaves SMs idle); TMA page
+// loads; wgmma for the chunk walk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -188,12 +225,240 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,           // [S,
   }
 }
 
+// -- the tensor-core chunk walk (bf16, D = 32, 64, 128) ------------------------
+
+using bf16 = __nv_bfloat16;
+
+using attn_mma::TensorCore;
+
+constexpr int MMA_THREADS = 128;  // 4 warps
+constexpr int CHUNK_ROWS = 64;    // folded rows of a block, 16 a warp
+constexpr int CHUNK_KEYS = 64;    // keys of a gathered K/V tile
+constexpr int CHUNK_STAGES = 2;   // K/V ring depth
+constexpr int P_TERMS = 3;        // bf16 terms of P
+
+template <int D>
+constexpr size_t chunk_mma_smem_bytes() {
+  return static_cast<size_t>(CHUNK_ROWS + 2 * CHUNK_STAGES * CHUNK_KEYS) * attn_mma::padded(D) *
+         sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    paged_chunk_mma_kernel(const bf16* __restrict__ q,           // [S, C, H, D]
+                           const bf16* __restrict__ k_pages,     // [N, page, Kh, D]
+                           const bf16* __restrict__ v_pages,     // [N, page, Kh, D]
+                           const int* __restrict__ page_table,   // [S, P]
+                           const int* __restrict__ starts,       // [S]
+                           const int* __restrict__ kv_lens,      // [S]
+                           float* __restrict__ out,              // [S, C, H, D]
+                           int C, int H, int Kh, int page, int P, float scale) {
+  // cp_async16 and cp_async_commit are named in both namespaces: qualified.
+  using namespace attn_mma;
+  constexpr int LD = padded(D);
+  constexpr int KD = D / 16;          // k-steps of Q K^T
+  constexpr int NK = CHUNK_KEYS / 8;  // score n-tiles
+  constexpr int ND = D / 8;           // output n-tiles
+  constexpr int CPR = D / 8;          // 16-byte copies a row
+  static_assert(CHUNK_ROWS * CPR % MMA_THREADS == 0 && CHUNK_KEYS * CPR % MMA_THREADS == 0,
+                "every thread issues the same number of copies");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [CHUNK_ROWS][LD]
+  bf16* k_s = q_s + CHUNK_ROWS * LD;              // [CHUNK_STAGES][CHUNK_KEYS][LD]
+  bf16* v_s = k_s + CHUNK_STAGES * CHUNK_KEYS * LD;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const LaneOffsets lo(lane);
+  const int n_rep = H / Kh;
+  const int rows = C * n_rep;  // folded rows of this (slot, KV head)
+  const int n_tiles = (rows + CHUNK_ROWS - 1) / CHUNK_ROWS;
+  const int r0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * CHUNK_ROWS;
+  const int kh = blockIdx.y;
+  const int slot = blockIdx.z;
+  // The walk reads no position past the page table's P pages.
+  const int kv_end = min(kv_lens[slot], P * page);
+  const int start = starts[slot];
+  // Folded row r sees pos < limit(r); the limit grows with r.
+  auto limit = [&](int r) { return max(0, min(kv_end, start + r / n_rep + 1)); };
+  const int first_limit = limit(r0);
+  const int visible = limit(min(rows, r0 + CHUNK_ROWS) - 1);
+  const int n_kv = (visible + CHUNK_KEYS - 1) / CHUNK_KEYS;
+  const int* table = page_table + static_cast<size_t>(slot) * P;
+  // Element offset of folded row r's query row, and of its output row.
+  auto row_offset = [&](int r) {
+    return ((static_cast<size_t>(slot) * C + r / n_rep) * H + kh * n_rep + r % n_rep) * D;
+  };
+  // K/V tile jk into ring stage st, gathered row by row through the page
+  // table; positions from `visible` on are zero-filled and never read.
+  auto fetch = [&](int jk, int st) {
+    bf16* kt = k_s + st * CHUNK_KEYS * LD;
+    bf16* vt = v_s + st * CHUNK_KEYS * LD;
+#pragma unroll
+    for (int it = 0; it < CHUNK_KEYS * CPR / MMA_THREADS; ++it) {
+      const int i = it * MMA_THREADS + static_cast<int>(threadIdx.x);
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const int pos = jk * CHUNK_KEYS + r;
+      const bool valid = pos < visible;
+      const size_t src =
+          valid ? ((static_cast<size_t>(table[pos / page]) * page + pos % page) * Kh + kh) * D + c
+                : 0;
+      attn_mma::cp_async16(kt + r * LD + c, k_pages + src, valid);
+      attn_mma::cp_async16(vt + r * LD + c, v_pages + src, valid);
+    }
+  };
+
+  if (n_kv > 0) {
+#pragma unroll
+    for (int it = 0; it < CHUNK_ROWS * CPR / MMA_THREADS; ++it) {
+      const int i = it * MMA_THREADS + static_cast<int>(threadIdx.x);
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const bool valid = r0 + r < rows;
+      attn_mma::cp_async16(q_s + r * LD + c, q + (valid ? row_offset(r0 + r) + c : 0), valid);
+    }
+    fetch(0, 0);
+    attn_mma::cp_async_commit();
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row = r0 + warp * 16 + g;  // this lane's folded rows: row, row + 8
+  const int lim[2] = {limit(row), limit(row + 8)};
+
+  for (int jk = 0; jk < n_kv; ++jk) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jk has landed; every warp is done with tile jk - 1
+    // The q fragments, read again per tile, as the flash forward does.
+    uint32_t qf[KD][4];
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+      ldmatrix_x4(qf[kd], q_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
+    if (jk + 1 < n_kv) {
+      fetch(jk + 1, (jk + 1) % CHUNK_STAGES);
+      attn_mma::cp_async_commit();
+    }
+    const bf16* ks = k_s + (jk % CHUNK_STAGES) * CHUNK_KEYS * LD;
+    const bf16* vs = v_s + (jk % CHUNK_STAGES) * CHUNK_KEYS * LD;
+
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
+        mma_pair(s[2 * np], s[2 * np + 1], qf[kd], b);
+      }
+
+    // Scale, mask (only a tile that crosses the block's first row's limit),
+    // and the online softmax of rows `row` (e = 0, 1) and `row + 8` (e = 2, 3).
+    const int k0 = jk * CHUNK_KEYS;
+    const bool edge = k0 + CHUNK_KEYS > first_limit;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) x = k0 + j * 8 + 2 * tq + (e & 1) < lim[e >> 1] ? x : NEG_INF;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float safe_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      safe_m[r] = m_new == NEG_INF ? 0.f : m_new;
+      const float corr = m[r] == NEG_INF ? 0.f : expf(m[r] - safe_m[r]);
+      m[r] = m_new;
+      l[r] *= corr;  // a lane's partial row sum; the quad's are added at the end
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+    // Masked scores are NEG_INF, so their exp is exactly 0.
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = expf(s[j][e] - safe_m[e >> 1]);
+        s[j][e] = pv;
+        l[e >> 1] += pv;
+      }
+
+    // O += P V: P in P_TERMS bf16 terms; per 16 output columns the tile's
+    // 64 keys meet in a zeroed tile that add_tile puts into acc.
+    uint32_t pa[NK / 2][P_TERMS][4];
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) c_to_a_split<P_TERMS>(s[2 * kk], s[2 * kk + 1], pa[kk]);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vs + (kk * 16 + lo.row_a) * LD + dn * 16 + lo.col_a);
+#pragma unroll
+        for (int i = P_TERMS - 1; i >= 0; --i) mma_pair(t0, t1, pa[kk][i], b);
+      }
+      add_tile(acc[2 * dn], t0);
+      add_tile(acc[2 * dn + 1], t1);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(quad_sum(l[r]), 1e-20f);
+    const int fr = row + 8 * r;
+    if (fr >= rows) continue;
+    float* orow = out + row_offset(fr);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * tq) =
+          make_float2(acc[n][2 * r] / l_safe, acc[n][2 * r + 1] / l_safe);
+  }
+}
+
+template <int D>
+cudaError_t launch_chunk_mma(const void* q, const void* k_pages, const void* v_pages,
+                             const int* page_table, const int* starts, const int* kv_lens,
+                             float* out, int S, int C, int H, int Kh, int page, int P,
+                             float scale, cudaStream_t stream) {
+  constexpr size_t smem = chunk_mma_smem_bytes<D>();
+  auto kernel = paged_chunk_mma_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int rows = C * (H / Kh);
+  const dim3 grid((rows + CHUNK_ROWS - 1) / CHUNK_ROWS, Kh, S);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+      static_cast<const bf16*>(v_pages), page_table, starts, kv_lens, out, C, H, Kh, page, P,
+      scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int EPT>
 cudaError_t launch_ept(const void* q, const void* k_pages, const void* v_pages,
                        const int* page_table, const int* starts, const int* kv_lens, float* out,
                        int S, int C, int H, int Kh, int page, int P, int tile_rows, float scale,
                        cudaStream_t stream) {
   constexpr int D = 32 * EPT;
+  if constexpr (TensorCore<T, D>::value) {
+    if (starts != nullptr)  // the chunk entry point; decode keeps the walk below
+      return launch_chunk_mma<D>(q, k_pages, v_pages, page_table, starts, kv_lens, out, S, C, H,
+                                 Kh, page, P, scale, stream);
+  }
   const int n_rep = H / Kh;
   const size_t smem = 2 * 2 * static_cast<size_t>(page) * D * sizeof(T);
   auto kernel = paged_attention_kernel<T, EPT>;
@@ -255,6 +520,32 @@ cudaError_t launch(int dtype, const void* q, const void* k_pages, const void* v_
   return cudaErrorInvalidValue;
 }
 
+// What paged_decode_attention_launch (kernel 0) and
+// paged_chunk_attention_launch (1) run for inputs of type T and head dim D.
+template <typename T, int D>
+const char* describe(int kernel) {
+  if (kernel == 1 && TensorCore<T, D>::value)
+    return "bf16 tensor cores (paged_chunk_mma_kernel: mma.sync m16n8k16 + cp.async page-table"
+           " gather, 64 folded GQA rows a block), P in 3 bf16 terms; mma work 4 units a pair"
+           " (QK 1 + PV 3) against a plain bf16 kernel's 2";
+  return "CUDA cores, fp32 FMAs and warp reductions (paged_attention_kernel)";
+}
+
+template <typename T>
+const char* describe_typed(int kernel, int D) {
+  switch (D) {
+    case 32: return describe<T, 32>(kernel);
+    case 64: return describe<T, 64>(kernel);
+    case 96: return describe<T, 96>(kernel);
+    case 128: return describe<T, 128>(kernel);
+    case 160: return describe<T, 160>(kernel);
+    case 192: return describe<T, 192>(kernel);
+    case 224: return describe<T, 224>(kernel);
+    case 256: return describe<T, 256>(kernel);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -268,8 +559,9 @@ int paged_decode_attention_launch(int dtype, const void* q, const void* k_pages,
                                  S, 1, H, Kh, D, page, P, 1, scale, stream));
 }
 
-// Chunk: q [S, C, H, D], query i of slot s at position starts[s] + i; a tile
-// of `tile_rows` query rows per block (tile_rows * H / Kh <= 32 warps).
+// Chunk: q [S, C, H, D], query i of slot s at position starts[s] + i. The
+// CUDA-core walk takes a tile of `tile_rows` query rows per block (tile_rows *
+// H / Kh <= 32 warps); the tensor-core walk its own 64 folded rows.
 int paged_chunk_attention_launch(int dtype, const void* q, const void* k_pages,
                                  const void* v_pages, const int* page_table, const int* starts,
                                  const int* kv_lens, float* out, int S, int C, int H, int Kh,
@@ -277,6 +569,15 @@ int paged_chunk_attention_launch(int dtype, const void* q, const void* k_pages,
                                  void* stream) {
   return static_cast<int>(launch(dtype, q, k_pages, v_pages, page_table, starts, kv_lens, out,
                                  S, C, H, Kh, D, page, P, tile_rows, scale, stream));
+}
+
+// The instantiation that a launch of kernel 0 (decode) or 1 (chunk) runs for
+// this dtype code and head dim; null where none does.
+const char* paged_instantiation(int kernel, int dtype, int D) {
+  if (kernel < 0 || kernel > 1) return nullptr;
+  if (dtype == 0) return describe_typed<float>(kernel, D);
+  if (dtype == 1) return describe_typed<__nv_bfloat16>(kernel, D);
+  return nullptr;
 }
 
 const char* paged_attention_error_string(int code) {

@@ -7,10 +7,10 @@ through ``_flash_fwd_3d``; ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
 through ``_flash_bwd_3d``); the source is ``csrc/flash_attention.cu``. Each
 wrapper takes the plain version for tensors that lie on the CPU, and
 launches its kernel for CUDA tensors or raises; ``launches`` counts the
-kernel launches per wrapper. The forward and dk/dv run on bf16 tensor cores
-for bf16 inputs at D = 32, 64 and 128, with fp32 operands split into bf16
-terms so that every product stays exact; fp32 inputs, other head dims and
-dq run on CUDA cores (``instantiation`` names what a launch runs).
+kernel launches per wrapper. All three run on bf16 tensor cores for bf16
+inputs at D = 32, 64 and 128, with fp32 operands split into bf16 terms so
+that every product stays exact; fp32 inputs and other head dims run on CUDA
+cores (``instantiation`` names what a launch runs).
 
 Layout is the Pallas kernels': q3 [B*H, T, D], k3/v3 [B*Kh, S, D], with the
 query heads of one KV head adjacent (row b*H + g*n_rep + r reads KV row

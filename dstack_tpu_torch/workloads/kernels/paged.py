@@ -6,7 +6,11 @@ the Pallas kernels ``paged_decode_attention_pallas`` and
 ``paged_chunk_attention_pallas`` of ``dstack_tpu/workloads/kernels/paged.py``
 (source: ``csrc/paged_attention.cu``). Each wrapper takes the plain version
 for tensors that lie on the CPU, and launches its kernel for CUDA tensors or
-raises; ``launches`` counts the kernel launches per wrapper.
+raises; ``launches`` counts the kernel launches per wrapper. The chunk walk
+runs on bf16 tensor cores for bf16 q and pages at D = 32, 64 and 128, with
+P split into bf16 terms so that every product stays exact; decode, fp32
+inputs and other head dims run on CUDA cores (``instantiation`` names what a
+launch runs).
 
 The plain versions have the Pallas kernels' exact semantics, which differ
 from the gather references in ``attention.py`` in two places: a row that
@@ -31,7 +35,7 @@ NEG_INF = -1e30
 launches = {"paged_decode_attention": 0, "paged_chunk_attention": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_WARPS = 16  # chunk tile: rows per block = _MAX_WARPS // n_rep
+_MAX_WARPS = 16  # CUDA-core chunk tile: rows per block = _MAX_WARPS // n_rep
 _MAX_SMEM = 232448  # dynamic shared memory one block may use on sm_90
 
 
@@ -115,7 +119,20 @@ def _library() -> ctypes.CDLL:
     lib.paged_chunk_attention_launch.restype = i32
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
+    lib.paged_instantiation.argtypes = [i32, i32, i32]
+    lib.paged_instantiation.restype = ctypes.c_char_p
     return lib
+
+
+def instantiation(name: str, dtype: torch.dtype, d: int) -> str:
+    """What a launch of wrapper ``name`` runs on the card for inputs of
+    ``dtype`` and head dim ``d``, as the library's dispatch decides it (the
+    kernel, its route and its mma work a live pair). Builds the library."""
+    which = ("paged_decode_attention", "paged_chunk_attention").index(name)
+    desc = _library().paged_instantiation(which, _DTYPE_CODES[dtype], d)
+    if desc is None:
+        raise ValueError(f"{name}: no kernel for {dtype} at D={d}")
+    return f"{desc.decode()}, D={d}"
 
 
 def _on_cpu(*tensors) -> bool:

@@ -14,9 +14,11 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   ``flash_tpu`` contract, meshes not ported), the wrappers' CPU path and
   launch counters, and the build of the CUDA source (its library path
   follows the headers it includes);
-- the split-bf16 products of the tensor-core kernels, emulated in fp64:
-  three bf16 terms hold fp32 values exactly, and every product the kernels
-  issue stays within half the card tolerance.
+- the split-bf16 products of the tensor-core kernels (forward, dq, dk/dv),
+  emulated in fp64: three bf16 terms hold fp32 values exactly, every
+  product the kernels issue stays within half the card tolerance, and a do
+  of bf16 values leaves the two low planes that the kernels skip exactly
+  zero.
 """
 
 import shutil
@@ -234,13 +236,14 @@ class TestWrappers:
 
 # -- the split-bf16 products of the tensor-core kernels ----------------------
 #
-# csrc/flash_attention.cu runs the forward and dk/dv on bf16 tensor cores and
-# keeps the fp32 contract by writing each fp32 operand as a sum of bf16 terms
-# (t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1)) with one mma per
-# term: P.V with P in 3 terms, dS^T.Q with dS^T in 3 terms, V.dO^T over the 3
-# planes of dO, and P^T.dO over the 6 products of terms i + j < 3. Below, an
-# emulation of exactly those products in fp64 on one head of the llama3_1b
-# geometry (D 128), cut to T 512.
+# csrc/flash_attention.cu runs the forward, dq and dk/dv on bf16 tensor cores
+# and keeps the fp32 contract by writing each fp32 operand as a sum of bf16
+# terms (t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1)) with one mma
+# per term: P.V with P in 3 terms; dq's dO.V^T over the 3 planes of dO and
+# dS.K with dS in 3 terms; dk/dv's dS^T.Q with dS^T in 3 terms, V.dO^T over
+# the 3 planes of dO, and P^T.dO over the 6 products of terms i + j < 3.
+# Below, an emulation of exactly those products in fp64 on one head of the
+# llama3_1b geometry (D 128), cut to T 512.
 
 SPLIT_TERMS = 3
 PDO_PRODUCTS = [(i, j) for i in range(SPLIT_TERMS) for j in range(SPLIT_TERMS) if i + j < SPLIT_TERMS]
@@ -305,6 +308,35 @@ def test_split_products_stay_within_half_the_card_tolerance(split_operands):
         assert float((one_term - exact).abs().max()) > 1e-5, name
 
 
+def test_dq_split_products_stay_within_half_the_card_tolerance(split_operands):
+    """dq's products from their kept terms against the fp64 products of the
+    fp32 operands: dO.V^T over do's planes and dS.K with dS in 3 terms, each
+    under 1e-5; one bf16 term alone is outside it."""
+    x = split_operands
+    ds, do = x["ds"], x["do"]
+    dst, dot = split_bf16(ds), split_bf16(do)
+    products = {
+        "dO.V^T": (sum(t_ @ x["v"].T for t_ in dot), do.double() @ x["v"].T, dot[0] @ x["v"].T),
+        "dS.K": (sum(t_ @ x["k"] for t_ in dst), ds.double() @ x["k"], dst[0] @ x["k"]),
+    }
+    for name, (kept, exact, one_term) in products.items():
+        err = float((kept - exact).abs().max())
+        assert err < 1e-5, f"{name}: {err:.3e}"
+        assert float((one_term - exact).abs().max()) > 1e-5, name
+
+
+def test_a_do_of_bf16_values_leaves_its_low_planes_zero(split_operands):
+    """Training's do holds bf16 values (the model casts o to bf16): its first
+    plane is the whole value and the two low planes, which the dq and dk/dv
+    kernels skip when a tile's are all zero, are exactly zero; an fp32 do's
+    are not."""
+    do_bf16 = split_operands["do"].to(torch.bfloat16).to(torch.float32)
+    planes = split_bf16(do_bf16)
+    assert torch.equal(planes[0], do_bf16.double())
+    assert not planes[1].any() and not planes[2].any()
+    assert split_bf16(split_operands["do"])[1].any()
+
+
 # Card tolerance, atol only: the largest |kernel - plain| measured by
 # chip_smoke.py on an H100 is 3.1e-6 (dk/dv of the tensor-core kernel at T
 # 8192, against plain sums taken in fp64), 6x inside 2e-5; a kernel that
@@ -316,9 +348,14 @@ CARD_TOL = 2e-5
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """On an sm_90 card: each flash kernel against its plain version, fp32
-    and bf16, causal and full, a ragged last tile (T = 72) included."""
+    and bf16, causal and full, a ragged last tile (T = 72) included; at bf16
+    D 128 all three launches run the tensor-core kernels, at fp32 the
+    CUDA-core ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (sm_90) and nvcc")
+    for name in flash.launches:
+        assert flash.instantiation(name, torch.bfloat16, 128).startswith("bf16 tensor cores")
+        assert flash.instantiation(name, torch.float32, 128).startswith("CUDA cores")
     for dtype, (t_len, causal) in [(torch.float32, (72, True)), (torch.bfloat16, (72, False)),
                                    (torch.bfloat16, (256, True))]:
         q, k, v = (t(to3(x)).cuda().to(dtype) for x in qkv(12, t_len=t_len, d=128))

@@ -9,7 +9,12 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   (decode on active rows: both give garbage for kv_len == 0), and against
   the kernel semantics on the chunk rows the engine reads;
 - ``blockwise_attention`` against JAX, with and without a padded last block;
-- the kernel wrappers, the build's compiler flags and ``decode_impl``.
+- the kernel wrappers, the build's compiler flags and ``decode_impl``;
+- the tile walk of the tensor-core chunk kernel (``paged_chunk_mma_kernel``),
+  emulated in torch, against the Pallas chunk kernel: GQA rows folded, K/V
+  tiles gathered row by row through the page table (a page size that does
+  not divide the tile included), each row's limit, the tile-level mask skip,
+  P in three bf16 terms.
 
 Tolerance 1e-5: fp32 on both sides, only the summation order differs.
 """
@@ -197,12 +202,136 @@ class TestWrappers:
         assert len(lib.stem.split("-")[-1]) == 16  # the source hash
 
 
+# -- the tile walk of the tensor-core chunk kernel ---------------------------
+#
+# csrc/paged_attention.cu's paged_chunk_mma_kernel folds the n_rep query heads
+# of a KV head into its row axis (folded row r is chunk row r // n_rep, head
+# kh * n_rep + r % n_rep), takes 64 folded rows a block, gathers 64-key K/V
+# tiles row by row through the page table, masks only the tiles that cross
+# the block's first row's limit, and multiplies P by V in three bf16 terms.
+# Below, that walk in torch, with the bf16 products exact (fp64) and the sums
+# in fp32; the tile edges are parameters so that the small inputs here cross
+# several row and key tiles.
+
+def split_bf16(x32: torch.Tensor, terms: int):
+    """The leading bf16 terms of fp32 values; each residual is exact in fp32."""
+    out, r = [], x32.clone()
+    for _ in range(terms):
+        t_ = r.to(torch.bfloat16).to(torch.float32)
+        out.append(t_)
+        r = r - t_
+    return out
+
+
+def chunk_tile_walk(q, k_pages, v_pages, page_table, starts, kv_lens, rows=64, keys=64,
+                    terms=3):
+    """fp32 [S, C, H, D] as paged_chunk_mma_kernel computes it (P in
+    ``terms`` bf16 terms)."""
+    s_n, c, h, d = q.shape
+    _, page, kh_n, _ = k_pages.shape
+    n_rep = h // kh_n
+    folded = c * n_rep
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros((s_n, c, h, d), dtype=torch.float32)
+    for s in range(s_n):
+        kv_end = min(int(kv_lens[s]), page_table.shape[1] * page)
+
+        def limit(r):
+            return max(0, min(kv_end, int(starts[s]) + r // n_rep + 1))
+
+        for kh in range(kh_n):
+            for r0 in range(0, folded, rows):
+                r = torch.arange(r0, min(r0 + rows, folded))
+                ci, hi = r // n_rep, kh * n_rep + r % n_rep
+                qt = q[s, ci, hi].double()
+                lim = torch.tensor([limit(int(x)) for x in r])
+                first, visible = limit(r0), limit(min(folded, r0 + rows) - 1)
+                m = torch.full((len(r),), paged.NEG_INF)
+                l = torch.zeros(len(r))
+                acc = torch.zeros((len(r), d))
+                for k0 in range(0, visible, keys):
+                    pos = torch.arange(k0, k0 + keys)
+                    live = pos < visible  # zero-filled past the last visible position
+                    pid = page_table[s, torch.where(live, pos // page, 0)].long()
+                    kt = torch.where(live[:, None], k_pages[pid, pos % page, kh].double(), 0.0)
+                    vt = torch.where(live[:, None], v_pages[pid, pos % page, kh].double(), 0.0)
+                    sc = (qt @ kt.T).float() * scale
+                    if k0 + keys > first:  # only tiles that cross a row's limit compare
+                        sc = torch.where(pos[None, :] < lim[:, None], sc, paged.NEG_INF)
+                    m_new = torch.maximum(m, sc.amax(1))
+                    safe = torch.where(m_new == paged.NEG_INF, 0.0, m_new)
+                    corr = torch.where(m == paged.NEG_INF, 0.0, torch.exp(m - safe))
+                    p_ = torch.exp(sc - safe[:, None])
+                    l = l * corr + p_.sum(1)
+                    # The tile's P V in a zeroed tile, one rounded add into acc.
+                    pv = sum(t_.double() @ vt for t_ in split_bf16(p_, terms))
+                    acc = acc * corr[:, None] + pv.float()
+                    m = m_new
+                out[s, ci, hi] = acc / torch.clamp(l, min=1e-20)[:, None]
+    return out
+
+
+def repage(inputs, page):
+    """The same slots' K/V sequences in a shuffled pool of ``page``-row pages."""
+    x = inputs
+    n = -(-P * PAGE // page)
+    perm = np.random.RandomState(page).permutation(S * n)
+    table = perm.reshape(S, n).astype(np.int32)
+    kp = np.zeros((S * n, page, KH, D), np.float32)
+    vp = np.zeros_like(kp)
+    for s in range(S):
+        seq_k = x["kp"][x["pt"][s]].reshape(P * PAGE, KH, D)
+        seq_v = x["vp"][x["pt"][s]].reshape(P * PAGE, KH, D)
+        for j in range(n):
+            rows = slice(j * page, min((j + 1) * page, P * PAGE))
+            kp[table[s, j], : rows.stop - rows.start] = seq_k[rows]
+            vp[table[s, j], : rows.stop - rows.start] = seq_v[rows]
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("page,rows,keys", [(PAGE, 64, 64), (12, 64, 64), (PAGE, 4, 16),
+                                            (12, 4, 16)])
+def test_chunk_tile_walk_matches_pallas(inputs, pallas_out, page, rows, keys):
+    """The tensor-core chunk kernel's walk, emulated, against the Pallas chunk
+    kernel in interpret mode on every row (kv_len == 0 rows zero); page 12
+    does not divide a key tile, so tiles gather across page boundaries."""
+    x = inputs
+    kp, vp, table = (x["kp"], x["vp"], x["pt"]) if page == PAGE else repage(x, page)
+    got = chunk_tile_walk(t(x["qc"]), t(kp), t(vp), t(table), t(STARTS), t(KV_LENS), rows, keys)
+    np.testing.assert_allclose(got.numpy(), pallas_out[1], atol=TOL)
+    assert not got[0].any()
+
+
+def test_one_bf16_term_of_p_is_not_enough(inputs, pallas_out):
+    """The split is what holds the walk to fp32: with P rounded to one bf16
+    term the emulated walk misses the Pallas kernel by far more than 1e-5."""
+    x = inputs
+    got = chunk_tile_walk(t(x["qc"]), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(STARTS), t(KV_LENS),
+                          terms=1)
+    assert np.abs(got.numpy() - pallas_out[1]).max() > 10 * TOL
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_the_card(inputs):
-    """On an sm_90 card: each kernel against its plain version, bf16 and fp32."""
+def test_kernels_match_plain_on_the_card():
+    """On an sm_90 card: each kernel against its plain version, bf16 and fp32,
+    at llama3_8b head geometry (D 128, n_rep 4); the bf16 chunk launch runs
+    the tensor-core kernel, decode the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (sm_90) and nvcc")
-    x = {k: t(v).cuda() for k, v in inputs.items()}
+    assert paged.instantiation("paged_chunk_attention", torch.bfloat16, 128).startswith(
+        "bf16 tensor cores")
+    for dtype in (torch.bfloat16, torch.float32):
+        assert paged.instantiation("paged_decode_attention", dtype, 128).startswith("CUDA cores")
+    assert paged.instantiation("paged_chunk_attention", torch.float32, 128).startswith("CUDA cores")
+    rng = np.random.RandomState(3)
+    h, kh, d = 32, 8, 128
+    x = {
+        "q": t(rng.randn(S, h, d).astype(np.float32)).cuda(),
+        "qc": t(rng.randn(S, C, h, d).astype(np.float32)).cuda(),
+        "kp": t(rng.randn(N, PAGE, kh, d).astype(np.float32)).cuda(),
+        "vp": t(rng.randn(N, PAGE, kh, d).astype(np.float32)).cuda(),
+        "pt": t(rng.randint(0, N, (S, P)).astype(np.int32)).cuda(),
+    }
     lens, starts = t(KV_LENS).cuda(), t(STARTS).cuda()
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
         q, qc, kp, vp = (x[k].to(dtype) for k in ("q", "qc", "kp", "vp"))
