@@ -22,8 +22,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. flash   - the flash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b and llama3_8b attention geometry (B 2,
              T = S = 8192, bf16, causal), plus fp32 inputs, a ragged last
-             tile (T = 72), causal=False and a do of bf16 values (what
-             training feeds dq and dk/dv), all at atol 2e-5; at llama3_1b
+             tile (T = 72), causal=False, D 96 (the CUDA-core kernels at
+             bf16) and a do of bf16 values (what training feeds dq and
+             dk/dv), all at atol 2e-5; at llama3_1b
              the dq and dk/dv kernels and the plain versions (flash dq and
              dk/dv, and splash dk/dv at window 0) against fp64 sums per
              head, at the same limit; the readings of planted faults (one
@@ -62,13 +63,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 9. splash  - the splash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b heads, T 8192 bf16, windows 4096, 0 and
              1024 and 4096 with four packed documents, plus fp32 (T 1024),
-             a ragged T = 72 and causal=False with documents, all at atol
-             2e-5; the readings of planted band faults (the first or last
-             live tile of each band dropped), which that limit must fail;
-             splash at window 0 against the flash kernels; per window the
-             times beside the plain versions', SDPA's under the same mask
-             and the bounds; the window-1024 forward under 0.4x the window-0
-             one;
+             a ragged T = 72, causal=False with documents and D 96 (the
+             CUDA-core kernels at bf16) with documents, all at atol
+             2e-5; at window 4096 dq, dk/dv and their plain versions against
+             fp64 sums per head (fp32 and bf16-valued do), at the same
+             limit; the readings of planted band faults (the first or last
+             live tile of each band dropped, at each kernel's own row and
+             key tile edges), which that limit must fail; splash at window
+             0 against the flash kernels; per window the times beside the
+             plain versions', SDPA's under the same mask and the bounds
+             (dk/dv also on a do of bf16 values); the window-1024 forward
+             under 0.4x the window-0 one. On bf16 inputs at D 32/64/128 the
+             forward and dk/dv run on tensor cores, on the bodies flash runs
+             under the band mask; dq, fp32 inputs and other head dims run on
+             CUDA cores. The log names the instantiation each launch runs;
 10. train splash - train.main with the training example's flags
              (--attn-impl splash --attn-window 4096 --grad-accum 4
              --mu-dtype bfloat16 --remat-policy full --prefetch 2, llama3_1b,
@@ -471,16 +479,19 @@ def flash_compare(label, q3, k3, v3, do3, causal) -> dict:
     return errs
 
 
-def flash_bwd_against_fp64(label, q3, k3, v3, do3) -> None:
+def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
     """dq and dk/dv against an exact computation: per KV head, scores, p, ds
     and the sums over every key (dq) and every query (dk, dv) in fp64 from
-    the same inputs, lse and delta. The tensor-core kernels, the plain
-    versions and the splash plain dk/dv at window 0 (the yardsticks of every
-    dq and dk/dv comparison) must each lie within FLASH_TOL of it. The plain
-    dk/dv version's own p and ds summed by fp32 GEMMs, as the plain versions
-    summed them before they took fp64 sums, are read beside them with the
-    device kernels those GEMMs ran, and not held to the limit: batched over
-    the KV heads (the former form) and one KV head at a time."""
+    the same inputs, lse and delta. With ``window`` None, the flash kernels:
+    the tensor-core kernels, the plain versions and the splash plain dk/dv at
+    window 0 (the yardsticks of every dq and dk/dv comparison) must each lie
+    within FLASH_TOL of it; the plain dk/dv version's own p and ds summed by
+    fp32 GEMMs, as the plain versions summed them before they took fp64
+    sums, are read beside them with the device kernels those GEMMs ran, and
+    not held to the limit: batched over the KV heads (the former form) and
+    one KV head at a time. With a ``window``, the splash kernels under the
+    causal band of that window (no documents): the tensor-core dk/dv, the
+    CUDA-core dq and their plain versions, held to the same limit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,17 +499,32 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3) -> None:
 
     bkh, t, d = k3.shape
     n_rep = q3.shape[0] // bkh
-    ro, lse = flash.flash_fwd_plain(q3, k3, v3, True)
+    if window is None:
+        ro, lse = flash.flash_fwd_plain(q3, k3, v3, True)
+    else:
+        ro, lse = splash.splash_fwd_plain(q3, k3, v3, None, None, True, window)
     delta = (do3 * ro).sum(-1)
     del ro
     args = (q3, k3, v3, do3, lse, delta)
-    runs = {"tensor-core kernel": flash.flash_bwd_dkv(*args, True),
-            "plain version": flash.flash_bwd_dkv_plain(*args, True),
-            "splash plain version (window 0)": splash.splash_bwd_dkv_plain(*args, None, None,
-                                                                          True, 0)}
-    dq_runs = {"tensor-core kernel": flash.flash_bwd_dq(*args, True),
-               "plain version": flash.flash_bwd_dq_plain(*args, True)}
-    mask = torch.ones(t, t, dtype=torch.bool, device=q3.device).tril()
+    if window is None:
+        names = ("flash_bwd_dq", "flash_bwd_dkv")
+        runs = {"tensor-core kernel": flash.flash_bwd_dkv(*args, True),
+                "plain version": flash.flash_bwd_dkv_plain(*args, True),
+                "splash plain version (window 0)": splash.splash_bwd_dkv_plain(*args, None, None,
+                                                                              True, 0)}
+        dq_runs = {"tensor-core kernel": flash.flash_bwd_dq(*args, True),
+                   "plain version": flash.flash_bwd_dq_plain(*args, True)}
+    else:
+        names = ("splash_bwd_dq", "splash_bwd_dkv")
+        band = (*args, None, None, True, window)
+        runs = {"tensor-core kernel": splash.splash_bwd_dkv(*band),
+                "plain version": splash.splash_bwd_dkv_plain(*band)}
+        dq_runs = {"CUDA-core kernel": splash.splash_bwd_dq(*band),
+                   "plain version": splash.splash_bwd_dq_plain(*band)}
+    pos = torch.arange(t, device=q3.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
     worst = dict.fromkeys(runs, 0.0)
     worst_dq = dict.fromkeys(dq_runs, 0.0)
     for g in range(bkh):
@@ -519,8 +545,8 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3) -> None:
         for run, got in dq_runs.items():
             worst_dq[run] = max(worst_dq[run], float((got[rows].double() - exact_dq).abs().max()))
         del exact, exact_dq
-    for name, found, heads in (("flash_bwd_dq", worst_dq, f"{bkh * n_rep} heads"),
-                               ("flash_bwd_dkv", worst, f"{bkh} KV heads")):
+    for name, found, heads in ((names[0], worst_dq, f"{bkh * n_rep} heads"),
+                               (names[1], worst, f"{bkh} KV heads")):
         for run, err in found.items():
             if not err <= FLASH_TOL:
                 raise AssertionError(f"{name} {label}: the {run} lies {err:.3e} from fp64"
@@ -528,6 +554,10 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3) -> None:
         log(f"kernel {name} {label}: max |x - fp64| over the {heads}: "
             + ", ".join(f"{run} {err:.3e}" for run, err in found.items())
             + f" (atol {FLASH_TOL:g}) ok")
+    if window is not None:
+        del runs, dq_runs
+        torch.cuda.empty_cache()
+        return
 
     q, do = flash._grouped(q3, bkh), flash._grouped(do3, bkh)
     blocks = [(s0, s1, p, ds, q[:, :, r0:], do[:, :, r0:])
@@ -647,11 +677,13 @@ def phase_flash() -> dict:
             report["timing"] = flash_timing(label, b, h, kh, d, t, *x)
         del x
         torch.cuda.empty_cache()
-    for label, t, dtype, causal in (("T=1024", 1024, torch.float32, True),
-                                    ("ragged T=72", 72, torch.bfloat16, True),
-                                    ("ragged T=72", 72, torch.float32, True),
-                                    ("T=1024", 1024, torch.bfloat16, False)):
-        flash_compare(f"llama3_1b heads, {label}", *flash_inputs(2, 16, 8, 128, t, dtype, 20),
+    # fp32 and D 96 run the CUDA-core kernels.
+    for label, t, d, dtype, causal in (("T=1024", 1024, 128, torch.float32, True),
+                                       ("ragged T=72", 72, 128, torch.bfloat16, True),
+                                       ("ragged T=72", 72, 128, torch.float32, True),
+                                       ("T=1024", 1024, 128, torch.bfloat16, False),
+                                       ("D=96, T=1024", 1024, 96, torch.bfloat16, True)):
+        flash_compare(f"llama3_1b heads, {label}", *flash_inputs(2, 16, 8, d, t, dtype, 20),
                       causal=causal)
     timing = report.pop("timing")
     for name, entry in report.items():
@@ -718,9 +750,11 @@ SPLASH_DOCS = (3000, 1500, 2692, 1000)
 # compute in fp32 and differ from the plain versions (whose dk/dv sums are
 # fp64) in the order and rounding of the sums.
 SPLASH_TOL = FLASH_TOL
-# The kernels' tile edge (bf16 and fp32 at D 128): the bounds of the planted
-# faults follow it.
-SPLASH_TILE = 64
+# Each kernel's (row, key) tile edges at bf16 D 128: the tensor-core forward
+# walks 64-row q tiles over 64-key tiles, the CUDA-core dq 64 x 64 tiles, the
+# tensor-core dk/dv 64-key tiles over 32-row q tiles. The planted band faults
+# drop one tile pair at these edges.
+SPLASH_TILES = {"splash_fwd": (64, 64), "splash_bwd_dq": (64, 64), "splash_bwd_dkv": (32, 64)}
 
 
 def doc_plane(lengths, b):
@@ -788,10 +822,10 @@ class planted_band_fault:
     """While active, the plain versions' element mask also drops one tile
     pair per tile of the band, as a kernel with an off-by-one in its loop
     bounds would: ``drop(row_tile, key_tile)`` is True where a pair is
-    dropped."""
+    dropped, rows in tiles of ``rows`` and keys in tiles of ``keys``."""
 
-    def __init__(self, drop):
-        self.drop = drop
+    def __init__(self, drop, rows, keys):
+        self.drop, self.rows, self.keys = drop, rows, keys
 
     def __enter__(self):
         import torch
@@ -799,12 +833,12 @@ class planted_band_fault:
         from dstack_tpu_torch.workloads.kernels import splash
 
         self.inner = inner = splash._block_mask
-        drop = self.drop
+        drop, row_tile, key_tile = self.drop, self.rows, self.keys
 
         def mask(r0, r1, s0, s1, causal, window, docq, dock, device):
             m = inner(r0, r1, s0, s1, causal, window, docq, dock, device)
-            rows = torch.arange(r0, r1, device=device)[:, None] // SPLASH_TILE
-            keys = torch.arange(s0, s1, device=device)[None, :] // SPLASH_TILE
+            rows = torch.arange(r0, r1, device=device)[:, None] // row_tile
+            keys = torch.arange(s0, s1, device=device)[None, :] // key_tile
             keep = ~drop(rows, keys)
             return keep if m is None else m & keep
 
@@ -817,55 +851,65 @@ class planted_band_fault:
         splash._block_mask = self.inner
 
 
-def splash_planted_faults(label, q3, k3, v3, do3, window) -> None:
-    """What kernels with an off-by-one at the band's edges would read
-    against the plain versions, computed by the plain versions: the forward
-    and dq dropping each q tile's first live KV tile (lo) or its last
-    (hi - 1), dk/dv dropping each KV tile's first or last live q tile. Each
-    reading must lie far outside SPLASH_TOL."""
+def band_faults(t, window, rows, keys):
+    """{edge: (drop for the forward and dq walks, drop for the dk/dv walk)}
+    at (rows, keys) tile edges. Forward and dq: the first live KV tile of
+    each q tile's band is the window's near edge, the last the causal
+    diagonal; faults go only where a band holds more than one tile (q tile
+    0's only tile empties row 0, a reading of 1e30 that says nothing about
+    the limit). dk/dv: each KV tile's first live q tile is the diagonal, the
+    last the window's far edge."""
     import torch
 
-    t = q3.shape[1]
-    n = -(-t // SPLASH_TILE)
-    # Forward and dq: the first live KV tile of each band is the window's
-    # near edge, the last the causal diagonal; faults go only where a band
-    # holds more than one tile (q tile 0's only tile empties row 0, a
-    # reading of 1e30 that says nothing about the limit). dk/dv: the first
-    # live q tile is the diagonal, the last the window's far edge.
-    first_kv = lambda iq: torch.clamp(iq * SPLASH_TILE - (window - 1), min=0) // SPLASH_TILE
-    last_kv = lambda iq: torch.clamp(iq, max=n - 1)
+    n_kv, n_q = -(-t // keys), -(-t // rows)
+    first_kv = lambda iq: torch.clamp(iq * rows - (window - 1), min=0) // keys
+    last_kv = lambda iq: torch.clamp((torch.clamp((iq + 1) * rows, max=t) - 1) // keys,
+                                     max=n_kv - 1)
     wide = lambda iq: first_kv(iq) < last_kv(iq)
+    first_q = lambda jk: (jk * keys) // rows
     last_q = lambda jk: torch.clamp(
-        (torch.clamp((jk + 1) * SPLASH_TILE, max=t) - 1 + window - 1) // SPLASH_TILE, max=n - 1)
-    faults = {
-        "first": (lambda r, c: wide(r) & (c == first_kv(r)), lambda r, c: r == c),
+        (torch.clamp((jk + 1) * keys, max=t) - 1 + window - 1) // rows, max=n_q - 1)
+    return {
+        "first": (lambda r, c: wide(r) & (c == first_kv(r)), lambda r, c: r == first_q(c)),
         "last": (lambda r, c: wide(r) & (c == last_kv(r)), lambda r, c: r == last_q(c)),
     }
+
+
+def splash_planted_faults(label, q3, k3, v3, do3, window) -> None:
+    """What kernels with an off-by-one at the band's edges would read
+    against the plain versions, computed by the plain versions at each
+    kernel's own tile edges (SPLASH_TILES): the forward and dq dropping each
+    q tile's first live KV tile (lo) or its last (hi - 1), dk/dv dropping
+    each KV tile's first or last live q tile. Each reading must lie far
+    outside SPLASH_TOL."""
+    import torch
+
     from dstack_tpu_torch.workloads.kernels import splash
 
+    t = q3.shape[1]
     ro, rlse = splash.splash_fwd_plain(q3, k3, v3, None, None, True, window)
     args = (q3, k3, v3, do3, rlse, (do3 * ro).sum(-1), None, None, True, window)
     ref = {"splash_fwd": (ro, rlse), "splash_bwd_dq": (splash.splash_bwd_dq_plain(*args),),
            "splash_bwd_dkv": splash.splash_bwd_dkv_plain(*args)}
-    for edge, (kv_drop, q_drop) in faults.items():
-        # Each faulty kernel reads the right residuals (lse, delta) and
-        # drops its own tile pairs.
-        with planted_band_fault(kv_drop):
-            fault = {"splash_fwd": splash.splash_fwd_plain(q3, k3, v3, None, None, True, window),
-                     "splash_bwd_dq": (splash.splash_bwd_dq_plain(*args),)}
-        with planted_band_fault(q_drop):
-            fault["splash_bwd_dkv"] = splash.splash_bwd_dkv_plain(*args)
-        for name, got in fault.items():
-            tile = "live q tile" if name == "splash_bwd_dkv" else "live KV tile"
+    run = {"splash_fwd": lambda: splash.splash_fwd_plain(q3, k3, v3, None, None, True, window),
+           "splash_bwd_dq": lambda: (splash.splash_bwd_dq_plain(*args),),
+           "splash_bwd_dkv": lambda: splash.splash_bwd_dkv_plain(*args)}
+    for name, (rows, keys) in SPLASH_TILES.items():
+        tile = "live q tile" if name == "splash_bwd_dkv" else "live KV tile"
+        for edge, (kv_drop, q_drop) in band_faults(t, window, rows, keys).items():
+            # Each faulty kernel reads the right residuals (lse, delta) and
+            # drops its own tile pairs.
+            with planted_band_fault(q_drop if name == "splash_bwd_dkv" else kv_drop, rows, keys):
+                got = run[name]()
             err = max(float((f - r).abs().max()) for f, r in zip(got, ref[name]))
             if not err > 10 * SPLASH_TOL:
                 raise AssertionError(
                     f"{name}: dropping the band's {edge} {tile} reads {err:.3e}, within 10x of"
                     f" atol {SPLASH_TOL:g}")
-            log(f"planted fault {name} {label} window={window} (the band's {edge} {tile} of"
-                f" {SPLASH_TILE} dropped): max |fault - plain| {err:.3e} ="
+            log(f"planted fault {name} {label} window={window} (the band's {edge} {tile} of a"
+                f" {rows}-row x {keys}-key tile pair dropped): max |fault - plain| {err:.3e} ="
                 f" {err / SPLASH_TOL:.0f}x atol {SPLASH_TOL:g}; the check fails it")
-        del fault
+            del got
     del ref
     torch.cuda.empty_cache()
 
@@ -944,17 +988,30 @@ def splash_timing(q3, k3, v3, do3, window) -> dict:
             f" {entry['plain_ms']:.4f} ms, sdpa {'fwd' if name == 'splash_fwd' else 'bwd'}"
             f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']}); {entry['ms'] / entry['bound_ms']:.1f}x the bound")
+    # dk/dv as training feeds it: do holds bf16 values, so the tensor-core
+    # kernel skips do's zero low planes.
+    bf16_args = (q3, k3, v3, do3.bfloat16().float(), *args[4:])
+    ms = time_ms(lambda: splash.splash_bwd_dkv(*bf16_args), iters=10)
+    log(f"kernel splash_bwd_dkv window={window} bf16 timing with a do of bf16 values"
+        f" (training's inputs): {ms:.4f} ms")
     return out
 
 
 def phase_splash() -> dict:
-    """The splash kernels against their plain versions at llama3_1b heads
-    (T 8192 bf16 at windows 4096, 0 and 1024, and 4096 with documents; fp32
-    at T 1024; a ragged T 72; causal=False with documents), the planted band
-    faults, splash W 0 against the flash kernels, the times per window, and
-    the skipping: the W 1024 forward under 0.4x the W 0 forward."""
+    """What each splash wrapper runs (the forward and dk/dv on tensor cores
+    exactly at bf16 D 128, dq never), the splash kernels against their plain
+    versions at llama3_1b heads (T 8192 bf16 at windows 4096, 0 and 1024, and
+    4096 with documents; fp32 at T 1024; a ragged T 72; causal=False with
+    documents; D 96 with documents), dq and dk/dv against fp64 sums at
+    window 4096, the planted
+    band faults at each kernel's own tiles, splash W 0 against the flash
+    kernels, the times per window, and the skipping: the W 1024 forward
+    under 0.4x the W 0 forward."""
     import torch
 
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    log_instantiations(splash, splash.launches, {"splash_fwd", "splash_bwd_dkv"})
     b, h, kh, d, t = SPLASH_GEOMETRY
     report = {name: {"max_abs_err": 0.0} for name in ("splash_fwd", "splash_bwd_dq",
                                                       "splash_bwd_dkv")}
@@ -968,6 +1025,10 @@ def phase_splash() -> dict:
     for window in SPLASH_WINDOWS:
         keep(splash_compare("llama3_1b heads, T=8192", *x, None, True, window))
     keep(splash_compare(f"llama3_1b heads, T=8192, docs {SPLASH_DOCS}", *x, docs, True, 4096))
+    q3, k3, v3, do3 = x
+    for do_label, d_o in (("fp32 do", do3), ("do of bf16 values", do3.bfloat16().float())):
+        flash_bwd_against_fp64(f"llama3_1b heads, T=8192, window={SPLASH_WINDOWS[0]}, {do_label}",
+                               q3, k3, v3, d_o, window=SPLASH_WINDOWS[0])
     splash_planted_faults("llama3_1b heads, T=8192", *x, SPLASH_WINDOWS[0])
     splash_matches_flash(*x)
     timing = {window: splash_timing(*x, window) for window in SPLASH_WINDOWS}
@@ -978,13 +1039,16 @@ def phase_splash() -> dict:
         raise AssertionError(f"the window=1024 forward takes {ratio:.3f}x the window=0 forward")
     del x, docs
     torch.cuda.empty_cache()
-    for label, t_len, dtype, causal, window, lengths in (
-        ("T=1024", 1024, torch.float32, True, 256, None),
-        ("ragged T=72", 72, torch.bfloat16, True, 40, None),
-        ("ragged T=72", 72, torch.float32, True, 40, None),
-        ("T=1024, docs (300, 700, 24)", 1024, torch.bfloat16, False, 0, (300, 700, 24)),
+    # fp32 and D 96 run the CUDA-core kernels.
+    for label, t_len, d_head, dtype, causal, window, lengths in (
+        ("T=1024", 1024, d, torch.float32, True, 256, None),
+        ("ragged T=72", 72, d, torch.bfloat16, True, 40, None),
+        ("ragged T=72", 72, d, torch.float32, True, 40, None),
+        ("T=1024, docs (300, 700, 24)", 1024, d, torch.bfloat16, False, 0, (300, 700, 24)),
+        ("D=96, T=1024, docs (300, 700, 24)", 1024, 96, torch.bfloat16, True, 256,
+         (300, 700, 24)),
     ):
-        x = flash_inputs(b, h, kh, d, t_len, dtype, 31)
+        x = flash_inputs(b, h, kh, d_head, t_len, dtype, 31)
         docs = doc_plane(lengths, b) if lengths else None
         keep(splash_compare(f"llama3_1b heads, {label}", *x, docs, causal, window))
     for name, entry in report.items():

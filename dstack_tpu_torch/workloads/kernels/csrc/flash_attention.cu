@@ -37,17 +37,17 @@
 // stretches (16 dims, or 16 to 64 keys or queries, with their split terms)
 // into a zeroed register tile that one fp32 add, rounded to nearest, puts
 // into the running sum.
-//   - fwd: a block of 4 warps owns 64 q rows, 16 a warp. K/V tiles of 64
-//     keys stream through a 2-stage cp.async ring, so the next tile's load
-//     overlaps this tile's math; the q fragments are read from shared memory
-//     per tile (ldmatrix). S = Q K^T, the online softmax (a row's max and sum
-//     over the 4 lanes of a quad) and P stay in registers; P goes from its C
-//     fragments to A fragments in 3 bf16 terms, and O += P_i V for each term
-//     with V through ldmatrix.trans, the 64 keys of a tile summed in a zeroed
-//     tile per 16 output columns. Only tiles that cross the causal diagonal
-//     or the ragged end pay for the mask compares. mma work per live (query,
-//     key) pair: 1 (QK) + 3 (PV) = 4 units of D multiply-adds, against a
-//     plain bf16 kernel's 2.
+//   - fwd and dk/dv: the bodies in attention_mma_kernels.cuh, which splash
+//     shares, under CausalMask: only tiles that cross the causal diagonal or
+//     the ragged end pay for the mask compares. fwd: a block of 4 warps owns
+//     64 q rows; 64-key K/V tiles stream through a 2-stage cp.async ring; S,
+//     the online softmax and P stay in registers; O += P_i V with P in 3
+//     bf16 terms. mma work a live (query, key) pair: 1 (QK) + 3 (PV) = 4
+//     units of D multiply-adds, against a plain bf16 kernel's 2. dk/dv: one
+//     block per (64-key KV tile, BKh row) owns its dk and dv in registers
+//     and walks 32-row q tiles from the farthest to the causal diagonal, the
+//     n_rep heads interleaved; mma work a pair 1 + 3 + 6 + 3 = 13 units
+//     against a plain kernel's 4, 8 when do holds bf16 values (training).
 //   - dq: the forward's walk. A block of 4 warps owns 64 q rows, 16 a warp,
 //     the last q tile first; Q loads once (bf16) and fp32 do loads once and
 //     is split once into three bf16 planes in shared memory, planes that
@@ -64,35 +64,13 @@
 //     per k-step. mma work a live pair: 1 + 3 + 3 = 7 units of D
 //     multiply-adds against a plain bf16 kernel's 3; 5 when do holds bf16
 //     values (training).
-//   - dk/dv: one block per (64-key KV tile, BKh row), 4 warps of 16 keys,
-//     owns its dk and dv in registers (no atomics, deterministic). K and V
-//     stay resident in shared memory; the block walks 32-row q tiles from
-//     the farthest one to the causal diagonal, the n_rep heads interleaved
-//     (p, and so each tile's share of dk and dv, grows toward the diagonal:
-//     the small shares meet the fp32 sums first), bringing Q, fp32 do, lse
-//     and delta of the next tile in by cp.async (double-buffered) while this
-//     one computes. do is split once per tile into three bf16 planes in
-//     shared memory. From registers, 16 queries at a time: S^T = K Q^T;
-//     P^T = exp(S^T scale - lse); dP^T = V dO^T over the planes; dS^T = P^T
-//     (dP^T - delta) scale; dV += P^T dO with P^T in 3 terms and the 6
-//     products of terms i + j < 3; dK += dS^T Q with dS^T in 3 terms. P^T
-//     and dS^T are C fragments whose rows are the warp's keys, so they feed
-//     the A side of the last two products directly. mma work a pair: 1 + 3 +
-//     6 + 3 = 13 units against a plain kernel's 4. Planes that are zero over
-//     a whole tile are skipped (exactly: they add nothing): when do holds
-//     bf16 values, as in training, where the model casts o to bf16, it is
-//     1 + 1 + 3 + 3 = 8.
 //
-// CUDA-core design (fp32, other D). A block is 256 threads, a 16 x 16
-// grid (ty, tx), over a TILE x TILE tile of scores (TILE = 64, or 32 where
-// 64 does not fit shared memory: fp32 with D > 192). Thread (ty, tx) owns
-// rows ty*R .. ty*R+R-1 (R = TILE/16) and columns tx, tx+16, ..: the 16
-// threads of a row are one half of a warp, so a row's max and sum are 4
-// shuffles. Tiles sit in shared memory row-major with a padded row (an odd
-// number of 32-bit words). The forward and dq kernels take one block per (q
-// tile, BH row) and walk the KV tiles the last row can see; dk/dv takes one
-// block per (KV tile, BKh row) and walks its q tiles as the tensor-core
-// kernel does. Products and sums are fp32 FMAs.
+// CUDA-core design (fp32, other D): attention_cuda_core.cuh's 256-thread
+// tiles (TILE = 64, or 32 where 64 does not fit shared memory: fp32 with D >
+// 192), products and sums in fp32 FMAs. The forward and dq kernels take one
+// block per (q tile, BH row) and walk the KV tiles the last row can see;
+// dk/dv takes one block per (KV tile, BKh row) and walks its q tiles as the
+// tensor-core kernel does.
 // Blocks with the most causal work start first (the last q tile for fwd/dq,
 // the first KV tile for dk/dv). Rows and keys past T or S are masked, so a
 // ragged last tile is right.
@@ -108,53 +86,21 @@
 //
 // Left for later: wgmma (64-row warpgroup tiles, B from swizzled shared
 // memory through descriptors) with TMA loads and mbarriers, a producer warp
-// and a deeper ring; the splash kernels on the same pieces; splitting a
-// long causal row's KV walk across blocks.
+// and a deeper ring; splitting a long causal row's KV walk across blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_cuda_core.cuh"
 #include "attention_mma.cuh"
+#include "attention_mma_kernels.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREADS = 256;  // 16 x 16
+using namespace attn_cc;
+using attn_mma::NEG_INF;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on sm_90
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Elements p[0], p[1] as floats (p at an even element of a padded row).
-__device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0], p[1]); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Reductions over the 16 lanes (one half-warp) that share a row.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
-  return v;
-}
-
-// Row padding in elements that makes a row an odd number of 32-bit words.
-template <typename T>
-struct Pad {
-  static constexpr int value = 1;
-};
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int value = 2;
-};
 
 // Shared memory of the largest kernel (dk/dv) at a tile edge: K, V and Q
 // tiles of T, a do tile and two score tiles of floats, lse and delta.
@@ -175,76 +121,7 @@ struct Geo {
   static constexpr int NJ = D / 16;     // output columns a thread owns
 };
 
-// Copy rows [row0, row0 + TILE) of a row-major [n_rows, D] matrix into a
-// shared tile of rows of LD elements, 32-bit words at a time; rows past
-// n_rows are zero.
-template <typename T, int D, int LD, int TILE>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int n_rows) {
-  constexpr int WPR = D * static_cast<int>(sizeof(T)) / 4;
-  constexpr int LDW = LD * static_cast<int>(sizeof(T)) / 4;
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  for (int i = threadIdx.x; i < TILE * WPR; i += THREADS) {
-    const int r = i / WPR;
-    const int c = i % WPR;
-    const int g = row0 + r;
-    d[r * LDW + c] = g < n_rows ? s[static_cast<size_t>(g) * WPR + c] : 0u;
-  }
-}
-
-// acc[i][j] = sum_d A[ty*R + i][d] * B[tx + 16 j][d] over shared tiles.
-template <int R, int D, typename TA, typename TB>
-__device__ __forceinline__ void dot_rows(float (&acc)[R][R], const TA* A, int lda, const TB* B,
-                                         int ldb, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 2) {
-    float2 a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = load2(A + (ty * R + i) * lda + d);
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = load2(B + (tx + 16 * j) * ldb + d);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-      }
-  }
-}
-
-// out[i][jj] += sum_c P[ty*R + i][c] * V[c][tx + 16 jj]: P a float score
-// tile, V a shared tile whose rows past the valid ones are zero. With
-// LAST_FIRST the columns run from c = TILE - 1 down to 0. splash_attention.cu
-// keeps a copy of this and the other CUDA-core tile helpers until its kernels
-// move onto attention_mma.cuh.
-template <int R, int NJ, int TILE, bool LAST_FIRST = false, typename TV>
-__device__ __forceinline__ void add_pv(float (&out)[R][NJ], const float* P, int ldp,
-                                       const TV* V, int ldv, int ty, int tx) {
-#pragma unroll 2
-  for (int cc = 0; cc < TILE; ++cc) {
-    const int c = LAST_FIRST ? TILE - 1 - cc : cc;
-    float p[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = P[(ty * R + i) * ldp + c];
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const float v = to_float(V[c * ldv + tx + 16 * jj]);
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i][jj] = fmaf(p[i], v, out[i][jj]);
-    }
-  }
-}
-
-// Last KV tile (exclusive) that rows [q0, q0 + TILE) of a causal walk see.
-__device__ __forceinline__ int causal_hi(int q0, int tile, int T_len, int n_kv) {
-  return min(n_kv, (min(T_len, q0 + tile) - 1) / tile + 1);
-}
+using attn_mma::CausalMask;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -266,8 +143,7 @@ __global__ void __launch_bounds__(THREADS)
   const T* qb = q + static_cast<size_t>(bh) * T_len * D;
   const T* kb = k + static_cast<size_t>(bh / n_rep) * S_len * D;
   const T* vb = v + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const int n_kv = (S_len + TILE - 1) / TILE;
-  const int hi = causal ? causal_hi(q0, TILE, T_len, n_kv) : n_kv;
+  const int hi = CausalMask{T_len, S_len, causal}.kv_hi<TILE, TILE>(q0);
 
   load_tile<T, D, LD, TILE>(q_s, qb, q0, T_len);
   float m[R], l[R], acc[R][NJ];
@@ -354,8 +230,7 @@ __global__ void __launch_bounds__(THREADS)
   const size_t row_base = static_cast<size_t>(bh) * T_len;
   const T* kb = k + static_cast<size_t>(bh / n_rep) * S_len * D;
   const T* vb = v + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const int n_kv = (S_len + TILE - 1) / TILE;
-  const int hi = causal ? causal_hi(q0, TILE, T_len, n_kv) : n_kv;
+  const int hi = CausalMask{T_len, S_len, causal}.kv_hi<TILE, TILE>(q0);
 
   load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, T_len);
   load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, T_len);
@@ -494,187 +369,25 @@ __global__ void __launch_bounds__(THREADS)
 
 using bf16 = __nv_bfloat16;
 
+using attn_mma::DKV_KEYS;
+using attn_mma::DO_TERMS;
+using attn_mma::FWD_ROWS;
+using attn_mma::MMA_THREADS;
 using attn_mma::TensorCore;
 
-constexpr int MMA_THREADS = 128;  // 4 warps
-constexpr int FWD_ROWS = 64;      // q rows of a forward block, 16 a warp
-constexpr int FWD_KEYS = 64;      // keys of a streamed K/V tile
-constexpr int FWD_STAGES = 2;     // K/V ring depth
-constexpr int DKV_KEYS = 64;      // keys of a dk/dv block, 16 a warp
-constexpr int DKV_ROWS = 32;      // q rows of a dk/dv step
 constexpr int DQ_ROWS = 64;       // q rows of a dq block, 16 a warp
 constexpr int DQ_KEYS = 32;       // keys of a streamed K/V tile of dq
 constexpr int DQ_STAGES = 2;      // dq's K/V ring depth
-constexpr int DO_TERMS = 3;       // bf16 planes of do (split_to_planes) and terms of p, ds
-static_assert(FWD_ROWS == FWD_KEYS, "causal_hi takes one edge for q rows and keys");
 
-template <int D>
-constexpr size_t fwd_mma_smem_bytes() {
-  return static_cast<size_t>(FWD_ROWS + 2 * FWD_STAGES * FWD_KEYS) * attn_mma::padded(D) *
-         sizeof(bf16);
-}
-
-// K, V; Q x 2 buffers; the do planes; the fp32 do staging tile; lse and
-// delta x 2 buffers.
-template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  return static_cast<size_t>(2 * DKV_KEYS + 2 * DKV_ROWS + DO_TERMS * DKV_ROWS) *
-             attn_mma::padded(D) * sizeof(bf16) +
-         static_cast<size_t>(DKV_ROWS) * D * 4 + 4u * DKV_ROWS * 4;
-}
-
+// The forward under causal (or no) masking: attention_mma_kernels.cuh's
+// body, whose mask policy folds to flash's bounds.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int T_len, int S_len, int n_rep, int causal,
                          float scale) {
-  using namespace attn_mma;
-  constexpr int LD = padded(D);
-  constexpr int KD = D / 16;          // k-steps of Q K^T
-  constexpr int NK = FWD_KEYS / 8;    // score n-tiles
-  constexpr int ND = D / 8;           // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + FWD_ROWS * LD;              // [FWD_STAGES][FWD_KEYS][LD]
-  bf16* v_s = k_s + FWD_STAGES * FWD_KEYS * LD;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;
-  const LaneOffsets lo(lane);
-  const int n_q = (T_len + FWD_ROWS - 1) / FWD_ROWS;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * FWD_ROWS;
-  const int bh = blockIdx.y;
-  const bf16* kb = k + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const bf16* vb = v + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const int n_kv = (S_len + FWD_KEYS - 1) / FWD_KEYS;
-  const int hi = causal ? causal_hi(q0, FWD_KEYS, T_len, n_kv) : n_kv;
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-
-  cp_async_tile<bf16, FWD_ROWS, D, LD, MMA_THREADS>(q_s, q + static_cast<size_t>(bh) * T_len * D,
-                                                    q0, T_len);
-  cp_async_tile<bf16, FWD_KEYS, D, LD, MMA_THREADS>(k_s, kb, 0, S_len);
-  cp_async_tile<bf16, FWD_KEYS, D, LD, MMA_THREADS>(v_s, vb, 0, S_len);
-  cp_async_commit();
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int jk = 0; jk < hi; ++jk) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile jk has landed; every warp is done with tile jk - 1
-    // The q fragments, read again per tile: held in registers for the whole
-    // walk they added to the register pressure that spills at D 128, and
-    // the kernel ran slower.
-    uint32_t qf[KD][4];
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-      ldmatrix_x4(qf[kd], q_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
-    if (jk + 1 < hi) {
-      const int st = (jk + 1) % FWD_STAGES;
-      cp_async_tile<bf16, FWD_KEYS, D, LD, MMA_THREADS>(k_s + st * FWD_KEYS * LD, kb,
-                                                        (jk + 1) * FWD_KEYS, S_len);
-      cp_async_tile<bf16, FWD_KEYS, D, LD, MMA_THREADS>(v_s + st * FWD_KEYS * LD, vb,
-                                                        (jk + 1) * FWD_KEYS, S_len);
-      cp_async_commit();
-    }
-    const bf16* ks = k_s + (jk % FWD_STAGES) * FWD_KEYS * LD;
-    const bf16* vs = v_s + (jk % FWD_STAGES) * FWD_KEYS * LD;
-
-    float s[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
-        mma_pair(s[2 * np], s[2 * np + 1], qf[kd], b);
-      }
-
-    // Scale, mask (only a tile across the diagonal or the ragged end), and
-    // the online softmax of rows row0 (e = 0, 1) and row0 + 8 (e = 2, 3).
-    const int k0 = jk * FWD_KEYS;
-    const bool edge = (causal && k0 + FWD_KEYS - 1 > q0) || k0 + FWD_KEYS > S_len;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (edge) {
-          const int kp = k0 + j * 8 + 2 * tq + (e & 1);
-          const int qp = row0 + (e >> 1) * 8;
-          x = kp < S_len && (!causal || kp <= qp) ? x : NEG_INF;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float safe_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      safe_m[r] = m_new == NEG_INF ? 0.f : m_new;
-      const float corr = m[r] == NEG_INF ? 0.f : expf(m[r] - safe_m[r]);
-      m[r] = m_new;
-      l[r] *= corr;  // a lane's partial row sum; the quad's are added at the end
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * r] *= corr;
-        acc[n][2 * r + 1] *= corr;
-      }
-    }
-    // Masked scores are NEG_INF, so their exp is exactly 0.
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - safe_m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-
-    // O += P V. P goes from its C fragments to A fragments in DO_TERMS bf16
-    // terms; per 16 output columns the 64 keys' terms meet in a zeroed tile
-    // that one rounded add puts into acc (add_tile).
-    uint32_t pa[NK / 2][DO_TERMS][4];
-#pragma unroll
-    for (int kk = 0; kk < NK / 2; ++kk) c_to_a_split<DO_TERMS>(s[2 * kk], s[2 * kk + 1], pa[kk]);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < NK / 2; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + (kk * 16 + lo.row_a) * LD + dn * 16 + lo.col_a);
-#pragma unroll
-        for (int i = DO_TERMS - 1; i >= 0; --i) mma_pair(t0, t1, pa[kk][i], b);
-      }
-      add_tile(acc[2 * dn], t0);
-      add_tile(acc[2 * dn + 1], t1);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = fmaxf(quad_sum(l[r]), 1e-20f);
-    const int qp = row0 + 8 * r;
-    if (qp >= T_len) continue;
-    float* orow = o + (static_cast<size_t>(bh) * T_len + qp) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8 + 2 * tq) =
-          make_float2(acc[n][2 * r] / l_safe, acc[n][2 * r + 1] / l_safe);
-    if (tq == 0)
-      lse[static_cast<size_t>(bh) * T_len + qp] = (m[r] == NEG_INF ? NEG_INF : m[r]) + logf(l_safe);
-  }
+  attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, CausalMask{T_len, S_len, causal});
 }
 
 // Q, the do planes, and the K/V ring.
@@ -871,6 +584,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   }
 }
 
+// dk/dv under causal (or no) masking: attention_mma_kernels.cuh's body.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -878,189 +592,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv, int T_len,
                              int S_len, int n_rep, int causal, float scale) {
-  using namespace attn_mma;
-  constexpr int LD = padded(D);
-  constexpr int KD = D / 16;          // k-steps over D
-  constexpr int ND = D / 8;           // dk/dv n-tiles
-  constexpr int PLANE = DKV_ROWS * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + DKV_KEYS * LD;
-  bf16* q_s = v_s + DKV_KEYS * LD;           // [2][DKV_ROWS][LD]
-  bf16* pl_s = q_s + 2 * PLANE;              // [DO_TERMS][DKV_ROWS][LD]
-  float* do_s = reinterpret_cast<float*>(pl_s + DO_TERMS * PLANE);  // [DKV_ROWS][D]
-  float* lse_s = do_s + DKV_ROWS * D;        // [2][DKV_ROWS]
-  float* delta_s = lse_s + 2 * DKV_ROWS;     // [2][DKV_ROWS]
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;
-  const LaneOffsets lo(lane);
-  const int k0 = blockIdx.x * DKV_KEYS;
-  const int bkh = blockIdx.y;
-  const int n_q = (T_len + DKV_ROWS - 1) / DKV_ROWS;
-  // q tiles that end before this KV tile starts see none of it under causal masking.
-  const int iq_lo = causal ? min(k0 / DKV_ROWS, n_q) : 0;
-  const int n_steps = n_rep * (n_q - iq_lo);
-  const int key0 = k0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
-
-  // Step j: q tile n_q - 1 - j / n_rep of head j % n_rep of the KV row. The
-  // walk runs from the farthest q tile to the causal diagonal, the heads
-  // interleaved: p (and so each step's share of dk and dv) grows toward the
-  // diagonal, and adding the small shares first, while the fp32 sums are
-  // still small, rounds them less.
-  auto step_q0 = [&](int j) { return (n_q - 1 - j / n_rep) * DKV_ROWS; };
-  auto fetch = [&](int j, int buf) {
-    const size_t row_base = (static_cast<size_t>(bkh) * n_rep + j % n_rep) * T_len;
-    const int q0 = step_q0(j);
-    cp_async_tile<bf16, DKV_ROWS, D, LD, MMA_THREADS>(q_s + buf * PLANE, q + row_base * D, q0,
-                                                      T_len);
-    cp_async_tile<float, DKV_ROWS, D, D, MMA_THREADS>(do_s, dout + row_base * D, q0, T_len);
-    const int t = threadIdx.x;
-    if (t < 2 * DKV_ROWS) {
-      const int r = t % DKV_ROWS;
-      const bool in = q0 + r < T_len;
-      const float* src = (t < DKV_ROWS ? lse : delta) + row_base + (in ? q0 + r : 0);
-      cp_async4((t < DKV_ROWS ? lse_s : delta_s) + buf * DKV_ROWS + r, src, in);
-    }
-    cp_async_commit();
-  };
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  if (n_steps > 0) {
-    cp_async_tile<bf16, DKV_KEYS, D, LD, MMA_THREADS>(k_s, k + static_cast<size_t>(bkh) * S_len * D,
-                                                      k0, S_len);
-    cp_async_tile<bf16, DKV_KEYS, D, LD, MMA_THREADS>(v_s, v + static_cast<size_t>(bkh) * S_len * D,
-                                                      k0, S_len);
-    fetch(0, 0);
-  }
-
-  for (int j = 0; j < n_steps; ++j) {
-    const int buf = j & 1;
-    const int q0 = step_q0(j);
-    cp_async_wait<0>();
-    __syncthreads();  // step j has landed; every warp is done with step j - 1
-
-    // Split the fp32 do tile into DO_TERMS bf16 planes; note which low
-    // planes hold anything.
-    bool nz[2] = {false, false};
-#pragma unroll
-    for (int it = 0; it < DKV_ROWS * D / (4 * MMA_THREADS); ++it) {
-      const int i = (it * MMA_THREADS + static_cast<int>(threadIdx.x)) * 4;
-      split_to_planes(*reinterpret_cast<const float4*>(do_s + i), pl_s, PLANE,
-                      (i / D) * LD + i % D, nz);
-    }
-    // Barriers: the planes are ready and do_s is free for the next fetch.
-    const int n_do = live_planes(nz);
-    if (j + 1 < n_steps) fetch(j + 1, buf ^ 1);
-
-    const bf16* qs = q_s + buf * PLANE;
-    const float* ls = lse_s + buf * DKV_ROWS;
-    const float* dls = delta_s + buf * DKV_ROWS;
-    const bool edge =
-        (causal && q0 < k0 + DKV_KEYS - 1) || q0 + DKV_ROWS > T_len || k0 + DKV_KEYS > S_len;
-
-    // 16 of the tile's queries at a time: the score tiles of a warp are then
-    // 16 keys x 16 queries (two n-tiles), which keeps dk and dv in registers.
-    // S^T runs its D / 16 mma in place, as the forward's S does; the longer
-    // sums go through zeroed tiles that add_tile puts into their sum: one
-    // 16-dim step of dP^T (its planes), one 16-query step of dV and dK.
-#pragma unroll 1
-    for (int c0 = 0; c0 < DKV_ROWS; c0 += 16) {
-      float st[2][4], dp[2][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[0][e] = st[1][e] = dp[0][e] = dp[1][e] = 0.f;
-      // S^T = K Q^T and dP^T = V dO^T (over the planes that hold anything).
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, k_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
-        ldmatrix_x4(b, qs + (c0 + lo.row_b) * LD + kd * 16 + lo.col_b);
-        mma_pair(st[0], st[1], a, b);
-      }
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t a[4];
-        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-        ldmatrix_x4(a, v_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
-#pragma unroll
-        for (int p = DO_TERMS - 1; p >= 0; --p) {
-          if (p >= n_do) continue;
-          uint32_t b[4];
-          ldmatrix_x4(b, pl_s + p * PLANE + (c0 + lo.row_b) * LD + kd * 16 + lo.col_b);
-          mma_pair(t0, t1, a, b);
-        }
-        add_tile(dp[0], t0);
-        add_tile(dp[1], t1);
-      }
-      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale. A
-      // query whose lse is NEG_INF saw nothing: its p is 0.
-#pragma unroll
-      for (int jq = 0; jq < 2; ++jq)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + jq * 8 + 2 * tq + (e & 1);
-          const float lq = ls[c];
-          float p = lq == NEG_INF ? 0.f : expf(st[jq][e] * scale - lq);
-          if (edge) {
-            const int qp = q0 + c;
-            const int kp = key0 + (e >> 1) * 8;
-            p = qp < T_len && kp < S_len && (!causal || kp <= qp) ? p : 0.f;
-          }
-          st[jq][e] = p;
-          dp[jq][e] = p * (dp[jq][e] - dls[c]) * scale;
-        }
-
-      // dV += P^T dO: terms i of P^T and planes p with i + p < 3.
-      uint32_t pa[DO_TERMS][4];
-      c_to_a_split<DO_TERMS>(st[0], st[1], pa);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int p = DO_TERMS - 1; p >= 0; --p) {
-          if (p >= n_do) continue;
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, pl_s + p * PLANE + (c0 + lo.row_a) * LD + dn * 16 + lo.col_a);
-#pragma unroll
-          for (int i = DO_TERMS - 1 - p; i >= 0; --i) mma_pair(t0, t1, pa[i], b);
-        }
-        add_tile(dv_acc[2 * dn], t0);
-        add_tile(dv_acc[2 * dn + 1], t1);
-      }
-      // dK += dS^T Q: terms i of dS^T.
-      uint32_t sa[DO_TERMS][4];
-      c_to_a_split<DO_TERMS>(dp[0], dp[1], sa);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, qs + (c0 + lo.row_a) * LD + dn * 16 + lo.col_a);
-        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int i = DO_TERMS - 1; i >= 0; --i) mma_pair(t0, t1, sa[i], b);
-        add_tile(dk_acc[2 * dn], t0);
-        add_tile(dk_acc[2 * dn + 1], t1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = key0 + 8 * r;
-    if (kp >= S_len) continue;
-    const size_t off = (static_cast<size_t>(bkh) * S_len + kp) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(dk + off + n * 8 + 2 * tq) =
-          make_float2(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<float2*>(dv + off + n * 8 + 2 * tq) =
-          make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-    }
-  }
+  attn_mma::dkv_mma_body<D>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale,
+                            CausalMask{T_len, S_len, causal});
 }
 
 struct Shape {
@@ -1085,7 +618,7 @@ struct FwdArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = fwd_mma_smem_bytes<D>();
+      const size_t smem = attn_mma::fwd_mma_smem_bytes<D, CausalMask>();
       auto kernel = flash_fwd_mma_kernel<D>;
       const cudaError_t err = prepare(kernel, smem);
       if (err != cudaSuccess) return err;
@@ -1152,7 +685,7 @@ struct DkvArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = dkv_mma_smem_bytes<D>();
+      const size_t smem = attn_mma::dkv_mma_smem_bytes<D, CausalMask>();
       auto kernel = flash_bwd_dkv_mma_kernel<D>;
       const cudaError_t err = prepare(kernel, smem);
       if (err != cudaSuccess) return err;

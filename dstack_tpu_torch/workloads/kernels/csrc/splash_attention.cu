@@ -18,81 +18,66 @@
 // that of KV row g batch g / Kh. A row that sees no key has o = 0, lse =
 // -1e30 and zero gradients.
 //
-// Block sparsity. The causal and window bounds are loop bounds at this
-// kernel's own tile edge (not the TPU kernel's block):
-//   - fwd and dq: q tile [q0, q0 + TILE) walks KV tiles [lo, hi), lo =
-//     max(0, q0 - (window - 1)) / TILE (clamped before dividing: C division
-//     truncates toward zero, the reference floors), hi = the tile after the
-//     one holding the tile's last row (causal);
-//   - dk/dv: KV tile [k0, k0 + TILE) walks q tiles [k0 / TILE, hi), hi = the
-//     tile after the one holding row last_key + window - 1. It walks them
-//     from the farthest (hi - 1) toward the diagonal, the n_rep heads
-//     interleaved per q tile and each tile's queries last to first: the
-//     fp32 FMAs into dk and dv then meet the small terms first, while the
-//     sums are still small. fp32 sums walked from the diagonal over the
-//     16,384 queries of a llama3_1b KV head at T 8192 drift from the exact
-//     sums by about twice the tolerance against flash's tensor-core dk/dv
-//     (chip_smoke.py prints the drift of fp32 GEMMs walked so).
-// Inside a live tile the element mask applies; document ids are element
-// masks only, as on the TPU (a tile wholly across documents is still read).
+// Two instantiations, chosen at compile time per (type, D) by
+// TensorCore<T, D> and by_head_dim, never as a path taken when a launch
+// fails:
+//   - bf16 q/k/v at D = 32, 64 and 128: the forward and dk/dv run on tensor
+//     cores (splash_fwd_mma_kernel, splash_bwd_dkv_mma_kernel), on the bodies
+//     that flash's tensor-core forward and dk/dv run
+//     (attention_mma_kernels.cuh) under BandMask, with and without document
+//     planes (DOCS, a template argument picked by whether docq is given);
+//   - dq at every type and D, and the forward and dk/dv on fp32 or other
+//     head dims, run the CUDA-core kernels below (splash_fwd_kernel,
+//     splash_bwd_dq_kernel, splash_bwd_dkv_kernel) on attention_cuda_core.cuh's
+//     256-thread tiles, products and sums in fp32 FMAs.
 //
-// Design: flash_attention.cu's CUDA-core machinery (256 threads as 16 x 16
-// over a TILE x TILE score tile, TILE = 64 or 32 where shared memory is
-// short, padded shared rows, fp32 products, p or ds staged in shared
-// memory), plus the document ids of the KV tile (fwd, dq) or q tile (dk/dv)
-// in shared memory. One block owns one output tile: no atomics, the result
+// Block sparsity. The causal and window bounds are loop bounds at each
+// kernel's own row and key tile edges (not the TPU kernel's block):
+//   - fwd and dq: q tile [q0, q0 + ROWS) walks KV tiles [lo, hi) of KEYS
+//     keys, lo = max(0, q0 - (window - 1)) / KEYS (clamped before dividing:
+//     C division truncates toward zero, the reference floors), hi = the tile
+//     after the one holding the key of the tile's last row (causal). Tensor
+//     cores: 64 rows, 64 keys; CUDA cores: TILE x TILE;
+//   - dk/dv: KV tile [k0, k0 + KEYS) walks q tiles [k0 / ROWS, hi) of ROWS
+//     rows, hi = the tile after the one holding row last_key + window - 1,
+//     from the farthest (hi - 1) toward the diagonal, the n_rep heads
+//     interleaved per q tile (the CUDA-core kernel also takes each tile's
+//     queries last to first): the fp32 sums into dk and dv then meet the
+//     small terms first, while the sums are still small. Tensor cores: 64
+//     keys, 32 rows; CUDA cores: TILE x TILE.
+// Only tiles that cross the causal diagonal, the window's edge or the ragged
+// end pay for element compares on the tensor-core path; with document planes
+// every tile compares: document ids are element masks, as on the TPU (a tile
+// wholly across documents is still read). The document ids of the KV tile
+// (fwd, dq) or q tile (dk/dv) come into shared memory beside the tile (on
+// the tensor-core path through the cp.async ring); the rows' or keys' own
+// stay in registers. One block owns one output tile: no atomics, the result
 // is deterministic.
 //
 // Bound at the train shapes (llama3_1b: B 2, H 16, Kh 8, D 128, T = S =
 // 8192, bf16, window 4096): 25,167,872 live (query, key) pairs per head;
 // the forward needs 4 D operations a pair, 4.1e11 in all (0.42 ms at 989
 // TFLOP/s bf16), against 0.27 GB moved once (0.08 ms at 3.35 TB/s): bound by
-// operations, as are dq (6 D a pair) and dk/dv (8 D). The products run on
-// CUDA cores in fp32 (67 TFLOP/s peak), so the kernels cannot come near
-// that bound; tensor-core products are later work, as for flash.
+// operations, as are dq (6 D a pair, 0.63 ms) and dk/dv (8 D, 0.83 ms). The
+// tensor-core kernels split each fp32 operand into three bf16 terms, so the
+// forward does 4 units of D multiply-adds a live pair (2x a plain bf16
+// kernel) and dk/dv 13 (8 on a do of bf16 values, as in training), through
+// mma.sync, which reaches a fraction of the dense rate that wgmma does. dq's
+// products run on CUDA cores in fp32 (67 TFLOP/s peak), far from its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_cuda_core.cuh"
+#include "attention_mma.cuh"
+#include "attention_mma_kernels.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREADS = 256;  // 16 x 16
+using namespace attn_cc;
+using attn_mma::NEG_INF;
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may use on sm_90
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Elements p[0], p[1] as floats (p at an even element of a padded row).
-__device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0], p[1]); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Reductions over the 16 lanes (one half-warp) that share a row.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
-  return v;
-}
-
-// Row padding in elements that makes a row an odd number of 32-bit words.
-template <typename T>
-struct Pad {
-  static constexpr int value = 1;
-};
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int value = 2;
-};
 
 // Shared memory of the largest kernel (dk/dv) at a tile edge: K, V and Q
 // tiles of T, a do tile and two score tiles of floats, lse, delta and the q
@@ -114,24 +99,6 @@ struct Geo {
   static constexpr int NJ = D / 16;     // output columns a thread owns
 };
 
-// Copy rows [row0, row0 + TILE) of a row-major [n_rows, D] matrix into a
-// shared tile of rows of LD elements, 32-bit words at a time; rows past
-// n_rows are zero.
-template <typename T, int D, int LD, int TILE>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int n_rows) {
-  constexpr int WPR = D * static_cast<int>(sizeof(T)) / 4;
-  constexpr int LDW = LD * static_cast<int>(sizeof(T)) / 4;
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  for (int i = threadIdx.x; i < TILE * WPR; i += THREADS) {
-    const int r = i / WPR;
-    const int c = i % WPR;
-    const int g = row0 + r;
-    d[r * LDW + c] = g < n_rows ? s[static_cast<size_t>(g) * WPR + c] : 0u;
-  }
-}
-
 // Document ids [pos0, pos0 + TILE) of one row of a doc plane into shared
 // memory (0 past n; callers mask those positions anyway).
 template <int TILE>
@@ -139,83 +106,16 @@ __device__ __forceinline__ void load_docs(int* dst, const int* __restrict__ row,
   for (int c = threadIdx.x; c < TILE; c += THREADS) dst[c] = pos0 + c < n ? row[pos0 + c] : 0;
 }
 
-// acc[i][j] = sum_d A[ty*R + i][d] * B[tx + 16 j][d] over shared tiles.
-template <int R, int D, typename TA, typename TB>
-__device__ __forceinline__ void dot_rows(float (&acc)[R][R], const TA* A, int lda, const TB* B,
-                                         int ldb, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 2) {
-    float2 a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = load2(A + (ty * R + i) * lda + d);
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = load2(B + (tx + 16 * j) * ldb + d);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-      }
-  }
-}
-
-// out[i][jj] += sum_c P[ty*R + i][c] * V[c][tx + 16 jj]: P a float score
-// tile, V a shared tile whose rows past the valid ones are zero.
-// With LAST_FIRST the columns run from c = TILE - 1 down to 0.
-template <int R, int NJ, int TILE, bool LAST_FIRST = false, typename TV>
-__device__ __forceinline__ void add_pv(float (&out)[R][NJ], const float* P, int ldp,
-                                       const TV* V, int ldv, int ty, int tx) {
-#pragma unroll 2
-  for (int cc = 0; cc < TILE; ++cc) {
-    const int c = LAST_FIRST ? TILE - 1 - cc : cc;
-    float p[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = P[(ty * R + i) * ldp + c];
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const float v = to_float(V[c * ldv + tx + 16 * jj]);
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i][jj] = fmaf(p[i], v, out[i][jj]);
-    }
-  }
-}
-
-// Lengths, heads and the mask of one launch.
-struct Band {
-  int t_len, s_len, n_rep, heads, kv_heads, causal, window;
-  float scale;
-
-  // Key kp exists and query qp sees it under causal and window masking.
-  __device__ __forceinline__ bool sees(int qp, int kp) const {
-    return kp < s_len && (!causal || kp <= qp) && (window == 0 || kp > qp - window);
-  }
-  // [kv_lo, kv_hi): the KV tiles rows [q0, q0 + tile) see.
-  __device__ __forceinline__ int kv_lo(int q0, int tile) const {
-    return window ? max(0, q0 - (window - 1)) / tile : 0;
-  }
-  __device__ __forceinline__ int kv_hi(int q0, int tile) const {
-    const int n_kv = (s_len + tile - 1) / tile;
-    return causal ? min(n_kv, (min(t_len, q0 + tile) - 1) / tile + 1) : n_kv;
-  }
-  // [q_lo, q_hi): the q tiles that see some key of [k0, k0 + tile).
-  __device__ __forceinline__ int q_lo(int k0, int tile) const { return causal ? k0 / tile : 0; }
-  __device__ __forceinline__ int q_hi(int k0, int tile) const {
-    const int n_q = (t_len + tile - 1) / tile;
-    const int last_key = min(s_len, k0 + tile) - 1;
-    return window ? min(n_q, (last_key + window - 1) / tile + 1) : n_q;
-  }
-};
+// The CUDA-core kernels take the band (lengths, causal, window, heads) as
+// BandMask<false> and compare documents themselves, where docq is given.
+using attn_mma::BandMask;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const int* __restrict__ docq, const int* __restrict__ dock,
-                      float* __restrict__ o, float* __restrict__ lse, Band bd) {
+                      float* __restrict__ o, float* __restrict__ lse, BandMask<false> bd,
+                      float scale) {
   using G = Geo<T, D>;
   constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDS = G::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -229,12 +129,12 @@ __global__ void __launch_bounds__(THREADS)
   const int n_q = (bd.t_len + TILE - 1) / TILE;
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * TILE;
   const int bh = blockIdx.y;
-  const int batch = bh / bd.heads;
+  const int batch = bh / bd.heads, n_rep = bd.heads / bd.kv_heads;
   const T* qb = q + static_cast<size_t>(bh) * bd.t_len * D;
-  const T* kb = k + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
-  const T* vb = v + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const T* kb = k + static_cast<size_t>(bh / n_rep) * bd.s_len * D;
+  const T* vb = v + static_cast<size_t>(bh / n_rep) * bd.s_len * D;
   const bool docs = docq != nullptr;
-  const int lo = bd.kv_lo(q0, TILE), hi = bd.kv_hi(q0, TILE);
+  const int lo = bd.kv_lo<TILE, TILE>(q0), hi = bd.kv_hi<TILE, TILE>(q0);
 
   load_tile<T, D, LD, TILE>(q_s, qb, q0, bd.t_len);
   float m[R], l[R], acc[R][NJ];
@@ -266,8 +166,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
-        ok[j] = bd.sees(qp, k0 + c) && (!docs || doc_r[i] == dk_s[c]);
-        s[i][j] = ok[j] ? s[i][j] * bd.scale : NEG_INF;
+        ok[j] = bd.sees(qp, k0 + c, 0, 0) && (!docs || doc_r[i] == dk_s[c]);
+        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -309,7 +209,7 @@ __global__ void __launch_bounds__(THREADS)
                          const T* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int* __restrict__ docq, const int* __restrict__ dock,
-                         float* __restrict__ dq, Band bd) {
+                         float* __restrict__ dq, BandMask<false> bd, float scale) {
   using G = Geo<T, D>;
   constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDF = G::LDF, LDS = G::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -324,12 +224,12 @@ __global__ void __launch_bounds__(THREADS)
   const int n_q = (bd.t_len + TILE - 1) / TILE;
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * TILE;
   const int bh = blockIdx.y;
-  const int batch = bh / bd.heads;
+  const int batch = bh / bd.heads, n_rep = bd.heads / bd.kv_heads;
   const size_t row_base = static_cast<size_t>(bh) * bd.t_len;
-  const T* kb = k + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
-  const T* vb = v + static_cast<size_t>(bh / bd.n_rep) * bd.s_len * D;
+  const T* kb = k + static_cast<size_t>(bh / n_rep) * bd.s_len * D;
+  const T* vb = v + static_cast<size_t>(bh / n_rep) * bd.s_len * D;
   const bool docs = docq != nullptr;
-  const int lo = bd.kv_lo(q0, TILE), hi = bd.kv_hi(q0, TILE);
+  const int lo = bd.kv_lo<TILE, TILE>(q0), hi = bd.kv_hi<TILE, TILE>(q0);
 
   load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, bd.t_len);
   load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, bd.t_len);
@@ -362,10 +262,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
-        const bool ok = bd.sees(qp, k0 + c) && (!docs || doc_r[i] == dk_s[c]) &&
+        const bool ok = bd.sees(qp, k0 + c, 0, 0) && (!docs || doc_r[i] == dk_s[c]) &&
                         lse_r[i] != NEG_INF;
-        const float p = ok ? expf(s[i][j] * bd.scale - lse_r[i]) : 0.f;
-        ds_s[(ty * R + i) * LDS + c] = p * (dp[i][j] - delta_r[i]) * bd.scale;
+        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        ds_s[(ty * R + i) * LDS + c] = p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
@@ -388,7 +288,8 @@ __global__ void __launch_bounds__(THREADS)
                           const T* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const int* __restrict__ docq, const int* __restrict__ dock,
-                          float* __restrict__ dk, float* __restrict__ dv, Band bd) {
+                          float* __restrict__ dk, float* __restrict__ dv, BandMask<false> bd,
+                          float scale) {
   using G = Geo<T, D>;
   constexpr int TILE = G::TILE, R = G::R, NJ = G::NJ, LD = G::LD, LDF = G::LDF, LDS = G::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -406,9 +307,9 @@ __global__ void __launch_bounds__(THREADS)
   const int k0 = blockIdx.x * TILE;
   const int bkh = blockIdx.y;
   // Every q row of this KV row (bkh * n_rep + rep) lies in its batch.
-  const int batch = bkh / bd.kv_heads;
+  const int batch = bkh / bd.kv_heads, n_rep = bd.heads / bd.kv_heads;
   const bool docs = docq != nullptr;
-  const int iq_lo = bd.q_lo(k0, TILE), iq_hi = bd.q_hi(k0, TILE);
+  const int iq_lo = bd.q_lo<TILE, TILE>(k0), iq_hi = bd.q_hi<TILE, TILE>(k0);
 
   load_tile<T, D, LD, TILE>(k_s, k + static_cast<size_t>(bkh) * bd.s_len * D, k0, bd.s_len);
   load_tile<T, D, LD, TILE>(v_s, v + static_cast<size_t>(bkh) * bd.s_len * D, k0, bd.s_len);
@@ -426,8 +327,8 @@ __global__ void __launch_bounds__(THREADS)
   // interleaved (see the note at the top).
   for (int iq = iq_hi - 1; iq >= iq_lo; --iq) {
     const int q0 = iq * TILE;
-    for (int rep = 0; rep < bd.n_rep; ++rep) {
-      const size_t row_base = (static_cast<size_t>(bkh) * bd.n_rep + rep) * bd.t_len;
+    for (int rep = 0; rep < n_rep; ++rep) {
+      const size_t row_base = (static_cast<size_t>(bkh) * n_rep + rep) * bd.t_len;
       __syncthreads();
       load_tile<T, D, LD, TILE>(q_s, q + row_base * D, q0, bd.t_len);
       load_tile<float, D, LDF, TILE>(do_s, dout + row_base * D, q0, bd.t_len);
@@ -450,11 +351,11 @@ __global__ void __launch_bounds__(THREADS)
           const int c = tx + 16 * j;
           const int qp = q0 + c;
           const float l = lse_s[c];
-          const bool ok = qp < bd.t_len && bd.sees(qp, kp) && (!docs || dq_s[c] == doc_r[i]) &&
+          const bool ok = qp < bd.t_len && bd.sees(qp, kp, 0, 0) && (!docs || dq_s[c] == doc_r[i]) &&
                           l != NEG_INF;
-          const float p = ok ? expf(st[i][j] * bd.scale - l) : 0.f;
+          const float p = ok ? expf(st[i][j] * scale - l) : 0.f;
           p_s[(ty * R + i) * LDS + c] = p;
-          ds_s[(ty * R + i) * LDS + c] = p * (dpt[i][j] - delta_s[c]) * bd.scale;
+          ds_s[(ty * R + i) * LDS + c] = p * (dpt[i][j] - delta_s[c]) * scale;
         }
       }
       __syncthreads();
@@ -476,12 +377,42 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// -- tensor-core kernels (bf16, D = 32, 64, 128) --------------------------------
+
+using bf16 = __nv_bfloat16;
+using attn_mma::DKV_KEYS;
+using attn_mma::FWD_ROWS;
+using attn_mma::MMA_THREADS;
+using attn_mma::TensorCore;
+
+// The forward under the band (and, with DOCS, the documents):
+// attention_mma_kernels.cuh's body, which flash shares.
+template <int D, bool DOCS>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    splash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int n_rep, float scale, BandMask<DOCS> mask) {
+  attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, mask);
+}
+
+// dk/dv under the same mask.
+template <int D, bool DOCS>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    splash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv, int n_rep,
+                              float scale, BandMask<DOCS> mask) {
+  attn_mma::dkv_mma_body<D>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale, mask);
+}
+
 struct Shape {
   int b, bh, bkh, t_len, s_len, causal, window;
   float scale;
   cudaStream_t stream;
-  Band band() const {
-    return Band{t_len, s_len, bh / bkh, bh / b, bkh / b, causal, window, scale};
+  template <bool DOCS>
+  BandMask<DOCS> mask(const int* docq, const int* dock) const {
+    return BandMask<DOCS>{t_len, s_len, causal, window, docq, dock, bh / b, bkh / b};
   }
 };
 
@@ -498,19 +429,37 @@ struct FwdArgs {
   float *o, *lse;
   Shape sh;
 
-  template <typename T, int D>
-  cudaError_t launch() const {
-    using G = Geo<T, D>;
-    const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDS * 4u + G::TILE * 4u;
-    auto kernel = splash_fwd_kernel<T, D>;
+  template <int D, bool DOCS>
+  cudaError_t launch_mma() const {
+    const size_t smem = attn_mma::fwd_mma_smem_bytes<D, BandMask<DOCS>>();
+    auto kernel = splash_fwd_mma_kernel<D, DOCS>;
     const cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
-    kernel<<<grid, THREADS, smem, sh.stream>>>(static_cast<const T*>(q),
-                                               static_cast<const T*>(k),
-                                               static_cast<const T*>(v), docq, dock, o, lse,
-                                               sh.band());
+    const dim3 grid((sh.t_len + FWD_ROWS - 1) / FWD_ROWS, sh.bh);
+    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
+        lse, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
     return cudaGetLastError();
+  }
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    if constexpr (TensorCore<T, D>::value) {
+      return docq ? launch_mma<D, true>() : launch_mma<D, false>();
+    } else {
+      using G = Geo<T, D>;
+      const size_t smem =
+          3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDS * 4u + G::TILE * 4u;
+      auto kernel = splash_fwd_kernel<T, D>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
+      kernel<<<grid, THREADS, smem, sh.stream>>>(static_cast<const T*>(q),
+                                                 static_cast<const T*>(k),
+                                                 static_cast<const T*>(v), docq, dock, o, lse,
+                                                 sh.mask<false>(nullptr, nullptr), sh.scale);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -532,7 +481,7 @@ struct DqArgs {
     const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
     kernel<<<grid, THREADS, smem, sh.stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
-        delta, docq, dock, dq, sh.band());
+        delta, docq, dock, dq, sh.mask<false>(nullptr, nullptr), sh.scale);
     return cudaGetLastError();
   }
 };
@@ -544,18 +493,35 @@ struct DkvArgs {
   float *dk, *dv;
   Shape sh;
 
-  template <typename T, int D>
-  cudaError_t launch() const {
-    using G = Geo<T, D>;
-    const size_t smem = dkv_smem_bytes<T, D>(G::TILE);
-    auto kernel = splash_bwd_dkv_kernel<T, D>;
+  template <int D, bool DOCS>
+  cudaError_t launch_mma() const {
+    const size_t smem = attn_mma::dkv_mma_smem_bytes<D, BandMask<DOCS>>();
+    auto kernel = splash_bwd_dkv_mma_kernel<D, DOCS>;
     const cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((sh.s_len + G::TILE - 1) / G::TILE, sh.bkh);
-    kernel<<<grid, THREADS, smem, sh.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
-        delta, docq, dock, dk, dv, sh.band());
+    const dim3 grid((sh.s_len + DKV_KEYS - 1) / DKV_KEYS, sh.bkh);
+    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        dout, lse, delta, dk, dv, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
     return cudaGetLastError();
+  }
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    if constexpr (TensorCore<T, D>::value) {
+      return docq ? launch_mma<D, true>() : launch_mma<D, false>();
+    } else {
+      using G = Geo<T, D>;
+      const size_t smem = dkv_smem_bytes<T, D>(G::TILE);
+      auto kernel = splash_bwd_dkv_kernel<T, D>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.s_len + G::TILE - 1) / G::TILE, sh.bkh);
+      kernel<<<grid, THREADS, smem, sh.stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
+          delta, docq, dock, dk, dv, sh.mask<false>(nullptr, nullptr), sh.scale);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -577,6 +543,35 @@ cudaError_t by_head_dim(int D, const Args& args) {
     default: return cudaErrorInvalidValue;
   }
 }
+
+// What splash_fwd_launch (kernel 0), splash_bwd_dq_launch (1) and
+// splash_bwd_dkv_launch (2) run for inputs of type T and head dim D, with
+// their mma work in units of D multiply-adds a live (query, key) pair.
+template <typename T, int D>
+const char* describe(int kernel) {
+  if (kernel == 1) return "CUDA cores, fp32 FMAs (splash_bwd_dq_kernel)";
+  if (!TensorCore<T, D>::value)
+    return kernel == 0 ? "CUDA cores, fp32 FMAs (splash_fwd_kernel)"
+                       : "CUDA cores, fp32 FMAs (splash_bwd_dkv_kernel)";
+  if (kernel == 0)
+    return "bf16 tensor cores (splash_fwd_mma_kernel: flash's forward body under the band"
+           " mask, mma.sync m16n8k16 + cp.async ring), P in 3 bf16 terms; mma work 4 units a"
+           " live pair (QK 1 + PV 3) against a plain bf16 kernel's 2";
+  return "bf16 tensor cores (splash_bwd_dkv_mma_kernel: flash's dk/dv body under the band"
+         " mask, mma.sync m16n8k16 + cp.async), do in 3 bf16 planes, P and dS in 3 terms; mma"
+         " work 13 units a live pair (KQ 1 + VdO 3 + PdO 6 + dSQ 3) against a plain kernel's 4,"
+         " 8 on tiles whose do holds bf16 values";
+}
+
+struct DescribeArgs {
+  int kernel;
+  const char** out;
+  template <typename T, int D>
+  cudaError_t launch() const {
+    *out = describe<T, D>(kernel);
+    return cudaSuccess;
+  }
+};
 
 template <typename Args>
 int dispatch(int dtype, int D, const Args& args) {
@@ -624,6 +619,17 @@ int splash_bwd_dkv_launch(int dtype, const void* q, const void* k, const void* v
                           void* stream) {
   const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, DkvArgs{q, k, v, dout, lse, delta, docq, dock, dk, dv, sh});
+}
+
+// The instantiation that a launch of kernel 0 (fwd), 1 (dq) or 2 (dk/dv)
+// runs for this dtype code and head dim; null where none does.
+const char* splash_instantiation(int kernel, int dtype, int D) {
+  const char* out = nullptr;
+  if (kernel < 0 || kernel > 2) return out;
+  const DescribeArgs args{kernel, &out};
+  if (dtype == 0) (void)by_head_dim<float>(D, args);
+  if (dtype == 1) (void)by_head_dim<__nv_bfloat16>(D, args);
+  return out;
 }
 
 const char* splash_attention_error_string(int code) {

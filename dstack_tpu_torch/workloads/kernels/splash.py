@@ -9,7 +9,12 @@ Pallas kernels of ``dstack_tpu/workloads/kernels/splash.py``
 ``_splash_bwd_3d``); the source is ``csrc/splash_attention.cu``. Each
 wrapper takes the plain version for tensors that lie on the CPU, and
 launches its kernel for CUDA tensors or raises; ``launches`` counts the
-kernel launches per wrapper.
+kernel launches per wrapper. For bf16 inputs at D = 32, 64 and 128 the
+forward and dk/dv run on bf16 tensor cores, on the bodies that the flash
+kernels run (``csrc/attention_mma_kernels.cuh``) under the band mask, with
+fp32 operands split into bf16 terms so that every product stays exact; dq,
+fp32 inputs and other head dims run on CUDA cores (``instantiation`` names
+what a launch runs).
 
 The mask is causal (key <= query) AND a local window (key > query - window,
 the query's own position included; 0 = no window) AND, where document ids
@@ -242,7 +247,20 @@ def _library() -> ctypes.CDLL:
         fn.restype = i32
     lib.splash_attention_error_string.argtypes = [i32]
     lib.splash_attention_error_string.restype = ctypes.c_char_p
+    lib.splash_instantiation.argtypes = [i32, i32, i32]
+    lib.splash_instantiation.restype = ctypes.c_char_p
     return lib
+
+
+def instantiation(name: str, dtype: torch.dtype, d: int) -> str:
+    """What a launch of wrapper ``name`` runs on the card for inputs of
+    ``dtype`` and head dim ``d``, as the library's dispatch decides it (the
+    kernel, its route and its mma work a live pair). Builds the library."""
+    which = ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv").index(name)
+    desc = _library().splash_instantiation(which, _DTYPE_CODES[dtype], d)
+    if desc is None:
+        raise ValueError(f"{name}: no kernel for {dtype} at D={d}")
+    return f"{desc.decode()}, D={d}"
 
 
 def _check_docs(q3, k3, docq, dock) -> None:

@@ -192,6 +192,12 @@ class TestDispatch:
             )
 
 
+# The headers under csrc/, each its own case of the header-hash test: the
+# tensor-core pieces, the tensor-core bodies shared by flash and splash, and
+# the CUDA-core tile helpers.
+HEADERS = ["attention_cuda_core.cuh", "attention_mma.cuh", "attention_mma_kernels.cuh"]
+
+
 class TestWrappers:
     def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(self):
         q, k, v = (t(x).requires_grad_(True) for x in qkv(10))
@@ -218,20 +224,28 @@ class TestWrappers:
         argv = build.nvcc_argv("nvcc", build.CSRC_DIR / "flash_attention.cu", tmp_path / "x.so")
         assert "arch=compute_90a,code=sm_90a" in argv
 
-    def test_library_path_changes_when_a_header_changes(self, tmp_path, monkeypatch):
+    @pytest.mark.parametrize("header", HEADERS)
+    def test_library_path_changes_when_a_header_changes(self, header, tmp_path, monkeypatch):
         """The sources include ``csrc/*.cuh``, so an edited header must build a
-        new library and never load one built from the old header."""
+        new library of each source that includes it and never load one built
+        from the old header."""
+        assert sorted(p.name for p in build.CSRC_DIR.glob("*.cuh")) == HEADERS
         csrc = tmp_path / "csrc"
         shutil.copytree(build.CSRC_DIR, csrc)
         monkeypatch.setattr(build, "CSRC_DIR", csrc)
-        before = build.library_path("flash_attention")
-        assert build.library_path("flash_attention") == before  # stable
-        header = csrc / "attention_mma.cuh"
-        header.write_bytes(header.read_bytes() + b"\n// edited\n")
-        after = build.library_path("flash_attention")
-        assert after != before and after.parent == before.parent
+        line = f'#include "{header}"'
+        users = [n for n in build.sources() if line in (csrc / f"{n}.cu").read_text()]
+        assert "flash_attention" in users
+        before = {n: build.library_path(n) for n in users}
+        assert {n: build.library_path(n) for n in users} == before  # stable
+        path = csrc / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {n: build.library_path(n) for n in users}
+        for n in users:
+            assert after[n] != before[n] and after[n].parent == before[n].parent, n
         (csrc / "extra.cuh").write_text("// a new header\n")
-        assert build.library_path("flash_attention") not in (before, after)
+        for n in users:
+            assert build.library_path(n) not in (before[n], after[n]), n
 
 
 # -- the split-bf16 products of the tensor-core kernels ----------------------

@@ -9,6 +9,12 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   attention with documents. Forward o and lse, then dq, dk, dv on the Pallas
   forward's o and lse. fp32 on both sides, so only the summation order
   differs: atol 1e-5;
+- emulations of the tensor-core forward and dk/dv walks of
+  csrc/attention_mma_kernels.cuh under splash's BandMask (their tile edges,
+  band bounds, edge tiles, dk/dv's far-to-near order, p and ds in three bf16
+  terms, per-tile sums) against the same Pallas outputs, at the card's tile
+  edges and at small ones that walk several tiles here, atol 1e-5; and a
+  read of the source: the tensor-core kernels exist only at bf16 D 32/64/128;
 - gradients of sum(sin(splash_attention(...))) through the port's autograd
   function against jax.grad of the JAX kernel, atol 1e-4 (the tolerance of
   TestSplashKernel);
@@ -16,11 +22,14 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   config check, the wrappers' CPU path and launch counters, and the build.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_flash import split_bf16
 
 from dstack_tpu.workloads import attention as jattn
 from dstack_tpu.workloads.kernels import splash as jsplash
@@ -38,7 +47,11 @@ CASES = {
     "window24-n_rep4": (128, 8, 2, 16, True, 24, None),
     "window48-docs": (128, 4, 2, 16, True, 48, (40, 56, 32)),
     "full-docs": (64, 4, 2, 16, False, 0, (20, 30, 14)),
+    # A window that is a multiple of no tile edge below, and a length that
+    # is a multiple of no row edge (the Pallas kernels take a block of 19).
+    "ragged76-window21-docs": (76, 4, 2, 16, True, 21, (30, 46)),
 }
+PALLAS_BLOCKS = {"ragged76-window21-docs": 19}
 
 
 def t(a):
@@ -72,7 +85,8 @@ def pallas():
         q, k, v = (to3(x) for x in qkv(i, t_len, h, kh, d))
         do = np.random.RandomState(100 + i).randn(*q.shape).astype(np.float32)
         docs = doc_ids(lengths) if lengths else np.zeros((2, t_len), np.int32)
-        args = (docs, docs, causal, window, lengths is not None, BLOCK, BLOCK, True)
+        block = PALLAS_BLOCKS.get(name, BLOCK)
+        args = (docs, docs, causal, window, lengths is not None, block, block, True)
         o, lse = jsplash._splash_fwd_3d(q, k, v, *args)
         dq, dk, dv = jsplash._splash_bwd_3d(q, k, v, o, lse, do, *args)
         out[name] = dict(q=q, k=k, v=v, do=do, docs=docs if lengths else None,
@@ -152,6 +166,212 @@ def test_rows_that_see_no_key_give_neg_inf_lse_and_zero_grads():
                                        True, 8)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)
+
+
+# -- the tensor-core walks ---------------------------------------------------
+#
+# csrc/attention_mma_kernels.cuh's forward and dk/dv bodies, which flash and
+# splash share, run under splash's BandMask: the forward walks 64-row q
+# tiles over the KV tiles [lo, hi) of 64 keys; dk/dv walks each 64-key tile's
+# 32-row q tiles [q_lo, q_hi) from the farthest to the nearest, the n_rep
+# heads interleaved; only edge tiles (across the causal diagonal, the
+# window's edge, the ragged end, or any tile when documents are given)
+# compare elements. Below, those walks in torch, with the bf16 products exact
+# (fp64), p and ds (and do) in three bf16 terms, each tile's products summed
+# on their own and added into the fp32 sums. The tile edges are parameters:
+# the card's, and small ones under which these inputs walk several tiles.
+
+WALK_EDGES = {  # name -> ((fwd rows, fwd keys), (dk/dv keys, dk/dv rows))
+    "card": ((64, 64), (64, 32)),
+    "small": ((16, 16), (16, 8)),
+}
+PDO_PRODUCTS = [(i, j) for i in range(3) for j in range(3) if i + j < 3]
+
+
+def band_bounds(t_len, s_len, causal, window):
+    """BandMask's tile ranges and edge test at row and key tile edges."""
+
+    def kv_range(q0, rows, keys):
+        lo = max(0, q0 - (window - 1)) // keys if window else 0
+        n_kv = -(-s_len // keys)
+        hi = min(n_kv, (min(t_len, q0 + rows) - 1) // keys + 1) if causal else n_kv
+        return lo, hi
+
+    def q_range(k0, keys, rows):
+        n_q = -(-t_len // rows)
+        lo = min(k0 // rows, n_q) if causal else 0
+        hi = min(n_q, (min(s_len, k0 + keys) - 1 + window - 1) // rows + 1) if window else n_q
+        return lo, hi
+
+    def edge(q0, k0, rows, keys, docs):
+        return (docs or (causal and k0 + keys - 1 > q0)
+                or bool(window and k0 + window <= q0 + rows - 1) or k0 + keys > s_len)
+
+    return kv_range, q_range, edge
+
+
+def pad_rows(x, r0, n):
+    """Rows [r0, r0 + n) of x [G, L, ...], zero past L (cp.async zero fill)."""
+    out = torch.zeros((x.shape[0], n, *x.shape[2:]), dtype=x.dtype)
+    rows = x[:, r0:r0 + n]
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
+def live_pairs(qp, kp, t_len, s_len, causal, window, docq=None, dock=None):
+    """[G or 1, len(qp), len(kp)]: query qp sees key kp (both exist)."""
+    live = (qp[:, None] < t_len) & (kp[None, :] < s_len)
+    if causal:
+        live &= kp[None, :] <= qp[:, None]
+    if window:
+        live &= kp[None, :] > qp[:, None] - window
+    live = live[None]
+    if docq is not None:
+        dq = docq[:, qp.clamp(max=t_len - 1)]
+        dk = dock[:, kp.clamp(max=s_len - 1)]
+        live = live & (dq[:, :, None] == dk[:, None, :])
+    return live
+
+
+def splash_fwd_walk(q3, k3, v3, docs, causal, window, rows=64, keys=64):
+    """(o, lse) fp32 as splash_fwd_mma_kernel computes them."""
+    bh, t_len, d = q3.shape
+    bkh, s_len, _ = k3.shape
+    n_rep = bh // bkh
+    scale = np.float32(1.0 / np.sqrt(d))
+    kv_range, _, edge = band_bounds(t_len, s_len, causal, window)
+    kv_row = torch.arange(bh) // n_rep
+    docq = dock = None
+    if docs is not None:
+        per_row = docs[torch.arange(bh) // (bh // docs.shape[0])]
+        docq, dock = per_row[:, :t_len], per_row[:, :s_len]
+    o = torch.zeros((bh, t_len, d))
+    lse = torch.zeros((bh, t_len))
+    for q0 in range(0, t_len, rows):
+        qt = pad_rows(q3, q0, rows).double()
+        qp = torch.arange(q0, q0 + rows)
+        m = torch.full((bh, rows), splash.NEG_INF)
+        l = torch.zeros((bh, rows))
+        acc = torch.zeros((bh, rows, d))
+        lo, hi = kv_range(q0, rows, keys)
+        for jk in range(lo, hi):
+            k0 = jk * keys
+            kt = pad_rows(k3, k0, keys)[kv_row].double()
+            vt = pad_rows(v3, k0, keys)[kv_row].double()
+            s = (qt @ kt.transpose(1, 2)).float() * scale
+            if edge(q0, k0, rows, keys, docs is not None):
+                kp = torch.arange(k0, k0 + keys)
+                s = torch.where(live_pairs(qp, kp, t_len, s_len, causal, window, docq, dock),
+                                s, splash.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            safe = torch.where(m_new == splash.NEG_INF, 0.0, m_new)
+            corr = torch.where(m == splash.NEG_INF, 0.0, torch.exp(m - safe))
+            p = torch.exp(s - safe[..., None])
+            l = l * corr + p.sum(-1)
+            pv = sum(t_ @ vt for t_ in split_bf16(p))
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        l_safe = torch.clamp(l, min=1e-20)
+        n = min(rows, t_len - q0)
+        o[:, q0:q0 + n] = (acc / l_safe[..., None])[:, :n]
+        lse[:, q0:q0 + n] = (torch.where(m == splash.NEG_INF, splash.NEG_INF, m)
+                             + torch.log(l_safe))[:, :n]
+    return o, lse
+
+
+def splash_dkv_walk(q3, k3, v3, do3, lse, delta, docs, causal, window, keys=64, rows=32):
+    """(dk, dv) fp32 as splash_bwd_dkv_mma_kernel computes them."""
+    bh, t_len, d = q3.shape
+    bkh, s_len, _ = k3.shape
+    n_rep = bh // bkh
+    scale = np.float32(1.0 / np.sqrt(d))
+    _, q_range, edge = band_bounds(t_len, s_len, causal, window)
+    docq = dock = None
+    if docs is not None:
+        per_kv = docs[torch.arange(bkh) // (bkh // docs.shape[0])]
+        docq, dock = per_kv[:, :t_len], per_kv[:, :s_len]
+    dk = torch.zeros((bkh, s_len, d))
+    dv = torch.zeros((bkh, s_len, d))
+    for k0 in range(0, s_len, keys):
+        kt = pad_rows(k3, k0, keys).double()
+        vt = pad_rows(v3, k0, keys).double()
+        kp = torch.arange(k0, k0 + keys)
+        dk_acc = torch.zeros((bkh, keys, d))
+        dv_acc = torch.zeros((bkh, keys, d))
+        lo, hi = q_range(k0, keys, rows)
+        for iq in range(hi - 1, lo - 1, -1):  # far to near, heads interleaved
+            q0 = iq * rows
+            qp = torch.arange(q0, q0 + rows)
+            for rep in range(n_rep):
+                heads = torch.arange(bkh) * n_rep + rep
+                qt = pad_rows(q3[heads], q0, rows).double()
+                planes = split_bf16(pad_rows(do3[heads], q0, rows))
+                ls = pad_rows(lse[heads], q0, rows)  # zero past T, as the fetch fills it
+                dl = pad_rows(delta[heads], q0, rows)
+                st = (kt @ qt.transpose(1, 2)).float()  # [G, keys, rows]
+                p = torch.where(ls[:, None] == splash.NEG_INF, 0.0,
+                                torch.exp(st * scale - ls[:, None]))
+                if edge(q0, k0, rows, keys, docs is not None) or q0 + rows > t_len:
+                    live = live_pairs(qp, kp, t_len, s_len, causal, window, docq, dock)
+                    p = torch.where(live.transpose(1, 2), p, 0.0)
+                dpt = sum(vt @ pl.transpose(1, 2) for pl in planes).float()
+                ds = p * (dpt - dl[:, None]) * scale
+                pt, dst = split_bf16(p), split_bf16(ds)
+                dv_acc += sum(pt[i] @ planes[j] for i, j in PDO_PRODUCTS).float()
+                dk_acc += sum(t_ @ qt for t_ in dst).float()
+        n = min(keys, s_len - k0)
+        dk[:, k0:k0 + n] = dk_acc[:, :n]
+        dv[:, k0:k0 + n] = dv_acc[:, :n]
+    return dk, dv
+
+
+@pytest.mark.parametrize("edges", list(WALK_EDGES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_tensor_core_forward_walk_matches_pallas(case, edges, pallas):
+    x = pallas[case]
+    causal, window = CASES[case][4], CASES[case][5]
+    docs = None if x["docs"] is None else t(x["docs"])
+    rows, keys = WALK_EDGES[edges][0]
+    o, lse = splash_fwd_walk(t(x["q"]), t(x["k"]), t(x["v"]), docs, causal, window, rows, keys)
+    np.testing.assert_allclose(o.numpy(), x["o"], atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), x["lse"], atol=TOL)
+
+
+@pytest.mark.parametrize("edges", list(WALK_EDGES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_tensor_core_dkv_walk_matches_pallas(case, edges, pallas):
+    """On the Pallas forward's o and lse, as the kernels run in training."""
+    x = pallas[case]
+    causal, window = CASES[case][4], CASES[case][5]
+    docs = None if x["docs"] is None else t(x["docs"])
+    keys, rows = WALK_EDGES[edges][1]
+    do, o = t(x["do"]), t(x["o"])
+    dk, dv = splash_dkv_walk(t(x["q"]), t(x["k"]), t(x["v"]), do, t(x["lse"]), (do * o).sum(-1),
+                             docs, causal, window, keys, rows)
+    np.testing.assert_allclose(dk.numpy(), x["dk"], atol=TOL, err_msg="dk")
+    np.testing.assert_allclose(dv.numpy(), x["dv"], atol=TOL, err_msg="dv")
+
+
+def test_tensor_core_kernels_exist_only_at_bf16_d32_64_128():
+    """Read from the sources: TensorCore<T, D> holds for bf16 at D 32, 64 and
+    128 alone, and the splash forward and dk/dv dispatch on it to their
+    tensor-core kernels (the shared bodies under BandMask), while dq never
+    does."""
+    header = (build.CSRC_DIR / "attention_mma.cuh").read_text()
+    dims = sorted(int(x) for x in re.findall(r"struct TensorCore<__nv_bfloat16, (\d+)>", header))
+    assert dims == [32, 64, 128]
+    assert re.search(r"struct TensorCore \{\s*static constexpr bool value = false;", header)
+    src = (build.CSRC_DIR / "splash_attention.cu").read_text()
+    assert '#include "attention_mma_kernels.cuh"' in src
+    args = {name: src[src.index(f"struct {name} {{"):] for name in ("FwdArgs", "DqArgs", "DkvArgs")}
+    args = {name: body[:body.index("\n};\n")] for name, body in args.items()}
+    for name, kernel, body in (("FwdArgs", "splash_fwd", "fwd_mma_body"),
+                               ("DkvArgs", "splash_bwd_dkv", "dkv_mma_body")):
+        assert "if constexpr (TensorCore<T, D>::value)" in args[name], name
+        assert f"{kernel}_mma_kernel<D, DOCS>" in args[name], name
+        assert f"{kernel}_kernel<T, D>" in args[name], name
+        assert re.search(rf"{kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D>", src), name
+    assert "TensorCore" not in args["DqArgs"] and "mma" not in args["DqArgs"]
 
 
 class TestDispatch:
@@ -241,9 +461,15 @@ CARD_TOL = 2e-5
 def test_kernels_match_plain_on_the_card():
     """On an sm_90 card: each splash kernel against its plain version, fp32
     and bf16, windowed with documents, a ragged last tile (T = 72) and full
-    attention with documents."""
+    attention with documents; at bf16 D 128 the forward and dk/dv launches
+    run the tensor-core kernels, dq the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (sm_90) and nvcc")
+    for name in splash.launches:
+        tensor_cores = name != "splash_bwd_dq"
+        desc = splash.instantiation(name, torch.bfloat16, 128)
+        assert desc.startswith("bf16 tensor cores") == tensor_cores
+        assert splash.instantiation(name, torch.float32, 128).startswith("CUDA cores")
     for dtype, t_len, causal, window, lengths in [
         (torch.float32, 72, True, 40, None), (torch.bfloat16, 256, True, 100, (90, 100, 66)),
         (torch.bfloat16, 128, False, 0, (60, 68)),
