@@ -11,14 +11,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              against its plain PyTorch version (fp32 outputs; bf16 inputs at
              atol 1e-4 / rtol 1e-3, where only the summation order differs,
              and fp32 inputs at atol 1e-5 / rtol 1e-5), and its time beside
-             the plain version's, a library yardstick's and its bound; the
-             readings of planted chunk faults (the walk one page short, the
-             causal edge one position late), which those limits must fail;
-             the chunk kernel at other page sizes (12, 32, 64), head dims
-             and GQA ratios.
-             The bf16 chunk kernel at D 32/64/128 runs on tensor cores
-             (mma.sync, P split into bf16 terms); decode, fp32 and other
-             head dims run on CUDA cores. The log names each instantiation;
+             the plain version's, a library yardstick's and its bound, and
+             decode again at the serving burst's lengths; the readings of
+             planted chunk faults (the walk one page short, the causal edge
+             one position late) and decode faults (the last split dropped,
+             the last position dropped), which those limits must fail; the
+             chunk and decode kernels at other page sizes (12, 32, 64), head
+             dims (32, 64, 96) and GQA ratios (1, 2, 8). Decode runs the split-KV kernel (CUDA cores) at
+             every type and D; the bf16 chunk kernel at D 32/64/128 runs on
+             tensor cores (mma.sync, P split into bf16 terms), fp32 and other
+             head dims on CUDA cores. The log names each instantiation;
 3. flash   - the flash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b and llama3_8b attention geometry (B 2,
              T = S = 8192, bf16, causal), plus fp32 inputs, a ragged last
@@ -42,7 +44,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              decode steps and chunk steps of that run; then torch.profiler
              over a prefill step, five decode steps and one chunk step (16
              mid-prefill slots at prefill_chunk=512) says where the time
-             goes and the chunk kernel's share of a chunk step;
+             goes, the decode kernels' share of the decode steps and the
+             chunk kernel's share of a chunk step;
 5. identity- in fp32 (llama3_8b width, 2 layers) the kernel engine is
              token-identical to the plain engine, whole-prompt and chunked,
              and to the full-forward greedy reference on two prompts;
@@ -72,11 +75,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              key tile edges), which that limit must fail; splash at window
              0 against the flash kernels; per window the times beside the
              plain versions', SDPA's under the same mask and the bounds
-             (dk/dv also on a do of bf16 values); the window-1024 forward
-             under 0.4x the window-0 one. On bf16 inputs at D 32/64/128 the
-             forward and dk/dv run on tensor cores, on the bodies flash runs
-             under the band mask; dq, fp32 inputs and other head dims run on
-             CUDA cores. The log names the instantiation each launch runs;
+             (dq and dk/dv also on a do of bf16 values); the window-1024
+             forward and dq under 0.4x their window-0 times. On bf16 inputs
+             at D 32/64/128 all three run on tensor cores, on the bodies
+             flash runs under the band mask; fp32 inputs and other head dims
+             run on CUDA cores. The log names the instantiation each launch
+             runs;
 10. train splash - train.main with the training example's flags
              (--attn-impl splash --attn-window 4096 --grad-accum 4
              --mu-dtype bfloat16 --remat-policy full --prefetch 2, llama3_1b,
@@ -118,6 +122,8 @@ SPLASH_SOURCE = "dstack_tpu_torch/workloads/kernels/csrc/splash_attention.cu"
 H, KH, D, PAGE, POOL, SLOTS, TABLE = 32, 8, 128, 16, 4096, 16, 512
 CHUNK = 512
 KV_LENS = [0, 1, 15, 16, 17, 1000, 4095, 8192, 0, 1, 15, 16, 17, 1003, 4095, 8192]
+# The prompt lengths of phase_serve's burst of 16 requests.
+BURST_LENGTHS = [int(n) for n in np.linspace(16, 1500, 16).astype(int)]
 # Valid chunk tokens per slot; chunk slot s starts at KV_LENS[s] - VALID[s].
 VALID = [0, 1, 15, 13, 17, 488, 495, 512, 0, 1, 10, 16, 5, 300, 512, 100]
 
@@ -194,12 +200,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: the summed time of the kernels it launches,
+    from torch.profiler over ``iters`` calls after a warm-up. For calls
+    shorter than their own host work, where CUDA events around a call time
+    the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    # A profiler session can come back without device events; take the
+    # next one then, and fail after three.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time in three sessions")
+
+
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def kernel_inputs(dtype, seed: int = 0):
+def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS):
     """Pages from a shuffled pool (non-contiguous page ids), tables zero past
-    each slot's pages, and the chunk geometry's starts."""
+    each slot's pages (slot s holds lens[s] positions), and the chunk
+    geometry's starts."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -209,11 +241,11 @@ def kernel_inputs(dtype, seed: int = 0):
     perm = rng.permutation(POOL)
     table = np.zeros((SLOTS, TABLE), np.int32)
     used = 0
-    for s, n in enumerate(KV_LENS):
+    for s, n in enumerate(lens):
         pages = -(-n // PAGE)
         table[s, :pages] = perm[used:used + pages]
         used += pages
-    kv_lens = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     starts = torch.tensor(
         [n - v for n, v in zip(KV_LENS, VALID)], dtype=torch.int32, device="cuda"
     )
@@ -225,10 +257,10 @@ def kernel_inputs(dtype, seed: int = 0):
     )
 
 
-def dense_kv(x):
+def dense_kv(x, lens=KV_LENS):
     """Gathered dense K and V [S, H, T, D] over the longest slot, for the
     library yardstick only."""
-    t = max(KV_LENS)
+    t = max(lens)
     idx = x["table"][:, : -(-t // PAGE)].long()
     out = []
     for pages in (x["k_pages"], x["v_pages"]):
@@ -262,10 +294,12 @@ def kernel_bounds(x):
     return out
 
 
-def log_instantiations(module, names, tensor_core) -> None:
+def log_instantiations(module, names, tensor_core, require=None) -> None:
     """Print what each wrapper runs at bf16 D 128, fp32 D 128 and bf16 D 96,
     and fail unless the wrappers in ``tensor_core`` run on tensor cores
-    exactly at bf16 D 128 and the others never do."""
+    exactly at bf16 D 128 and the others never do, and unless every
+    instantiation of a wrapper named in ``require`` names the kernel given
+    there."""
     import torch
 
     for name in names:
@@ -275,6 +309,8 @@ def log_instantiations(module, names, tensor_core) -> None:
             want = name in tensor_core and dtype == torch.bfloat16 and d == 128
             if desc.startswith("bf16 tensor cores") != want:
                 raise AssertionError(f"{name} {dtype} D={d} runs {desc}")
+            if require and name in require and require[name] not in desc:
+                raise AssertionError(f"{name} {dtype} D={d} runs {desc}, not {require[name]}")
 
 
 def paged_planted_faults(label, x, atol, rtol) -> None:
@@ -309,19 +345,96 @@ def paged_planted_faults(label, x, atol, rtol) -> None:
             f" fails it")
 
 
-def paged_chunk_shapes() -> None:
-    """The chunk kernel off the serving example's geometry, against the plain
-    version (bf16, atol 1e-4 / rtol 1e-3): pages of 12 rows (a 64-key tile
-    gathers across page boundaries), 32 and 64 rows, D 64 and 32, n_rep 1,
-    2 and 8; three slots of 100 chunk rows (kv_len 0; 90 from position 0;
-    300 from position 250) in a shuffled pool."""
+def paged_decode_planted_faults(label, x, atol, rtol) -> None:
+    """What a split-KV decode kernel with an off-by-one would read against
+    the plain version, computed by the plain version on shortened kv_lens:
+    the last split of each slot dropped (kv_len cut back to the start of its
+    last split of ``paged.decode_split`` positions, which loses the split
+    bounds or the combine's last split) and the last position dropped
+    (kv_len - 1). Each reading over the slots with kv_len > 0, in units of
+    the limit, must lie over 10."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    args = (x["q1"], x["k_pages"], x["v_pages"], x["table"])
+    lens = x["kv_lens"]
+    active = lens > 0
+    split = paged.decode_split(x["table"].shape[1] * PAGE)
+    ref = paged.paged_decode_attention_plain(*args, lens)
+    last = (lens - 1).clamp(min=0)
+    faults = {f"the last split of {split} positions dropped": last // split * split,
+              "the last position dropped": last}
+    for fault, short in faults.items():
+        got = paged.paged_decode_attention_plain(*args, short)
+        diff = (got - ref)[active].abs()
+        err = float(diff.max())
+        excess = float((diff / (atol + rtol * ref[active].abs())).max())
+        if not excess > 10:
+            raise AssertionError(f"paged_decode_attention {label}: {fault} reads {err:.3e},"
+                                 f" {excess:.2f}x the limit")
+        log(f"planted fault paged_decode_attention {label} ({fault}): max |fault - plain|"
+            f" {err:.3e} = {excess:.0f}x the limit (atol {atol:g}, rtol {rtol:g}); the check"
+            f" fails it")
+
+
+def decode_burst_timing(card: str) -> None:
+    """Decode at the serving burst's lengths: phase_serve's 16 prompts
+    (BURST_LENGTHS) at their 16th decode position, in the serving example's
+    pool and table (bf16, llama3_8b heads); the kernel against its plain
+    version (bf16 limits), its time beside SDPA's on the gathered K/V and the
+    bytes bound, each as CUDA-event medians (time_ms) and as device time
+    (device_ms)."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    lens = [n + 16 for n in BURST_LENGTHS]
+    x = kernel_inputs(torch.bfloat16, seed=5, lens=lens)
+    args = (x["q1"], x["k_pages"], x["v_pages"], x["table"], x["kv_lens"])
+    got, ref = paged.paged_decode_attention_cuda(*args), paged.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+    k_dense, v_dense = dense_kv(x, lens)
+    pos = torch.arange(k_dense.shape[2], device="cuda")
+    mask = (pos[None, :] < x["kv_lens"].long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel():
+        return paged.paged_decode_attention_cuda(*args)
+
+    def library():
+        return sdpa(x["q1"][:, :, None, :], k_dense, v_dense, attn_mask=mask)
+
+    ms, library_ms = time_ms(kernel), time_ms(library)
+    dev_ms, library_dev_ms = device_ms(kernel), device_ms(library)
+    bound_ms = sum(lens) * 2 * KH * D * 2 / HBM_BYTES_PER_S * 1e3
+    err = float((got - ref).abs().max())
+    log(f"kernel paged_decode_attention bf16 at the serving burst's lengths"
+        f" ({min(lens)}..{max(lens)}, {sum(lens)} positions): max_abs_err {err:.3e} (atol 1e-4,"
+        f" rtol 1e-3) ok; CUDA events {ms:.4f} ms, sdpa {library_ms:.4f} ms; device time"
+        f" {dev_ms:.4f} ms, sdpa {library_dev_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: K/V"
+        f" read once), {dev_ms / bound_ms:.1f}x by device time [{card}]")
+    del x, k_dense, v_dense
+    torch.cuda.empty_cache()
+
+
+def paged_shapes() -> None:
+    """The chunk and decode kernels off the serving example's geometry,
+    against their plain versions (bf16, atol 1e-4 / rtol 1e-3): pages of 12
+    rows (a tile gathers across page boundaries, and the decode kernel's
+    float page quotient is not exact), 32 and 64 rows, D 64, 32 and 96 (the
+    decode kernel's scalar loads), n_rep 1, 2 and 8 (decode warps without a
+    head); three slots (kv_len 0; 90; 300, across the decode split edge at
+    256), the chunk's 100 rows from position 0, 0 and 250, in a shuffled
+    pool."""
     import torch
 
     from dstack_tpu_torch.workloads.kernels import paged
 
     lens = torch.tensor([0, 90, 300], dtype=torch.int32, device="cuda")
     starts = torch.tensor([0, 0, 250], dtype=torch.int32, device="cuda")
-    for page, d, n_rep in ((12, 128, 4), (16, 64, 1), (32, 32, 2), (64, 128, 8)):
+    for page, d, n_rep in ((12, 128, 4), (16, 64, 1), (32, 32, 2), (64, 128, 8), (16, 96, 4)):
         gen = torch.Generator(device="cuda").manual_seed(page)
         n_pages = -(-300 // page)
         pool = 3 * n_pages + 2
@@ -331,22 +444,29 @@ def paged_chunk_shapes() -> None:
             np.random.RandomState(page).permutation(pool)[:3 * n_pages].reshape(3, n_pages)
         ).int().cuda()
         qc = torch.randn((3, 100, 2 * n_rep, d), generator=gen, device="cuda").bfloat16()
-        args = (qc, k_pages, v_pages, table, starts, lens)
-        got, ref = paged.paged_chunk_attention_cuda(*args), paged.paged_chunk_attention_plain(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
-        if bool(got[0].abs().max() != 0):
-            raise AssertionError(f"page {page}: kv_len 0 rows are not zero")
-        log(f"kernel paged_chunk_attention bf16 page {page} D={d} n_rep {n_rep}: max_abs_err"
-            f" {float((got - ref).abs().max()):.3e} (atol 1e-4, rtol 1e-3) ok")
+        q1 = torch.randn((3, 2 * n_rep, d), generator=gen, device="cuda").bfloat16()
+        for name, args, kernel, plain in (
+            ("paged_chunk_attention", (qc, k_pages, v_pages, table, starts, lens),
+             paged.paged_chunk_attention_cuda, paged.paged_chunk_attention_plain),
+            ("paged_decode_attention", (q1, k_pages, v_pages, table, lens),
+             paged.paged_decode_attention_cuda, paged.paged_decode_attention_plain),
+        ):
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+            if bool(got[0].abs().max() != 0):
+                raise AssertionError(f"{name} page {page}: kv_len 0 rows are not zero")
+            log(f"kernel {name} bf16 page {page} D={d} n_rep {n_rep}: max_abs_err"
+                f" {float((got - ref).abs().max()):.3e} (atol 1e-4, rtol 1e-3) ok")
 
 
-def phase_kernels() -> dict:
+def phase_kernels(card: str) -> dict:
     import torch
 
     from dstack_tpu_torch.workloads.kernels import paged
 
-    log_instantiations(paged, paged.launches, {"paged_chunk_attention"})
+    log_instantiations(paged, paged.launches, {"paged_chunk_attention"},
+                       require={"paged_decode_attention": "paged_decode_split_kernel"})
     report = {}
     for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 1e-3)):
         x = kernel_inputs(dtype)
@@ -377,6 +497,7 @@ def phase_kernels() -> dict:
             if dtype == torch.bfloat16:
                 report[name] = {"max_abs_err": err, "kernel": kernel, "plain": plain}
         paged_planted_faults(str(dtype)[6:], x, atol, rtol)
+        paged_decode_planted_faults(str(dtype)[6:], x, atol, rtol)
         if dtype == torch.bfloat16:
             bounds = kernel_bounds(x)
             k_dense, v_dense = dense_kv(x)
@@ -395,17 +516,31 @@ def phase_kernels() -> dict:
                 "paged_chunk_attention": lambda: sdpa(q_c, k_dense, v_dense, attn_mask=mask_c),
             }
             for name, entry in report.items():
-                entry["ms"] = time_ms(entry.pop("kernel"))
+                kernel = entry.pop("kernel")
+                entry["ms"] = time_ms(kernel)
                 entry["plain_ms"] = time_ms(entry.pop("plain"))
                 entry["library_ms"] = time_ms(library[name])
                 entry["bound_ms"], entry["bound_by"] = bounds[name]
-                log(f"kernel {name} bf16 timing: {entry['ms']:.4f} ms, plain"
+                device = ""
+                if name == "paged_decode_attention":
+                    # A decode call takes less device time than its wrapper's
+                    # host work, so the events around it read the host as
+                    # well: the device time of its kernels (split and
+                    # combine) and of SDPA's, beside the events' readings.
+                    entry["device_ms"] = device_ms(kernel)
+                    entry["library_device_ms"] = device_ms(library[name])
+                    device = (f"; device time {entry['device_ms']:.4f} ms, sdpa"
+                              f" {entry['library_device_ms']:.4f} ms,"
+                              f" {entry['device_ms'] / entry['bound_ms']:.1f}x the bound")
+                log(f"kernel {name} bf16 timing (CUDA events): {entry['ms']:.4f} ms, plain"
                     f" {entry['plain_ms']:.4f} ms, sdpa {entry['library_ms']:.4f} ms,"
-                    f" bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+                    f" bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}),"
+                    f" {entry['ms'] / entry['bound_ms']:.1f}x the bound{device}")
             del k_dense, v_dense
         del x
         torch.cuda.empty_cache()
-    paged_chunk_shapes()
+    paged_shapes()
+    decode_burst_timing(card)
     return report
 
 
@@ -490,8 +625,8 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
     sums, are read beside them with the device kernels those GEMMs ran, and
     not held to the limit: batched over the KV heads (the former form) and
     one KV head at a time. With a ``window``, the splash kernels under the
-    causal band of that window (no documents): the tensor-core dk/dv, the
-    CUDA-core dq and their plain versions, held to the same limit."""
+    causal band of that window (no documents): the tensor-core dq and dk/dv
+    and their plain versions, held to the same limit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -519,7 +654,7 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
         band = (*args, None, None, True, window)
         runs = {"tensor-core kernel": splash.splash_bwd_dkv(*band),
                 "plain version": splash.splash_bwd_dkv_plain(*band)}
-        dq_runs = {"CUDA-core kernel": splash.splash_bwd_dq(*band),
+        dq_runs = {"tensor-core kernel": splash.splash_bwd_dq(*band),
                    "plain version": splash.splash_bwd_dq_plain(*band)}
     pos = torch.arange(t, device=q3.device)
     mask = pos[None, :] <= pos[:, None]
@@ -746,15 +881,16 @@ SPLASH_GEOMETRY = (2, 16, 8, 128, 8192)
 SPLASH_WINDOWS = (4096, 0, 1024)
 # Four packed documents of uneven length in each 8192-token row.
 SPLASH_DOCS = (3000, 1500, 2692, 1000)
-# Tolerance of every splash comparison, as flash's: the CUDA-core kernels
-# compute in fp32 and differ from the plain versions (whose dk/dv sums are
+# Tolerance of every splash comparison, as flash's: the kernels keep every
+# product exact in fp32 (split bf16 terms on the tensor cores, fp32 FMAs on
+# the CUDA cores) and differ from the plain versions (whose dk/dv sums are
 # fp64) in the order and rounding of the sums.
 SPLASH_TOL = FLASH_TOL
 # Each kernel's (row, key) tile edges at bf16 D 128: the tensor-core forward
-# walks 64-row q tiles over 64-key tiles, the CUDA-core dq 64 x 64 tiles, the
-# tensor-core dk/dv 64-key tiles over 32-row q tiles. The planted band faults
-# drop one tile pair at these edges.
-SPLASH_TILES = {"splash_fwd": (64, 64), "splash_bwd_dq": (64, 64), "splash_bwd_dkv": (32, 64)}
+# walks 64-row q tiles over 64-key tiles, the tensor-core dq 64-row q tiles
+# over 32-key tiles, the tensor-core dk/dv 64-key tiles over 32-row q tiles.
+# The planted band faults drop one tile pair at these edges.
+SPLASH_TILES = {"splash_fwd": (64, 64), "splash_bwd_dq": (64, 32), "splash_bwd_dkv": (32, 64)}
 
 
 def doc_plane(lengths, b):
@@ -988,30 +1124,32 @@ def splash_timing(q3, k3, v3, do3, window) -> dict:
             f" {entry['plain_ms']:.4f} ms, sdpa {'fwd' if name == 'splash_fwd' else 'bwd'}"
             f" {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
             f" ({entry['bound_by']}); {entry['ms'] / entry['bound_ms']:.1f}x the bound")
-    # dk/dv as training feeds it: do holds bf16 values, so the tensor-core
-    # kernel skips do's zero low planes.
+    # dq and dk/dv as training feeds them: do holds bf16 values, so the
+    # tensor-core kernels skip do's zero low planes.
     bf16_args = (q3, k3, v3, do3.bfloat16().float(), *args[4:])
-    ms = time_ms(lambda: splash.splash_bwd_dkv(*bf16_args), iters=10)
-    log(f"kernel splash_bwd_dkv window={window} bf16 timing with a do of bf16 values"
-        f" (training's inputs): {ms:.4f} ms")
+    for name, kernel in (("splash_bwd_dq", splash.splash_bwd_dq),
+                         ("splash_bwd_dkv", splash.splash_bwd_dkv)):
+        ms = time_ms(lambda: kernel(*bf16_args), iters=10)
+        log(f"kernel {name} window={window} bf16 timing with a do of bf16 values"
+            f" (training's inputs): {ms:.4f} ms")
     return out
 
 
 def phase_splash() -> dict:
-    """What each splash wrapper runs (the forward and dk/dv on tensor cores
-    exactly at bf16 D 128, dq never), the splash kernels against their plain
+    """What each splash wrapper runs (all three on tensor cores exactly at
+    bf16 D 128), the splash kernels against their plain
     versions at llama3_1b heads (T 8192 bf16 at windows 4096, 0 and 1024, and
     4096 with documents; fp32 at T 1024; a ragged T 72; causal=False with
     documents; D 96 with documents), dq and dk/dv against fp64 sums at
     window 4096, the planted
     band faults at each kernel's own tiles, splash W 0 against the flash
-    kernels, the times per window, and the skipping: the W 1024 forward
-    under 0.4x the W 0 forward."""
+    kernels, the times per window, and the skipping: the W 1024 forward and
+    dq each under 0.4x their W 0 time."""
     import torch
 
-    from dstack_tpu_torch.workloads.kernels import splash
+    from dstack_tpu_torch.workloads.kernels import flash, splash
 
-    log_instantiations(splash, splash.launches, {"splash_fwd", "splash_bwd_dkv"})
+    log_instantiations(splash, splash.launches, set(splash.launches))
     b, h, kh, d, t = SPLASH_GEOMETRY
     report = {name: {"max_abs_err": 0.0} for name in ("splash_fwd", "splash_bwd_dq",
                                                       "splash_bwd_dkv")}
@@ -1032,11 +1170,20 @@ def phase_splash() -> dict:
     splash_planted_faults("llama3_1b heads, T=8192", *x, SPLASH_WINDOWS[0])
     splash_matches_flash(*x)
     timing = {window: splash_timing(*x, window) for window in SPLASH_WINDOWS}
-    ratio = timing[1024]["splash_fwd"]["ms"] / timing[0]["splash_fwd"]["ms"]
-    log(f"splash skipping: fwd window=1024 {timing[1024]['splash_fwd']['ms']:.4f} ms /"
-        f" window=0 {timing[0]['splash_fwd']['ms']:.4f} ms = {ratio:.3f} (must be < 0.4)")
-    if not ratio < 0.4:
-        raise AssertionError(f"the window=1024 forward takes {ratio:.3f}x the window=0 forward")
+    # Window 0 is flash attention: dq beside flash's on the same inputs.
+    o, lse = flash.flash_fwd(q3, k3, v3, True)
+    flash_ms = time_ms(lambda: flash.flash_bwd_dq(q3, k3, v3, do3, lse, (do3 * o).sum(-1), True),
+                       iters=10)
+    del o, lse
+    w0 = timing[0]["splash_bwd_dq"]["ms"]
+    log(f"splash_bwd_dq window=0 {w0:.4f} ms / flash_bwd_dq {flash_ms:.4f} ms on the same"
+        f" inputs = {w0 / flash_ms:.3f}")
+    for name in ("splash_fwd", "splash_bwd_dq"):
+        w1024, w0 = timing[1024][name]["ms"], timing[0][name]["ms"]
+        log(f"splash skipping: {name} window=1024 {w1024:.4f} ms / window=0 {w0:.4f} ms ="
+            f" {w1024 / w0:.3f} (must be < 0.4)")
+        if not w1024 / w0 < 0.4:
+            raise AssertionError(f"{name} at window=1024 takes {w1024 / w0:.3f}x its window=0 time")
     del x, docs
     torch.cuda.empty_cache()
     # fp32 and D 96 run the CUDA-core kernels.
@@ -1139,8 +1286,7 @@ def phase_serve(card: str) -> dict:
     log(f"serve: llama3_8b bf16 weights initialised in {time.monotonic() - t0:.1f} s"
         f" ({sum(p.numel() for p in params.values()) / 1e9:.2f} B params)")
     rng = np.random.RandomState(0)
-    lengths = np.linspace(16, 1500, 16).astype(int)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in BURST_LENGTHS]
     max_new = 32
     launches = {}
     for chunk in (0, 512):
@@ -1223,7 +1369,8 @@ def profile_window(label: str, run, card: str, share_of: str = "") -> None:
 def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> None:
     """Where a step's time goes: torch.profiler over the first engine step
     (admission, whole-prompt prefill, first decode) and over the decode
-    steps after it; then, at prefill_chunk=512, over one chunk step of 16
+    steps after it, with the decode kernels' share (the split kernel and
+    its combine); then, at prefill_chunk=512, over one chunk step of 16
     slots in mid-prefill (16 prompts of 1536 tokens: the profiled step is
     their second chunk, positions 512-1023), with the chunk kernel's share."""
     from dstack_tpu_torch.workloads import serve
@@ -1238,7 +1385,8 @@ def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> Non
         return lambda: [engine.step() for _ in range(n)]
 
     profile_window("prefill step", steps(1), card)
-    profile_window(f"{decode_steps} decode steps", steps(decode_steps), card)
+    profile_window(f"{decode_steps} decode steps", steps(decode_steps), card,
+                   share_of="paged_decode_")
     while engine.has_work():
         engine.step()
     del engine
@@ -1718,7 +1866,7 @@ def main() -> int:
         for line in ptxas_summary(text):
             log(f"ptxas {name}: {line}")
 
-    report = phase_kernels()
+    report = phase_kernels(card)
     report.update(phase_flash())
     launches = phase_serve(card)
     cfg, params = phase_identity()
@@ -1750,6 +1898,7 @@ def main() -> int:
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
+            **{key: entry[key] for key in ("device_ms", "library_device_ms") if key in entry},
         })
     log(f"total {time.monotonic() - t_start:.1f} s [{card}]")
     log(card)

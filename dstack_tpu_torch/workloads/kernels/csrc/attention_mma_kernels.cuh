@@ -1,20 +1,22 @@
-// The tensor-core forward and dk/dv bodies of the training attention kernels
-// for Hopper (sm_90a), shared by flash and splash and templated on a
+// The tensor-core forward, dq and dk/dv bodies of the training attention
+// kernels for Hopper (sm_90a), shared by flash and splash and templated on a
 // compile-time mask policy:
-//   - flash_attention.cu's flash_fwd_mma_kernel and flash_bwd_dkv_mma_kernel
-//     (the Pallas `_fwd_kernel` and `_bwd_dkv_kernel`,
-//     dstack_tpu/workloads/kernels/flash.py) run them under CausalMask;
-//   - splash_attention.cu's splash_fwd_mma_kernel and
-//     splash_bwd_dkv_mma_kernel (the Pallas `_splash_fwd_kernel` and
-//     `_splash_bwd_dkv_kernel`, dstack_tpu/workloads/kernels/splash.py) run
-//     them under BandMask: causal, a local window and document ids.
+//   - flash_attention.cu's flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel and
+//     flash_bwd_dkv_mma_kernel (the Pallas `_fwd_kernel`, `_bwd_dq_kernel`
+//     and `_bwd_dkv_kernel`, dstack_tpu/workloads/kernels/flash.py) run them
+//     under CausalMask;
+//   - splash_attention.cu's splash_fwd_mma_kernel, splash_bwd_dq_mma_kernel
+//     and splash_bwd_dkv_mma_kernel (the Pallas `_splash_fwd_kernel`,
+//     `_splash_bwd_dq_kernel` and `_splash_bwd_dkv_kernel`,
+//     dstack_tpu/workloads/kernels/splash.py) run them under BandMask:
+//     causal, a local window and document ids.
 // Those sources state each kernel's bound on this card; attention_mma.cuh has
 // the warp-level pieces and the numerics (mma.sync m16n8k16 bf16 -> fp32,
 // fp32 operands split into three bf16 terms, long sums out of the tensor
 // cores through zeroed tiles).
 //
 // A mask policy gives, at the kernel's own row and key tile edges:
-//   - kv_lo/kv_hi: the KV tiles [lo, hi) a q tile walks (the forward);
+//   - kv_lo/kv_hi: the KV tiles [lo, hi) a q tile walks (the forward, dq);
 //   - q_lo/q_hi: the q tiles [lo, hi) that see some key of a KV tile (dk/dv);
 //   - edge: whether a (q tile, KV tile) pair needs element compares; every
 //     other tile of the walk is wholly live, so the interior path carries no
@@ -33,6 +35,22 @@
 // O += P_i V for each term with V through ldmatrix.trans, the 64 keys of a
 // tile summed in a zeroed tile per 16 output columns. mma work a live (query,
 // key) pair: 1 (QK) + 3 (PV) = 4 units of D multiply-adds.
+//
+// dq: the forward's walk. A block of 4 warps owns 64 q rows, 16 a warp, the
+// last q tile first; Q loads once (bf16) and fp32 do loads once and is split
+// once into three bf16 planes in shared memory, planes that are zero over
+// the block skipped (exactly: they add nothing); lse, delta (and under DOCS
+// the rows' doc ids) stay in registers; K/V tiles of 32 keys (with their doc
+// ids under DOCS) stream through the 2-stage cp.async ring (64-key tiles
+// would take 136 KB of shared memory at D 128 and leave one block an SM).
+// Per tile and warp: S = Q K^T (in place over D / 16); P = exp(S scale -
+// lse); dP = dO V^T over the planes, V read as K is, one 16-dim step of the
+// planes in a zeroed tile; dS = P (dP - delta) scale in registers; dQ += dS
+// K with dS in 3 terms (c_to_a_split) and K through ldmatrix.trans, the
+// tile's 32 keys summed in a zeroed tile per 16 dq columns. The Q and do
+// fragments are read from shared memory per k-step. mma work a live pair: 1
+// + 3 + 3 = 7 units of D multiply-adds; 5 when do holds bf16 values (as in
+// training).
 //
 // dk/dv: one block per (64-key KV tile, BKh row), 4 warps of 16 keys, owns
 // its dk and dv in registers (no atomics, deterministic). K and V stay
@@ -66,6 +84,9 @@ constexpr int FWD_KEYS = 64;      // keys of a streamed K/V tile
 constexpr int FWD_STAGES = 2;     // K/V ring depth
 constexpr int DKV_KEYS = 64;      // keys of a dk/dv block, 16 a warp
 constexpr int DKV_ROWS = 32;      // q rows of a dk/dv step
+constexpr int DQ_ROWS = 64;       // q rows of a dq block, 16 a warp
+constexpr int DQ_KEYS = 32;       // keys of a streamed K/V tile of dq
+constexpr int DQ_STAGES = 2;      // dq's K/V ring depth
 constexpr int DO_TERMS = 3;       // bf16 planes of do (split_to_planes) and terms of p, ds
 
 // -- mask policies ---------------------------------------------------------------
@@ -172,6 +193,14 @@ constexpr size_t dkv_mma_smem_bytes() {
              sizeof(__nv_bfloat16) +
          static_cast<size_t>(DKV_ROWS) * D * 4 + 4u * DKV_ROWS * 4 +
          (Mask::DOCS ? 2u * DKV_ROWS * 4 : 0);
+}
+
+// Q, the do planes, the K/V ring; with documents, the ring's doc ids.
+template <int D, typename Mask>
+constexpr size_t dq_mma_smem_bytes() {
+  return static_cast<size_t>((1 + DO_TERMS) * DQ_ROWS + 2 * DQ_STAGES * DQ_KEYS) * padded(D) *
+             sizeof(__nv_bfloat16) +
+         (Mask::DOCS ? static_cast<size_t>(DQ_STAGES) * DQ_KEYS * 4 : 0);
 }
 
 // -- the forward -----------------------------------------------------------------
@@ -357,6 +386,225 @@ __device__ __forceinline__ void fwd_mma_body(const __nv_bfloat16* __restrict__ q
           make_float2(acc[n][2 * r] / l_safe, acc[n][2 * r + 1] / l_safe);
     if (tq == 0)
       lse[static_cast<size_t>(bh) * T_len + qp] = (m[r] == NEG_INF ? NEG_INF : m[r]) + logf(l_safe);
+  }
+}
+
+// -- dq ------------------------------------------------------------------------
+
+// dq [BH, T, D] (fp32) from q [BH, T, D], k, v [BKh, S, D] (bf16), do [BH, T,
+// D], lse and delta [BH, T] (fp32) under `mask`; one block per (q tile, BH
+// row), the last q tile first. Launched with MMA_THREADS threads and
+// dq_mma_smem_bytes<D, Mask>() bytes.
+template <int D, typename Mask>
+__device__ __forceinline__ void dq_mma_body(const __nv_bfloat16* __restrict__ q,
+                                            const __nv_bfloat16* __restrict__ k,
+                                            const __nv_bfloat16* __restrict__ v,
+                                            const float* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            float* __restrict__ dq, int n_rep, float scale,
+                                            const Mask& mask) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = padded(D);
+  constexpr int KD = D / 16;        // k-steps over D
+  constexpr int NK = DQ_KEYS / 8;   // score n-tiles
+  constexpr int ND = D / 8;         // dq n-tiles
+  constexpr int PLANE = DQ_ROWS * LD;
+  static_assert(DQ_ROWS * D % (4 * MMA_THREADS) == 0, "do splits in whole float4 steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [DQ_ROWS][LD]
+  bf16* pl_s = q_s + PLANE;                       // [DO_TERMS][DQ_ROWS][LD]
+  bf16* k_s = pl_s + DO_TERMS * PLANE;            // [DQ_STAGES][DQ_KEYS][LD]
+  bf16* v_s = k_s + DQ_STAGES * DQ_KEYS * LD;
+  int* kd_s = reinterpret_cast<int*>(v_s + DQ_STAGES * DQ_KEYS * LD);  // [DQ_STAGES][DQ_KEYS]
+
+  const int T_len = mask.t_len, S_len = mask.s_len;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const LaneOffsets lo(lane);
+  const int n_q = (T_len + DQ_ROWS - 1) / DQ_ROWS;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * DQ_ROWS;
+  const int bh = blockIdx.y;
+  const size_t row_base = static_cast<size_t>(bh) * T_len;
+  const bf16* kb = k + static_cast<size_t>(bh / n_rep) * S_len * D;
+  const bf16* vb = v + static_cast<size_t>(bh / n_rep) * S_len * D;
+  const int jk_lo = mask.template kv_lo<DQ_ROWS, DQ_KEYS>(q0);
+  const int jk_hi = mask.template kv_hi<DQ_ROWS, DQ_KEYS>(q0);
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+
+  // Documents: this lane's rows keep their ids in registers; each KV tile's
+  // ride the ring beside K and V.
+  const int* kdoc = nullptr;
+  int rdoc[2] = {0, 0};
+  if constexpr (Mask::DOCS) {
+    const int batch = bh / mask.heads;
+    kdoc = mask.dock + static_cast<size_t>(batch) * S_len;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      rdoc[r] = qp < T_len ? mask.docq[static_cast<size_t>(batch) * T_len + qp] : 0;
+    }
+  }
+  auto fetch = [&](int jk) {
+    const int st = jk % DQ_STAGES;
+    cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(k_s + st * DQ_KEYS * LD, kb, jk * DQ_KEYS,
+                                                     S_len);
+    cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(v_s + st * DQ_KEYS * LD, vb, jk * DQ_KEYS,
+                                                     S_len);
+    if constexpr (Mask::DOCS) {
+      const int c = threadIdx.x, kp = jk * DQ_KEYS + c;
+      const bool in = kp < S_len;
+      if (c < DQ_KEYS) cp_async4(kd_s + st * DQ_KEYS + c, kdoc + (in ? kp : 0), in);
+    }
+  };
+
+  cp_async_tile<bf16, DQ_ROWS, D, LD, MMA_THREADS>(q_s, q + row_base * D, q0, T_len);
+  if (jk_lo < jk_hi) fetch(jk_lo);
+  cp_async_commit();
+
+  // While those land: split the fp32 do tile into DO_TERMS bf16 planes
+  // (rows past T zero) and note which low planes hold anything.
+  bool nz[2] = {false, false};
+#pragma unroll 4
+  for (int it = 0; it < DQ_ROWS * D / (4 * MMA_THREADS); ++it) {
+    const int i = (it * MMA_THREADS + static_cast<int>(threadIdx.x)) * 4;
+    const int r = i / D, c = i % D;
+    const float4 x = q0 + r < T_len
+                         ? *reinterpret_cast<const float4*>(dout + (row_base + q0 + r) * D + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    split_to_planes(x, pl_s, PLANE, r * LD + c, nz);
+  }
+  const int n_do = live_planes(nz);
+
+  // lse (NEG_INF past T: such a row's p is 0) and delta of this lane's rows.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lse_r[r] = qp < T_len ? lse[row_base + qp] : NEG_INF;
+    delta_r[r] = qp < T_len ? delta[row_base + qp] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int jk = jk_lo; jk < jk_hi; ++jk) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jk has landed; every warp is done with tile jk - 1
+    if (jk + 1 < jk_hi) {
+      fetch(jk + 1);
+      cp_async_commit();
+    }
+    const int st = jk % DQ_STAGES;
+    const bf16* ks = k_s + st * DQ_KEYS * LD;
+    const bf16* vs = v_s + st * DQ_KEYS * LD;
+
+    // S = Q K^T, its D / 16 mma in place; the q fragments are read from
+    // shared memory per k-step (held for the walk they would spill).
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
+        mma_pair(s[2 * np], s[2 * np + 1], a, b);
+      }
+    }
+    // P = exp(S scale - lse), zero on masked keys (only an edge tile of the
+    // mask pays for the compares) and on rows whose lse is NEG_INF.
+    const int k0 = jk * DQ_KEYS;
+    const bool edge = mask.template edge<DQ_ROWS, DQ_KEYS>(q0, k0);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = lse_r[e >> 1];
+        float p = lq == NEG_INF ? 0.f : expf(s[j][e] * scale - lq);
+        if (edge) {
+          const int c = j * 8 + 2 * tq + (e & 1);
+          const int qp = row0 + (e >> 1) * 8;
+          int dk = 0;
+          if constexpr (Mask::DOCS) dk = kd_s[st * DQ_KEYS + c];
+          p = mask.sees(qp, k0 + c, rdoc[e >> 1], dk) ? p : 0.f;
+        }
+        s[j][e] = p;
+      }
+
+    // dP = dO V^T over the planes that hold anything, V read as K is; one
+    // 16-dim step of the planes in a zeroed tile, added into dp.
+    float dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t a[DO_TERMS][4];
+#pragma unroll
+      for (int p = 0; p < DO_TERMS; ++p)
+        if (p < n_do)
+          ldmatrix_x4(a[p], pl_s + p * PLANE + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
+      float t[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, vs + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
+#pragma unroll
+        for (int p = DO_TERMS - 1; p >= 0; --p)
+          if (p < n_do) mma_pair(t[2 * np], t[2 * np + 1], a[p], b);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) add_tile(dp[j], t[j]);
+    }
+    // dS = P (dP - delta) scale, in place of dP.
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - delta_r[e >> 1]) * scale;
+
+    // dQ += dS K: dS from its C fragments to A fragments in DO_TERMS terms,
+    // K through ldmatrix.trans (as the forward reads V); per 16 dq columns
+    // the tile's keys meet in a zeroed tile that add_tile puts into acc.
+    uint32_t sa[NK / 2][DO_TERMS][4];
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) c_to_a_split<DO_TERMS>(dp[2 * kk], dp[2 * kk + 1], sa[kk]);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, ks + (kk * 16 + lo.row_a) * LD + dn * 16 + lo.col_a);
+#pragma unroll
+        for (int i = DO_TERMS - 1; i >= 0; --i) mma_pair(t0, t1, sa[kk][i], b);
+      }
+      add_tile(acc[2 * dn], t0);
+      add_tile(acc[2 * dn + 1], t1);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= T_len) continue;
+    float* row = dq + (row_base + qp) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(row + n * 8 + 2 * tq) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 

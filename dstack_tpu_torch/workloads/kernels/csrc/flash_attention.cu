@@ -37,33 +37,20 @@
 // stretches (16 dims, or 16 to 64 keys or queries, with their split terms)
 // into a zeroed register tile that one fp32 add, rounded to nearest, puts
 // into the running sum.
-//   - fwd and dk/dv: the bodies in attention_mma_kernels.cuh, which splash
-//     shares, under CausalMask: only tiles that cross the causal diagonal or
-//     the ragged end pay for the mask compares. fwd: a block of 4 warps owns
-//     64 q rows; 64-key K/V tiles stream through a 2-stage cp.async ring; S,
-//     the online softmax and P stay in registers; O += P_i V with P in 3
-//     bf16 terms. mma work a live (query, key) pair: 1 (QK) + 3 (PV) = 4
-//     units of D multiply-adds, against a plain bf16 kernel's 2. dk/dv: one
-//     block per (64-key KV tile, BKh row) owns its dk and dv in registers
-//     and walks 32-row q tiles from the farthest to the causal diagonal, the
-//     n_rep heads interleaved; mma work a pair 1 + 3 + 6 + 3 = 13 units
-//     against a plain kernel's 4, 8 when do holds bf16 values (training).
-//   - dq: the forward's walk. A block of 4 warps owns 64 q rows, 16 a warp,
-//     the last q tile first; Q loads once (bf16) and fp32 do loads once and
-//     is split once into three bf16 planes in shared memory, planes that
-//     are zero over the block skipped (exactly) as in dk/dv; lse and delta
-//     stay in registers; K/V tiles of 32 keys stream through the 2-stage
-//     cp.async ring (64-key tiles would take 136 KB of shared memory at D
-//     128 and leave one block an SM). Per tile and warp: S = Q K^T (in
-//     place over D / 16);
-//     P = exp(S scale - lse); dP = dO V^T over the planes, V read as K is,
-//     one 16-dim step of the planes in a zeroed tile; dS = P (dP - delta)
-//     scale in registers; dQ += dS K with dS in 3 terms (c_to_a_split) and
-//     K through ldmatrix.trans, the tile's 32 keys summed in a zeroed tile
-//     per 16 dq columns. The Q and do fragments are read from shared memory
-//     per k-step. mma work a live pair: 1 + 3 + 3 = 7 units of D
-//     multiply-adds against a plain bf16 kernel's 3; 5 when do holds bf16
-//     values (training).
+//   - the bodies in attention_mma_kernels.cuh (which states their designs),
+//     shared with splash, under CausalMask: only tiles that cross the causal
+//     diagonal or the ragged end pay for the mask compares. fwd: a block of 4
+//     warps owns 64 q rows; 64-key K/V tiles stream through a 2-stage
+//     cp.async ring; S, the online softmax and P stay in registers; O += P_i
+//     V with P in 3 bf16 terms. mma work a live (query, key) pair: 1 (QK) + 3
+//     (PV) = 4 units of D multiply-adds, against a plain bf16 kernel's 2.
+//     dq: the forward's walk over 32-key K/V tiles, do split once into three
+//     bf16 planes, dQ += dS K with dS in 3 terms; mma work a pair 1 + 3 + 3 =
+//     7 units against a plain bf16 kernel's 3, 5 when do holds bf16 values
+//     (training). dk/dv: one block per (64-key KV tile, BKh row) owns its dk
+//     and dv in registers and walks 32-row q tiles from the farthest to the
+//     causal diagonal, the n_rep heads interleaved; mma work a pair 1 + 3 + 6
+//     + 3 = 13 units against a plain kernel's 4, 8 when do holds bf16 values.
 //
 // CUDA-core design (fp32, other D): attention_cuda_core.cuh's 256-thread
 // tiles (TILE = 64, or 32 where 64 does not fit shared memory: fp32 with D >
@@ -370,14 +357,10 @@ __global__ void __launch_bounds__(THREADS)
 using bf16 = __nv_bfloat16;
 
 using attn_mma::DKV_KEYS;
-using attn_mma::DO_TERMS;
+using attn_mma::DQ_ROWS;
 using attn_mma::FWD_ROWS;
 using attn_mma::MMA_THREADS;
 using attn_mma::TensorCore;
-
-constexpr int DQ_ROWS = 64;       // q rows of a dq block, 16 a warp
-constexpr int DQ_KEYS = 32;       // keys of a streamed K/V tile of dq
-constexpr int DQ_STAGES = 2;      // dq's K/V ring depth
 
 // The forward under causal (or no) masking: attention_mma_kernels.cuh's
 // body, whose mask policy folds to flash's bounds.
@@ -390,13 +373,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, CausalMask{T_len, S_len, causal});
 }
 
-// Q, the do planes, and the K/V ring.
-template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return static_cast<size_t>((1 + DO_TERMS) * DQ_ROWS + 2 * DQ_STAGES * DQ_KEYS) *
-         attn_mma::padded(D) * sizeof(bf16);
-}
-
+// dq under causal (or no) masking: attention_mma_kernels.cuh's body.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -404,184 +381,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dq, int T_len, int S_len, int n_rep, int causal,
                             float scale) {
-  using namespace attn_mma;
-  constexpr int LD = padded(D);
-  constexpr int KD = D / 16;        // k-steps over D
-  constexpr int NK = DQ_KEYS / 8;   // score n-tiles
-  constexpr int ND = D / 8;         // dq n-tiles
-  constexpr int PLANE = DQ_ROWS * LD;
-  static_assert(DQ_ROWS * D % (4 * MMA_THREADS) == 0, "do splits in whole float4 steps");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [DQ_ROWS][LD]
-  bf16* pl_s = q_s + PLANE;                       // [DO_TERMS][DQ_ROWS][LD]
-  bf16* k_s = pl_s + DO_TERMS * PLANE;            // [DQ_STAGES][DQ_KEYS][LD]
-  bf16* v_s = k_s + DQ_STAGES * DQ_KEYS * LD;
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;
-  const LaneOffsets lo(lane);
-  const int n_q = (T_len + DQ_ROWS - 1) / DQ_ROWS;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * DQ_ROWS;
-  const int bh = blockIdx.y;
-  const size_t row_base = static_cast<size_t>(bh) * T_len;
-  const bf16* kb = k + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const bf16* vb = v + static_cast<size_t>(bh / n_rep) * S_len * D;
-  const int n_kv = (S_len + DQ_KEYS - 1) / DQ_KEYS;
-  // Under causal masking the walk ends at the tile of the last row's key.
-  const int hi = causal ? min(n_kv, (min(T_len, q0 + DQ_ROWS) - 1) / DQ_KEYS + 1) : n_kv;
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-
-  cp_async_tile<bf16, DQ_ROWS, D, LD, MMA_THREADS>(q_s, q + row_base * D, q0, T_len);
-  cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(k_s, kb, 0, S_len);
-  cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(v_s, vb, 0, S_len);
-  cp_async_commit();
-
-  // While those land: split the fp32 do tile into DO_TERMS bf16 planes
-  // (rows past T zero) and note which low planes hold anything.
-  bool nz[2] = {false, false};
-#pragma unroll 4
-  for (int it = 0; it < DQ_ROWS * D / (4 * MMA_THREADS); ++it) {
-    const int i = (it * MMA_THREADS + static_cast<int>(threadIdx.x)) * 4;
-    const int r = i / D, c = i % D;
-    const float4 x = q0 + r < T_len
-                         ? *reinterpret_cast<const float4*>(dout + (row_base + q0 + r) * D + c)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    split_to_planes(x, pl_s, PLANE, r * LD + c, nz);
-  }
-  const int n_do = live_planes(nz);
-
-  // lse (NEG_INF past T: such a row's p is 0) and delta of this lane's rows.
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = row0 + 8 * r;
-    lse_r[r] = qp < T_len ? lse[row_base + qp] : NEG_INF;
-    delta_r[r] = qp < T_len ? delta[row_base + qp] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int jk = 0; jk < hi; ++jk) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile jk has landed; every warp is done with tile jk - 1
-    if (jk + 1 < hi) {
-      const int st = (jk + 1) % DQ_STAGES;
-      cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(k_s + st * DQ_KEYS * LD, kb,
-                                                       (jk + 1) * DQ_KEYS, S_len);
-      cp_async_tile<bf16, DQ_KEYS, D, LD, MMA_THREADS>(v_s + st * DQ_KEYS * LD, vb,
-                                                       (jk + 1) * DQ_KEYS, S_len);
-      cp_async_commit();
-    }
-    const bf16* ks = k_s + (jk % DQ_STAGES) * DQ_KEYS * LD;
-    const bf16* vs = v_s + (jk % DQ_STAGES) * DQ_KEYS * LD;
-
-    // S = Q K^T, its D / 16 mma in place; the q fragments are read from
-    // shared memory per k-step (held for the walk they would spill).
-    float s[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_s + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
-        mma_pair(s[2 * np], s[2 * np + 1], a, b);
-      }
-    }
-    // P = exp(S scale - lse), zero on masked keys (only a tile across the
-    // diagonal or the ragged end pays for the compares) and on rows whose
-    // lse is NEG_INF.
-    const int k0 = jk * DQ_KEYS;
-    const bool edge = (causal && k0 + DQ_KEYS - 1 > q0) || k0 + DQ_KEYS > S_len;
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lq = lse_r[e >> 1];
-        float p = lq == NEG_INF ? 0.f : expf(s[j][e] * scale - lq);
-        if (edge) {
-          const int kp = k0 + j * 8 + 2 * tq + (e & 1);
-          const int qp = row0 + (e >> 1) * 8;
-          p = kp < S_len && (!causal || kp <= qp) ? p : 0.f;
-        }
-        s[j][e] = p;
-      }
-
-    // dP = dO V^T over the planes that hold anything, V read as K is; one
-    // 16-dim step of the planes in a zeroed tile, added into dp.
-    float dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t a[DO_TERMS][4];
-#pragma unroll
-      for (int p = 0; p < DO_TERMS; ++p)
-        if (p < n_do)
-          ldmatrix_x4(a[p], pl_s + p * PLANE + (warp * 16 + lo.row_a) * LD + kd * 16 + lo.col_a);
-      float t[NK][4];
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, vs + (np * 16 + lo.row_b) * LD + kd * 16 + lo.col_b);
-#pragma unroll
-        for (int p = DO_TERMS - 1; p >= 0; --p)
-          if (p < n_do) mma_pair(t[2 * np], t[2 * np + 1], a[p], b);
-      }
-#pragma unroll
-      for (int j = 0; j < NK; ++j) add_tile(dp[j], t[j]);
-    }
-    // dS = P (dP - delta) scale, in place of dP.
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[j][e] = s[j][e] * (dp[j][e] - delta_r[e >> 1]) * scale;
-
-    // dQ += dS K: dS from its C fragments to A fragments in DO_TERMS terms,
-    // K through ldmatrix.trans (as the forward reads V); per 16 dq columns
-    // the tile's keys meet in a zeroed tile that add_tile puts into acc.
-    uint32_t sa[NK / 2][DO_TERMS][4];
-#pragma unroll
-    for (int kk = 0; kk < NK / 2; ++kk) c_to_a_split<DO_TERMS>(dp[2 * kk], dp[2 * kk + 1], sa[kk]);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < NK / 2; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ks + (kk * 16 + lo.row_a) * LD + dn * 16 + lo.col_a);
-#pragma unroll
-        for (int i = DO_TERMS - 1; i >= 0; --i) mma_pair(t0, t1, sa[kk][i], b);
-      }
-      add_tile(acc[2 * dn], t0);
-      add_tile(acc[2 * dn + 1], t1);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = row0 + 8 * r;
-    if (qp >= T_len) continue;
-    float* row = dq + (row_base + qp) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(row + n * 8 + 2 * tq) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
+  attn_mma::dq_mma_body<D>(q, k, v, dout, lse, delta, dq, n_rep, scale,
+                           CausalMask{T_len, S_len, causal});
 }
 
 // dk/dv under causal (or no) masking: attention_mma_kernels.cuh's body.
@@ -651,7 +452,7 @@ struct DqArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = dq_mma_smem_bytes<D>();
+      const size_t smem = attn_mma::dq_mma_smem_bytes<D, CausalMask>();
       auto kernel = flash_bwd_dq_mma_kernel<D>;
       const cudaError_t err = prepare(kernel, smem);
       if (err != cudaSuccess) return err;

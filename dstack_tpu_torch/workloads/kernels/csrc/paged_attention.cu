@@ -15,13 +15,49 @@
 // no position, e.g. kv_len == 0). Rows past a slot's valid chunk tokens
 // still attend all kv_len positions, as the Pallas kernel's rows do.
 //
-// Two instantiations, chosen at compile time per (type, D) in
-// TensorCore<T, D>, never as a path taken when a launch fails:
+// Three kernels, chosen at compile time, never as a path taken when a launch
+// fails:
+//   - decode, at every type and D, runs paged_decode_split_kernel and
+//     paged_decode_combine_kernel (split-KV, CUDA cores);
 //   - the chunk entry point on bf16 q and pages at D = 32, 64, 128 runs
-//     paged_chunk_mma_kernel on the tensor cores;
-//   - decode (every type and D), and the chunk entry point on fp32 or at
-//     other head dims, run paged_attention_kernel on CUDA cores: decode is
-//     its C == 1 case (start = kv_len - 1).
+//     paged_chunk_mma_kernel on the tensor cores (TensorCore<T, D>);
+//   - the chunk entry point on fp32 or at other head dims runs
+//     paged_attention_kernel on CUDA cores.
+//
+// paged_decode_split_kernel. Bound: decode is memory-bound. One position of
+// one layer's K+V at llama3_8b geometry (8 KV heads x 128 x bf16, K and V)
+// is 4 KB, against 4 x 128 multiply-adds a query head: a step's least time
+// is the K/V bytes of the slots' live positions over the card's memory rate
+// (3.35 TB/s on an H100 SXM): 0.0327 ms at chip_smoke.py's 16 slots of up to
+// 8192 positions. So the design keeps many positions' bytes in flight on
+// every SM and spends few instructions a position:
+//   - split-KV: one block per (split of `split` positions, KV head, slot);
+//     the number of splits comes from the page-table width (P * page /
+//     split; the wrapper's split is 256 positions, doubled until at most 32
+//     splits cover the table), with no read of kv_len on the host; a split
+//     that starts past the slot's kv_len exits at once. A few long slots then fill the card
+//     with blocks: 16 slots at KV_LENS and split 256 give 896 working blocks
+//     on 132 SMs;
+//   - all n_rep query heads of the KV head in the block (q in fp32 in shared
+//     memory), so each K/V byte is read from device memory once;
+//   - K/V tiles of 32 positions gathered row by row through the page table
+//     by 16-byte cp.async, zero-filled past the split's end, in a ring of 2
+//     to 4 stages (as many as fit in 64 KB; 3 at bf16 D 128, with 4 blocks
+//     an SM): the next tiles' gathers overlap this tile's math, and every
+//     page size runs one path;
+//   - scores: lane j holds position j, warp w a quarter of D; each thread
+//     reads its K values once and dots them with every head's q (shared
+//     memory, broadcast reads), the warps' quarters meet in shared memory;
+//     the online softmax takes one warp max and one warp sum per head and
+//     tile, not per key row; O += P V with warp w owning heads w, w + 4,
+//     ... and lane t D / 32 output values of each (at n_rep < 4 a warp has
+//     no head and waits);
+//   - arithmetic in fp32 FMAs on values that are exact in fp32 (bf16 K, V
+//     and q upcast), as the Pallas kernel's;
+//   - each split writes its unnormalised o and its (max, sum) per head to an
+//     fp32 workspace; paged_decode_combine_kernel joins them as one online
+//     softmax would (m = max m_i, l = sum l_i exp(m_i - m), o = sum o_i
+//     exp(m_i - m) / max(l, 1e-20)), zeros at kv_len 0.
 //
 // paged_chunk_mma_kernel. Bound: at the serving example's chunk (16 slots x
 // C 512, llama3_8b: H 32, Kh 8, D 128, bf16) the score and PV products of the
@@ -54,21 +90,16 @@
 //     compares, and the walk ends at the last position the block's last
 //     row sees. Blocks of the last rows, which see the most, start first.
 //
-// paged_attention_kernel (CUDA cores): one block per (slot, KV head, tile of
-// query rows), one warp per (query row, head of the GQA group). Each lane
-// holds D/32 elements of its query and of the accumulator. The block walks
-// the pages that the tile's last row can see; each page's K and V rows of
-// this KV head are staged in shared memory with cp.async, double-buffered so
-// page p+1 loads while page p computes. Scores come from warp reductions;
-// lane t keeps the score of page row t, so the softmax max and sum are warp
-// reductions too. Decode is memory-bound: one token of one layer's K+V at
-// llama3_8b geometry (8 KV heads x 128 x bf16, K and V) is 4 KB, so a decode
-// step's least time is the K/V bytes of the slots' live positions over the
-// card's memory rate (3.35 TB/s on an H100 SXM).
+// paged_attention_kernel (CUDA cores, the chunk entry point on fp32 or other
+// D): one block per (slot, KV head, tile of query rows), one warp per (query
+// row, head of the GQA group). Each lane holds D/32 elements of its query and
+// of the accumulator. The block walks the pages that the tile's last row can
+// see; each page's K and V rows of this KV head are staged in shared memory
+// with cp.async, double-buffered so page p+1 loads while page p computes.
+// Scores come from warp reductions; lane t keeps the score of page row t, so
+// the softmax max and sum are warp reductions too.
 //
-// Left for later: split-KV decode across blocks (one long slot is one block
-// per KV head today, so a batch of few long slots leaves SMs idle); TMA page
-// loads; wgmma for the chunk walk.
+// Left for later: TMA page loads for decode; wgmma for the chunk walk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,7 +162,7 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,           // [S,
                                        const T* __restrict__ k_pages,     // [N, page, Kh, D]
                                        const T* __restrict__ v_pages,     // [N, page, Kh, D]
                                        const int* __restrict__ page_table,  // [S, P]
-                                       const int* __restrict__ starts,    // [S], or null: decode
+                                       const int* __restrict__ starts,    // [S]
                                        const int* __restrict__ kv_lens,   // [S]
                                        float* __restrict__ out,           // [S, C, H, D]
                                        int C, int H, int Kh, int page, int P, int tile_rows,
@@ -151,7 +182,7 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,           // [S,
   const bool active = row < C;
 
   const int kv_len = kv_lens[slot];
-  const int start = starts != nullptr ? starts[slot] : kv_len - 1;
+  const int start = starts[slot];
   // Row `row` attends pos <= start + row and pos < kv_len.
   const int limit = min(kv_len, start + row + 1);
   // The page walk ends at the last page the tile's last row can see.
@@ -223,6 +254,354 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,           // [S,
 #pragma unroll
     for (int e = 0; e < EPT; ++e) o[e] = acc[e] / denom;
   }
+}
+
+// -- the split-KV decode kernel (every type and D) ------------------------------
+
+constexpr int DEC_THREADS = 128;  // 4 warps
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_KEYS = 32;      // positions of a gathered K/V tile, one a lane
+constexpr int DEC_MAX_HEADS = 8;  // heads of a warp: n_rep <= 32
+
+// A K/V tile row of T at head dim D, padded by 16 bytes: the 32 rows one
+// 16-byte load reads across a warp fall in distinct bank groups.
+template <typename T, int D>
+__host__ __device__ constexpr int dec_ld() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
+
+// Ring depth: as many K/V tile pairs as fit in 64 KB, 2 to 4. At bf16 D 128
+// that is 3 stages and 56 KB a block, so 4 blocks share an SM: more resident
+// warps hide the gather's latency, where a deeper ring would leave room for
+// fewer blocks.
+template <typename T, int D>
+__host__ __device__ constexpr int dec_stages() {
+  constexpr int budget = 65536;
+  constexpr int stage = 2 * DEC_KEYS * dec_ld<T, D>() * static_cast<int>(sizeof(T));
+  return budget / stage > 4 ? 4 : (budget / stage < 2 ? 2 : budget / stage);
+}
+
+// The K/V ring; q of the block's heads in fp32; the warps' partial scores
+// (then p); each head's running max, sum and last correction.
+template <typename T, int D>
+size_t dec_smem_bytes(int n_rep) {
+  return static_cast<size_t>(2 * dec_stages<T, D>() * DEC_KEYS * dec_ld<T, D>()) * sizeof(T) +
+         static_cast<size_t>(n_rep) * (D + DEC_WARPS * DEC_KEYS + 3) * 4;
+}
+
+// One 32-bit word of T values into out[i..]: bf16 -> fp32 is exact (the
+// bf16 bits are the high half of the float's).
+template <typename T, int N>
+__device__ __forceinline__ void put_word(float (&out)[N], int i, uint32_t w) {
+  if constexpr (sizeof(T) == 2) {
+    out[i] = __uint_as_float(w << 16);
+    out[i + 1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    out[i] = __uint_as_float(w);
+  }
+}
+
+// N values of T at p as floats, in the widest loads that N * sizeof(T)
+// allows (p is aligned to that width).
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* __restrict__ p, float (&out)[N]) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  constexpr int EPW = 4 / static_cast<int>(sizeof(T));  // values a 32-bit word
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int c = 0; c < BYTES / 16; ++c) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+      put_word<T>(out, (4 * c) * EPW, u.x);
+      put_word<T>(out, (4 * c + 1) * EPW, u.y);
+      put_word<T>(out, (4 * c + 2) * EPW, u.z);
+      put_word<T>(out, (4 * c + 3) * EPW, u.w);
+    }
+  } else if constexpr (BYTES % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < BYTES / 8; ++c) {
+      const uint2 u = reinterpret_cast<const uint2*>(p)[c];
+      put_word<T>(out, (2 * c) * EPW, u.x);
+      put_word<T>(out, (2 * c + 1) * EPW, u.y);
+    }
+  } else if constexpr (BYTES % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < BYTES / 4; ++c)
+      put_word<T>(out, c * EPW, reinterpret_cast<const uint32_t*>(p)[c]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = to_float(p[e]);
+  }
+}
+
+// One block per (split, KV head, slot): positions [s0, s1) of the slot, s0 =
+// split_i * split, s1 = min(s0 + split, kv_len, P * page), for the n_rep query
+// heads of the KV head. Writes the split's unnormalised o and its (max, sum)
+// per head; a split that starts at or past s1 writes nothing.
+template <typename T, int D>
+__global__ void __launch_bounds__(DEC_THREADS)
+    paged_decode_split_kernel(const T* __restrict__ q,            // [S, H, D]
+                              const T* __restrict__ k_pages,      // [N, page, Kh, D]
+                              const T* __restrict__ v_pages,      // [N, page, Kh, D]
+                              const int* __restrict__ page_table, // [S, P]
+                              const int* __restrict__ kv_lens,    // [S]
+                              float* __restrict__ o_part,         // [S, Kh, NS, n_rep, D]
+                              float* __restrict__ ml_part,        // [S, Kh, NS, n_rep, 2]
+                              int H, int Kh, int page, int P, int split, float scale) {
+  constexpr int LD = dec_ld<T, D>();
+  constexpr int STAGES = dec_stages<T, D>();
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));  // values a 16-byte copy
+  constexpr int CPR = D / PER;                            // copies a row
+  constexpr int QD = D / DEC_WARPS;  // the D slice of a warp's partial scores
+  constexpr int EPT = D / 32;        // output values of a lane
+  static_assert(DEC_KEYS * CPR % DEC_THREADS == 0, "every thread issues the same copies");
+  static_assert(QD % PER == 0 && QD % 4 == 0, "a warp's D slice is whole 16-byte loads");
+  const int split_i = blockIdx.x, kh = blockIdx.y, slot = blockIdx.z;
+  const int s0 = split_i * split;
+  const int end = min(kv_lens[slot], P * page);
+  if (s0 >= end) return;
+  const int s1 = min(end, s0 + split);
+  const int n_tiles = (s1 - s0 + DEC_KEYS - 1) / DEC_KEYS;
+  const int n_rep = H / Kh;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [STAGES][DEC_KEYS][LD]
+  T* v_s = k_s + STAGES * DEC_KEYS * LD;
+  float* q_s = reinterpret_cast<float*>(v_s + STAGES * DEC_KEYS * LD);  // [n_rep][D]
+  float* sc_s = q_s + n_rep * D;              // [DEC_WARPS][n_rep][DEC_KEYS]
+  float* m_s = sc_s + DEC_WARPS * n_rep * DEC_KEYS;  // [n_rep]
+  float* l_s = m_s + n_rep;
+  float* corr_s = l_s + n_rep;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int* table = page_table + static_cast<size_t>(slot) * P;
+  const float inv_page = 1.f / static_cast<float>(page);
+  // Tile jt into its ring stage, gathered row by row through the page table
+  // (position pos is row pos % page of page table[pos / page], the quotient
+  // from a float product corrected to the exact one: no integer division);
+  // rows from s1 on are zero-filled and never read. Past the last tile the
+  // group is empty, which keeps the count of committed groups.
+  auto fetch = [&](int jt) {
+    if (jt < n_tiles) {
+      T* kt = k_s + (jt % STAGES) * DEC_KEYS * LD;
+      T* vt = v_s + (jt % STAGES) * DEC_KEYS * LD;
+#pragma unroll
+      for (int it = 0; it < DEC_KEYS * CPR / DEC_THREADS; ++it) {
+        const int i = it * DEC_THREADS + static_cast<int>(threadIdx.x);
+        const int r = i / CPR, c = (i % CPR) * PER;
+        const int pos = s0 + jt * DEC_KEYS + r;
+        const bool valid = pos < s1;
+        int pg = static_cast<int>(static_cast<float>(pos) * inv_page);
+        int row = pos - pg * page;
+        while (row < 0) --pg, row += page;
+        while (row >= page) ++pg, row -= page;
+        const size_t src =
+            valid ? ((static_cast<size_t>(table[pg]) * page + row) * Kh + kh) * D + c : 0;
+        attn_mma::cp_async16(kt + r * LD + c, k_pages + src, valid);
+        attn_mma::cp_async16(vt + r * LD + c, v_pages + src, valid);
+      }
+    }
+    attn_mma::cp_async_commit();
+  };
+#pragma unroll
+  for (int jt = 0; jt < STAGES - 1; ++jt) fetch(jt);
+
+  const T* qh = q + (static_cast<size_t>(slot) * H + kh * n_rep) * D;
+  for (int i = threadIdx.x; i < n_rep * D; i += DEC_THREADS) q_s[i] = to_float(qh[i]);
+  for (int r = threadIdx.x; r < n_rep; r += DEC_THREADS) {
+    m_s[r] = NEG_INF;
+    l_s[r] = 0.f;
+  }
+
+  // acc[i]: output values [lane EPT, (lane + 1) EPT) of head warp + 4 i.
+  float acc[DEC_MAX_HEADS][EPT];
+#pragma unroll
+  for (int ii = 0; ii < DEC_MAX_HEADS; ++ii)
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) acc[ii][e] = 0.f;
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    attn_mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile jt has landed; every warp is done with tile jt - 1
+    fetch(jt + STAGES - 1);
+    const T* kt = k_s + (jt % STAGES) * DEC_KEYS * LD;
+    const T* vt = v_s + (jt % STAGES) * DEC_KEYS * LD;
+
+    // Partial scores: lane j's position against every head, over warp w's
+    // slice of D; the position's K values are read once for all heads.
+    {
+      float kf[QD];
+      load_floats<T, QD>(kt + lane * LD + warp * QD, kf);
+      for (int r = 0; r < n_rep; ++r) {
+        const float* qr = q_s + r * D + warp * QD;
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains
+#pragma unroll
+        for (int e = 0; e < QD; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          dot[0] = fmaf(kf[e], qv.x, dot[0]);
+          dot[1] = fmaf(kf[e + 1], qv.y, dot[1]);
+          dot[2] = fmaf(kf[e + 2], qv.z, dot[2]);
+          dot[3] = fmaf(kf[e + 3], qv.w, dot[3]);
+        }
+        sc_s[(warp * n_rep + r) * DEC_KEYS + lane] = (dot[0] + dot[1]) + (dot[2] + dot[3]);
+      }
+    }
+    __syncthreads();
+
+    // The online softmax: warp w owns heads w, w + 4, ..., lane j position
+    // j; one max and one sum over the warp per head and tile. p replaces
+    // the head's partial row of warp 0, which only this lane reads.
+    const int pos = s0 + jt * DEC_KEYS + lane;
+    for (int r = warp; r < n_rep; r += DEC_WARPS) {
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) x += sc_s[(w * n_rep + r) * DEC_KEYS + lane];
+      x = pos < s1 ? x * scale : NEG_INF;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float safe_m = m_new == NEG_INF ? 0.f : m_new;
+      const float corr = m_old == NEG_INF ? 0.f : expf(m_old - safe_m);
+      const float p = pos < s1 ? expf(x - safe_m) : 0.f;
+      const float l_new = l_s[r] * corr + warp_sum(p);
+      sc_s[r * DEC_KEYS + lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        m_s[r] = m_new;
+        l_s[r] = l_new;
+        corr_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // O += P V: warp w owns heads w, w + 4, ...; lane t the output values
+    // [t EPT, (t + 1) EPT) of its heads. The tile's even and odd positions
+    // sum apart (two independent chains), then into acc. The position loop
+    // is unrolled by 2 only: a full unroll takes 221 registers at bf16 D
+    // 128, which leaves room for 2 blocks an SM where 127 leave room for 4.
+#pragma unroll
+    for (int ii = 0; ii < DEC_MAX_HEADS; ++ii) {
+      const int r = warp + ii * DEC_WARPS;
+      if (r >= n_rep) break;
+      const float* pr = sc_s + r * DEC_KEYS;
+      float t[2][EPT];
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) t[0][e] = t[1][e] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < DEC_KEYS; j += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float vf[EPT];
+          load_floats<T, EPT>(vt + (j + h) * LD + lane * EPT, vf);
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) t[h][e] = fmaf(pr[j + h], vf[e], t[h][e]);
+        }
+      }
+      const float corr = corr_s[r];
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) acc[ii][e] = acc[ii][e] * corr + (t[0][e] + t[1][e]);
+    }
+  }
+
+  // The split's rows of heads in the workspace: head r at (base + r).
+  const size_t base = ((static_cast<size_t>(slot) * Kh + kh) * gridDim.x + split_i) * n_rep;
+  for (int r = threadIdx.x; r < n_rep; r += DEC_THREADS) {
+    ml_part[(base + r) * 2] = m_s[r];
+    ml_part[(base + r) * 2 + 1] = l_s[r];
+  }
+#pragma unroll
+  for (int ii = 0; ii < DEC_MAX_HEADS; ++ii) {
+    const int r = warp + ii * DEC_WARPS;
+    if (r >= n_rep) break;
+    float* dst = o_part + (base + r) * D + lane * EPT;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) dst[e] = acc[ii][e];
+  }
+}
+
+// out [S, H, D] from the splits of paged_decode_split_kernel, as one online
+// softmax over all of a slot's positions would give it: m = max m_i, l =
+// sum l_i exp(m_i - m), o = sum o_i exp(m_i - m) / max(l, 1e-20). Only the
+// splits that start before the slot's end wrote; a slot with kv_len 0 has
+// none and gives zeros. One block per (head, slot); the first warp finds m,
+// the weights exp(m_i - m) (into shared memory, n_split + 1 floats) and l.
+__global__ void __launch_bounds__(DEC_THREADS)
+    paged_decode_combine_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
+                                const int* __restrict__ kv_lens, float* __restrict__ out, int H,
+                                int Kh, int D, int page, int P, int split, int n_split) {
+  extern __shared__ float w_s[];  // [n_split] weights, then the denominator
+  const int h = blockIdx.x, slot = blockIdx.y;
+  const int n_rep = H / Kh;
+  const int end = min(kv_lens[slot], P * page);
+  const int n_live = end > 0 ? (end + split - 1) / split : 0;
+  // Split i's row of head h: (base + i * n_rep).
+  const size_t base = (static_cast<size_t>(slot) * Kh + h / n_rep) * n_split * n_rep + h % n_rep;
+  if (threadIdx.x < 32) {
+    float m = NEG_INF;
+    for (int i = threadIdx.x; i < n_live; i += 32) m = fmaxf(m, ml_part[(base + i * n_rep) * 2]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int i = threadIdx.x; i < n_live; i += 32) {
+      const size_t row = base + i * n_rep;
+      const float w = expf(ml_part[row * 2] - m);
+      w_s[i] = w;
+      l += ml_part[row * 2 + 1] * w;
+    }
+    l = warp_sum(l);
+    if (threadIdx.x == 0) w_s[n_split] = fmaxf(l, 1e-20f);
+  }
+  __syncthreads();
+  const float denom = w_s[n_split];
+  for (int e = threadIdx.x; e < D; e += DEC_THREADS) {
+    float o = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n_live; ++i) o = fmaf(o_part[(base + i * n_rep) * D + e], w_s[i], o);
+    out[(static_cast<size_t>(slot) * H + h) * D + e] = o / denom;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_decode(const void* q, const void* k_pages, const void* v_pages,
+                          const int* page_table, const int* kv_lens, float* out, float* o_part,
+                          float* ml_part, int S, int H, int Kh, int page, int P, int split,
+                          float scale, cudaStream_t stream) {
+  const size_t smem = dec_smem_bytes<T, D>(H / Kh);
+  auto kernel = paged_decode_split_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_split = (P * page + split - 1) / split;
+  kernel<<<dim3(n_split, Kh, S), DEC_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      page_table, kv_lens, o_part, ml_part, H, Kh, page, P, split, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t weights = (n_split + 1) * sizeof(float);
+  paged_decode_combine_kernel<<<dim3(H, S), DEC_THREADS, weights, stream>>>(
+      o_part, ml_part, kv_lens, out, H, Kh, D, page, P, split, n_split);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_decode_typed(const void* q, const void* k_pages, const void* v_pages,
+                                const int* page_table, const int* kv_lens, float* out,
+                                float* o_part, float* ml_part, int S, int H, int Kh, int D,
+                                int page, int P, int split, float scale, cudaStream_t stream) {
+#define DECODE_CASE(DIM)                                                                         \
+  case DIM:                                                                                      \
+    return launch_decode<T, DIM>(q, k_pages, v_pages, page_table, kv_lens, out, o_part, ml_part, \
+                                 S, H, Kh, page, P, split, scale, stream);
+  switch (D) {
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(96)
+    DECODE_CASE(128)
+    DECODE_CASE(160)
+    DECODE_CASE(192)
+    DECODE_CASE(224)
+    DECODE_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DECODE_CASE
 }
 
 // -- the tensor-core chunk walk (bf16, D = 32, 64, 128) ------------------------
@@ -454,11 +833,9 @@ cudaError_t launch_ept(const void* q, const void* k_pages, const void* v_pages,
                        int S, int C, int H, int Kh, int page, int P, int tile_rows, float scale,
                        cudaStream_t stream) {
   constexpr int D = 32 * EPT;
-  if constexpr (TensorCore<T, D>::value) {
-    if (starts != nullptr)  // the chunk entry point; decode keeps the walk below
-      return launch_chunk_mma<D>(q, k_pages, v_pages, page_table, starts, kv_lens, out, S, C, H,
-                                 Kh, page, P, scale, stream);
-  }
+  if constexpr (TensorCore<T, D>::value)
+    return launch_chunk_mma<D>(q, k_pages, v_pages, page_table, starts, kv_lens, out, S, C, H, Kh,
+                               page, P, scale, stream);
   const int n_rep = H / Kh;
   const size_t smem = 2 * 2 * static_cast<size_t>(page) * D * sizeof(T);
   auto kernel = paged_attention_kernel<T, EPT>;
@@ -499,11 +876,12 @@ cudaError_t launch_typed(const void* q, const void* k_pages, const void* v_pages
 #undef PAGED_CASE
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q and pages share it).
-cudaError_t launch(int dtype, const void* q, const void* k_pages, const void* v_pages,
-                   const int* page_table, const int* starts, const int* kv_lens, float* out,
-                   int S, int C, int H, int Kh, int D, int page, int P, int tile_rows,
-                   float scale, void* stream) {
+// The chunk entry point. dtype: 0 = float32, 1 = bfloat16 (q and pages
+// share it).
+cudaError_t launch_chunk(int dtype, const void* q, const void* k_pages, const void* v_pages,
+                         const int* page_table, const int* starts, const int* kv_lens, float* out,
+                         int S, int C, int H, int Kh, int D, int page, int P, int tile_rows,
+                         float scale, void* stream) {
   // Clear an error left by an earlier call of this library (a refused
   // cudaFuncSetAttribute, say), so the launch below reports only its own.
   (void)cudaGetLastError();
@@ -524,7 +902,12 @@ cudaError_t launch(int dtype, const void* q, const void* k_pages, const void* v_
 // paged_chunk_attention_launch (1) run for inputs of type T and head dim D.
 template <typename T, int D>
 const char* describe(int kernel) {
-  if (kernel == 1 && TensorCore<T, D>::value)
+  if (kernel == 0)
+    return "CUDA cores, fp32 FMAs, split-KV (paged_decode_split_kernel: a block per (split of"
+           " positions, KV head, slot) with the KV head's n_rep query heads, 32-position K/V tiles"
+           " gathered through the page table by cp.async into a 2-4 stage ring; the splits joined"
+           " by paged_decode_combine_kernel)";
+  if (TensorCore<T, D>::value)
     return "bf16 tensor cores (paged_chunk_mma_kernel: mma.sync m16n8k16 + cp.async page-table"
            " gather, 64 folded GQA rows a block), P in 3 bf16 terms; mma work 4 units a pair"
            " (QK 1 + PV 3) against a plain bf16 kernel's 2";
@@ -550,13 +933,29 @@ const char* describe_typed(int kernel, int D) {
 
 extern "C" {
 
-// Decode: q [S, H, D], one query per slot at position kv_lens[s] - 1.
+// Decode: q [S, H, D], one query per slot at position kv_lens[s] - 1. Each
+// block walks `split` positions; o_part holds S * ceil(P * page / split) * H
+// * D floats and ml_part S * ceil(P * page / split) * H * 2 (fp32
+// workspace, written before it is read).
 int paged_decode_attention_launch(int dtype, const void* q, const void* k_pages,
                                   const void* v_pages, const int* page_table,
-                                  const int* kv_lens, float* out, int S, int H, int Kh, int D,
-                                  int page, int P, float scale, void* stream) {
-  return static_cast<int>(launch(dtype, q, k_pages, v_pages, page_table, nullptr, kv_lens, out,
-                                 S, 1, H, Kh, D, page, P, 1, scale, stream));
+                                  const int* kv_lens, float* out, float* o_part, float* ml_part,
+                                  int S, int H, int Kh, int D, int page, int P, int split,
+                                  float scale, void* stream) {
+  (void)cudaGetLastError();
+  if (S == 0) return static_cast<int>(cudaSuccess);
+  if (Kh <= 0 || H % Kh != 0 || H / Kh > 32 || page <= 0 || P <= 0 || split <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_decode_typed<float>(q, k_pages, v_pages, page_table, kv_lens,
+                                                       out, o_part, ml_part, S, H, Kh, D, page,
+                                                       P, split, scale, st));
+  if (dtype == 1)
+    return static_cast<int>(launch_decode_typed<__nv_bfloat16>(
+        q, k_pages, v_pages, page_table, kv_lens, out, o_part, ml_part, S, H, Kh, D, page, P,
+        split, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Chunk: q [S, C, H, D], query i of slot s at position starts[s] + i. The
@@ -567,8 +966,8 @@ int paged_chunk_attention_launch(int dtype, const void* q, const void* k_pages,
                                  const int* kv_lens, float* out, int S, int C, int H, int Kh,
                                  int D, int page, int P, int tile_rows, float scale,
                                  void* stream) {
-  return static_cast<int>(launch(dtype, q, k_pages, v_pages, page_table, starts, kv_lens, out,
-                                 S, C, H, Kh, D, page, P, tile_rows, scale, stream));
+  return static_cast<int>(launch_chunk(dtype, q, k_pages, v_pages, page_table, starts, kv_lens,
+                                       out, S, C, H, Kh, D, page, P, tile_rows, scale, stream));
 }
 
 // The instantiation that a launch of kernel 0 (decode) or 1 (chunk) runs for

@@ -21,15 +21,16 @@
 // Two instantiations, chosen at compile time per (type, D) by
 // TensorCore<T, D> and by_head_dim, never as a path taken when a launch
 // fails:
-//   - bf16 q/k/v at D = 32, 64 and 128: the forward and dk/dv run on tensor
-//     cores (splash_fwd_mma_kernel, splash_bwd_dkv_mma_kernel), on the bodies
-//     that flash's tensor-core forward and dk/dv run
-//     (attention_mma_kernels.cuh) under BandMask, with and without document
-//     planes (DOCS, a template argument picked by whether docq is given);
-//   - dq at every type and D, and the forward and dk/dv on fp32 or other
-//     head dims, run the CUDA-core kernels below (splash_fwd_kernel,
-//     splash_bwd_dq_kernel, splash_bwd_dkv_kernel) on attention_cuda_core.cuh's
-//     256-thread tiles, products and sums in fp32 FMAs.
+//   - bf16 q/k/v at D = 32, 64 and 128: all three run on tensor cores
+//     (splash_fwd_mma_kernel, splash_bwd_dq_mma_kernel,
+//     splash_bwd_dkv_mma_kernel), on the bodies that flash's tensor-core
+//     kernels run (attention_mma_kernels.cuh) under BandMask, with and
+//     without document planes (DOCS, a template argument picked by whether
+//     docq is given);
+//   - fp32 inputs and the other head dims run the CUDA-core kernels below
+//     (splash_fwd_kernel, splash_bwd_dq_kernel, splash_bwd_dkv_kernel) on
+//     attention_cuda_core.cuh's 256-thread tiles, products and sums in fp32
+//     FMAs.
 //
 // Block sparsity. The causal and window bounds are loop bounds at each
 // kernel's own row and key tile edges (not the TPU kernel's block):
@@ -37,7 +38,8 @@
 //     keys, lo = max(0, q0 - (window - 1)) / KEYS (clamped before dividing:
 //     C division truncates toward zero, the reference floors), hi = the tile
 //     after the one holding the key of the tile's last row (causal). Tensor
-//     cores: 64 rows, 64 keys; CUDA cores: TILE x TILE;
+//     cores: 64 rows over 64 keys (fwd) or 32 keys (dq); CUDA cores: TILE x
+//     TILE;
 //   - dk/dv: KV tile [k0, k0 + KEYS) walks q tiles [k0 / ROWS, hi) of ROWS
 //     rows, hi = the tile after the one holding row last_key + window - 1,
 //     from the farthest (hi - 1) toward the diagonal, the n_rep heads
@@ -61,9 +63,9 @@
 // operations, as are dq (6 D a pair, 0.63 ms) and dk/dv (8 D, 0.83 ms). The
 // tensor-core kernels split each fp32 operand into three bf16 terms, so the
 // forward does 4 units of D multiply-adds a live pair (2x a plain bf16
-// kernel) and dk/dv 13 (8 on a do of bf16 values, as in training), through
-// mma.sync, which reaches a fraction of the dense rate that wgmma does. dq's
-// products run on CUDA cores in fp32 (67 TFLOP/s peak), far from its bound.
+// kernel), dq 7 (5 on a do of bf16 values, as in training) and dk/dv 13 (8
+// on such a do), through mma.sync, which reaches a fraction of the dense
+// rate that wgmma does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -381,6 +383,7 @@ __global__ void __launch_bounds__(THREADS)
 
 using bf16 = __nv_bfloat16;
 using attn_mma::DKV_KEYS;
+using attn_mma::DQ_ROWS;
 using attn_mma::FWD_ROWS;
 using attn_mma::MMA_THREADS;
 using attn_mma::TensorCore;
@@ -393,6 +396,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                           const bf16* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int n_rep, float scale, BandMask<DOCS> mask) {
   attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, mask);
+}
+
+// dq under the same mask.
+template <int D, bool DOCS>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    splash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dq, int n_rep, float scale,
+                             BandMask<DOCS> mask) {
+  attn_mma::dq_mma_body<D>(q, k, v, dout, lse, delta, dq, n_rep, scale, mask);
 }
 
 // dk/dv under the same mask.
@@ -470,19 +484,36 @@ struct DqArgs {
   float* dq;
   Shape sh;
 
-  template <typename T, int D>
-  cudaError_t launch() const {
-    using G = Geo<T, D>;
-    const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDF * 4u +
-                        G::TILE * G::LDS * 4u + G::TILE * 4u;
-    auto kernel = splash_bwd_dq_kernel<T, D>;
+  template <int D, bool DOCS>
+  cudaError_t launch_mma() const {
+    const size_t smem = attn_mma::dq_mma_smem_bytes<D, BandMask<DOCS>>();
+    auto kernel = splash_bwd_dq_mma_kernel<D, DOCS>;
     const cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
-    kernel<<<grid, THREADS, smem, sh.stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
-        delta, docq, dock, dq, sh.mask<false>(nullptr, nullptr), sh.scale);
+    const dim3 grid((sh.t_len + DQ_ROWS - 1) / DQ_ROWS, sh.bh);
+    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        dout, lse, delta, dq, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
     return cudaGetLastError();
+  }
+
+  template <typename T, int D>
+  cudaError_t launch() const {
+    if constexpr (TensorCore<T, D>::value) {
+      return docq ? launch_mma<D, true>() : launch_mma<D, false>();
+    } else {
+      using G = Geo<T, D>;
+      const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDF * 4u +
+                          G::TILE * G::LDS * 4u + G::TILE * 4u;
+      auto kernel = splash_bwd_dq_kernel<T, D>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.t_len + G::TILE - 1) / G::TILE, sh.bh);
+      kernel<<<grid, THREADS, smem, sh.stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), dout, lse,
+          delta, docq, dock, dq, sh.mask<false>(nullptr, nullptr), sh.scale);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -549,14 +580,19 @@ cudaError_t by_head_dim(int D, const Args& args) {
 // their mma work in units of D multiply-adds a live (query, key) pair.
 template <typename T, int D>
 const char* describe(int kernel) {
-  if (kernel == 1) return "CUDA cores, fp32 FMAs (splash_bwd_dq_kernel)";
   if (!TensorCore<T, D>::value)
-    return kernel == 0 ? "CUDA cores, fp32 FMAs (splash_fwd_kernel)"
-                       : "CUDA cores, fp32 FMAs (splash_bwd_dkv_kernel)";
+    return kernel == 0   ? "CUDA cores, fp32 FMAs (splash_fwd_kernel)"
+           : kernel == 1 ? "CUDA cores, fp32 FMAs (splash_bwd_dq_kernel)"
+                         : "CUDA cores, fp32 FMAs (splash_bwd_dkv_kernel)";
   if (kernel == 0)
     return "bf16 tensor cores (splash_fwd_mma_kernel: flash's forward body under the band"
            " mask, mma.sync m16n8k16 + cp.async ring), P in 3 bf16 terms; mma work 4 units a"
            " live pair (QK 1 + PV 3) against a plain bf16 kernel's 2";
+  if (kernel == 1)
+    return "bf16 tensor cores (splash_bwd_dq_mma_kernel: flash's dq body under the band mask,"
+           " mma.sync m16n8k16 + cp.async ring of 32-key tiles), do in 3 bf16 planes, dS in 3"
+           " terms; mma work 7 units a live pair (QK 1 + dOV 3 + dSK 3) against a plain bf16"
+           " kernel's 3, 5 on tiles whose do holds bf16 values";
   return "bf16 tensor cores (splash_bwd_dkv_mma_kernel: flash's dk/dv body under the band"
          " mask, mma.sync m16n8k16 + cp.async), do in 3 bf16 planes, P and dS in 3 terms; mma"
          " work 13 units a live pair (KQ 1 + VdO 3 + PdO 6 + dSQ 3) against a plain kernel's 4,"

@@ -6,10 +6,13 @@ the Pallas kernels ``paged_decode_attention_pallas`` and
 ``paged_chunk_attention_pallas`` of ``dstack_tpu/workloads/kernels/paged.py``
 (source: ``csrc/paged_attention.cu``). Each wrapper takes the plain version
 for tensors that lie on the CPU, and launches its kernel for CUDA tensors or
-raises; ``launches`` counts the kernel launches per wrapper. The chunk walk
+raises; ``launches`` counts the calls that launched their kernels. Decode
+splits each slot's positions across blocks (split-KV) and joins the splits'
+partial softmaxes in a second, small kernel of the same call; its
+arithmetic is fp32 on CUDA cores at every type and head dim. The chunk walk
 runs on bf16 tensor cores for bf16 q and pages at D = 32, 64 and 128, with
-P split into bf16 terms so that every product stays exact; decode, fp32
-inputs and other head dims run on CUDA cores (``instantiation`` names what a
+P split into bf16 terms so that every product stays exact, and on CUDA
+cores for fp32 inputs and other head dims (``instantiation`` names what a
 launch runs).
 
 The plain versions have the Pallas kernels' exact semantics, which differ
@@ -37,11 +40,25 @@ launches = {"paged_decode_attention": 0, "paged_chunk_attention": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_WARPS = 16  # CUDA-core chunk tile: rows per block = _MAX_WARPS // n_rep
 _MAX_SMEM = 232448  # dynamic shared memory one block may use on sm_90
+_DECODE_SPLIT = 256  # positions a decode block walks, at least
+_MAX_SPLITS = 32  # decode blocks per (slot, KV head), at most
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def decode_split(positions: int) -> int:
+    """Positions each block of the split-KV decode kernel walks, for a page
+    table of ``positions`` positions: ``_DECODE_SPLIT``, doubled until at
+    most ``_MAX_SPLITS`` splits cover the table (blocks whose split starts
+    past a slot's kv_len exit at once, but each still takes a slot on the
+    card)."""
+    split = _DECODE_SPLIT
+    while -(-positions // split) > _MAX_SPLITS:
+        split *= 2
+    return split
 
 
 def _paged_walk(q, k_pages, v_pages, page_table, starts, kv_lens):
@@ -108,8 +125,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_attention_launch.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
     ]
     lib.paged_decode_attention_launch.restype = i32
     lib.paged_chunk_attention_launch.argtypes = [
@@ -162,9 +179,9 @@ def _check(q, k_pages, v_pages, page_table, kv_lens, starts=None) -> None:
             f" {tuple(k_pages.shape)} and {tuple(v_pages.shape)}"
         )
     _, page, kh, d = k_pages.shape
-    if 4 * page * d * k_pages.element_size() > _MAX_SMEM:
+    if starts is not None and 4 * page * d * k_pages.element_size() > _MAX_SMEM:
         raise ValueError(
-            f"paged attention kernel: a double-buffered K and V page of {page} x {d}"
+            f"paged chunk kernel: a double-buffered K and V page of {page} x {d}"
             f" {k_pages.dtype} exceeds a block's {_MAX_SMEM} bytes of shared memory"
         )
     h = q.shape[-2]
@@ -197,12 +214,20 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, kv_lens):
         raise ValueError(f"paged decode kernel: q must be [S, H, D], got {tuple(q.shape)}")
     s, h, d = q.shape
     _, page, kh, _ = k_pages.shape
+    n_table = page_table.shape[1]
+    split = decode_split(n_table * page)
+    n_split = -(-n_table * page // split)
     out = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
+    # Each split's unnormalised o and (max, sum) per head, read by the
+    # combine kernel of the same call.
+    ws = (s, kh, n_split, h // kh)
+    o_part = torch.empty((*ws, d), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((*ws, 2), dtype=torch.float32, device=q.device)
     lib = _library()
     rc = lib.paged_decode_attention_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        s, h, kh, d, page, page_table.shape[1], 1.0 / math.sqrt(d),
+        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+        ml_part.data_ptr(), s, h, kh, d, page, n_table, split, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(rc, lib, "paged decode")

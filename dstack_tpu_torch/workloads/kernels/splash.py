@@ -10,9 +10,9 @@ Pallas kernels of ``dstack_tpu/workloads/kernels/splash.py``
 wrapper takes the plain version for tensors that lie on the CPU, and
 launches its kernel for CUDA tensors or raises; ``launches`` counts the
 kernel launches per wrapper. For bf16 inputs at D = 32, 64 and 128 the
-forward and dk/dv run on bf16 tensor cores, on the bodies that the flash
-kernels run (``csrc/attention_mma_kernels.cuh``) under the band mask, with
-fp32 operands split into bf16 terms so that every product stays exact; dq,
+forward, dq and dk/dv run on bf16 tensor cores, on the bodies that the
+flash kernels run (``csrc/attention_mma_kernels.cuh``) under the band mask,
+with fp32 operands split into bf16 terms so that every product stays exact;
 fp32 inputs and other head dims run on CUDA cores (``instantiation`` names
 what a launch runs).
 

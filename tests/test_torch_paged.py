@@ -14,7 +14,10 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   emulated in torch, against the Pallas chunk kernel: GQA rows folded, K/V
   tiles gathered row by row through the page table (a page size that does
   not divide the tile included), each row's limit, the tile-level mask skip,
-  P in three bf16 terms.
+  P in three bf16 terms;
+- the split-KV decode walk (``paged_decode_split_kernel`` and its combine),
+  emulated in torch, against the Pallas decode kernel: split edges inside a
+  page and on a slot's last position, kv_len 0 and 1, n_rep 1, 2 and 4.
 
 Tolerance 1e-5: fp32 on both sides, only the summation order differs.
 """
@@ -311,17 +314,133 @@ def test_one_bf16_term_of_p_is_not_enough(inputs, pallas_out):
     assert np.abs(got.numpy() - pallas_out[1]).max() > 10 * TOL
 
 
+# -- the split-KV decode walk --------------------------------------------------
+#
+# csrc/paged_attention.cu's paged_decode_split_kernel gives each block one
+# split of `split` positions of a (slot, KV head) and all n_rep query heads
+# of that KV head; it gathers K/V tiles of `tile` positions row by row
+# through the page table (zero past the split's end), runs the online softmax
+# over them in fp32 and writes the split's unnormalised o and its (max, sum)
+# per head; splits that start at or past the slot's end write nothing.
+# paged_decode_combine_kernel joins the splits as one online softmax would.
+# Below, that walk in torch, at the card's tile and split (32, 256) and at
+# edges that fall inside pages, against the Pallas decode kernel.
+
+# name -> (H, kv_lens): n_rep 1 and 4 over the module's two KV heads; kv_len
+# 0 and 1, and lengths that end on the split edges below (24, 48 = P * PAGE).
+DECODE_CASES = {
+    "n_rep1": (2, np.array([1, 0, 48, 24], np.int32)),
+    "n_rep4": (8, np.array([24, 48, 0, 1], np.int32)),
+}
+
+
+def decode_split_walk(q, k_pages, v_pages, page_table, kv_lens, split, tile=32):
+    """fp32 [S, H, D] as paged_decode_split_kernel and
+    paged_decode_combine_kernel compute it."""
+    s_n, h, d = q.shape
+    _, page, kh_n, _ = k_pages.shape
+    n_rep = h // kh_n
+    scale = np.float32(1.0 / np.sqrt(d))
+    out = torch.zeros((s_n, h, d))
+    for s in range(s_n):
+        end = min(int(kv_lens[s]), page_table.shape[1] * page)
+        for kh in range(kh_n):
+            heads = slice(kh * n_rep, (kh + 1) * n_rep)
+            qh = q[s, heads].float()
+            parts = []  # (o, m, l) of each split that starts before `end`
+            for s0 in range(0, end, split):
+                s1 = min(end, s0 + split)
+                m = torch.full((n_rep,), paged.NEG_INF)
+                l = torch.zeros(n_rep)
+                acc = torch.zeros((n_rep, d))
+                for t0 in range(s0, s1, tile):
+                    pos = torch.arange(t0, t0 + tile)
+                    live = pos < s1  # zero-filled past the split's end
+                    pid = page_table[s, torch.where(live, pos // page, 0)].long()
+                    kt = torch.where(live[:, None], k_pages[pid, pos % page, kh].float(), 0.0)
+                    vt = torch.where(live[:, None], v_pages[pid, pos % page, kh].float(), 0.0)
+                    sc = torch.where(live[None], (qh @ kt.T) * scale, paged.NEG_INF)
+                    m_new = torch.maximum(m, sc.amax(1))
+                    safe = torch.where(m_new == paged.NEG_INF, 0.0, m_new)
+                    corr = torch.where(m == paged.NEG_INF, 0.0, torch.exp(m - safe))
+                    p_ = torch.where(live[None], torch.exp(sc - safe[:, None]), 0.0)
+                    l = l * corr + p_.sum(1)
+                    acc = acc * corr[:, None] + p_ @ vt
+                    m = m_new
+                parts.append((acc, m, l))
+            if parts:  # kv_len 0: no split wrote, the output stays zero
+                m_all = torch.stack([m for _, m, _ in parts]).amax(0)
+                w = [torch.exp(m - m_all) for _, m, _ in parts]
+                l_all = sum(l * w_ for (_, _, l), w_ in zip(parts, w))
+                o = sum(o * w_[:, None] for (o, _, _), w_ in zip(parts, w))
+                out[s, heads] = o / torch.clamp(l_all, min=1e-20)[:, None]
+    return out
+
+
+@pytest.fixture(scope="module")
+def pallas_decode_cases(inputs):
+    """Per DECODE_CASES entry: q, its kv_lens and the Pallas decode kernel's
+    output (interpret mode) on the module's pages and table."""
+    x = inputs
+    rng = np.random.RandomState(1)
+    out = {}
+    for name, (h, lens) in DECODE_CASES.items():
+        q = rng.randn(S, h, D).astype(np.float32)
+        ref = jpaged.paged_decode_attention_pallas(q, x["kp"], x["vp"], x["pt"], lens,
+                                                   interpret=True)
+        out[name] = (q, lens, np.asarray(ref))
+    return out
+
+
+# (page, tile, split): split edges inside a page (12 over pages of 8; 8 and 32
+# over pages of 12), a split of one page's rows, and the card's tile and split.
+SPLIT_WALKS = [(PAGE, 4, 12), (12, 4, 8), (12, 32, 32), (PAGE, 8, 8), (PAGE, 32, 256)]
+
+
+@pytest.mark.parametrize("page,tile,split", SPLIT_WALKS)
+@pytest.mark.parametrize("case", ["n_rep1", "n_rep2", "n_rep4"])
+def test_decode_split_walk_matches_pallas(inputs, pallas_out, pallas_decode_cases, case, page,
+                                          tile, split):
+    """The split-KV decode walk, emulated, against the Pallas decode kernel in
+    interpret mode: active rows within 1e-5 (fp32 on both sides, the splits
+    change only the order of the sums), rows of kv_len 0 zero."""
+    x = inputs
+    if case == "n_rep2":
+        q, lens, ref = x["q"], KV_LENS, pallas_out[0]
+    else:
+        q, lens, ref = pallas_decode_cases[case]
+    kp, vp, table = (x["kp"], x["vp"], x["pt"]) if page == PAGE else repage(x, page)
+    got = decode_split_walk(t(q), t(kp), t(vp), t(table), t(lens), split, tile).numpy()
+    active = lens > 0
+    np.testing.assert_allclose(got[active], ref[active], atol=TOL)
+    assert not got[~active].any()
+
+
+def test_a_dropped_split_misses_the_pallas_kernel(inputs, pallas_decode_cases):
+    """The combine must take every split that starts before kv_len: with the
+    last split of each slot left out, the emulated walk misses the Pallas
+    kernel by far more than 1e-5."""
+    x = inputs
+    q, lens, ref = pallas_decode_cases["n_rep4"]
+    cut = np.where(lens > 0, (lens - 1) // 12 * 12, 0).astype(np.int32)
+    got = decode_split_walk(t(q), t(x["kp"]), t(x["vp"]), t(x["pt"]), t(cut), 12, 4).numpy()
+    active = lens > 0
+    assert np.abs(got[active] - ref[active]).max() > 10 * TOL
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """On an sm_90 card: each kernel against its plain version, bf16 and fp32,
-    at llama3_8b head geometry (D 128, n_rep 4); the bf16 chunk launch runs
-    the tensor-core kernel, decode the CUDA-core one."""
+    at llama3_8b head geometry (D 128, n_rep 4), and decode at n_rep 1 and
+    2 and D 96 too; the bf16 chunk launch runs the tensor-core kernel, every
+    decode launch the split-KV kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (sm_90) and nvcc")
     assert paged.instantiation("paged_chunk_attention", torch.bfloat16, 128).startswith(
         "bf16 tensor cores")
-    for dtype in (torch.bfloat16, torch.float32):
-        assert paged.instantiation("paged_decode_attention", dtype, 128).startswith("CUDA cores")
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.bfloat16, 96)):
+        desc = paged.instantiation("paged_decode_attention", dtype, d)
+        assert "paged_decode_split_kernel" in desc
     assert paged.instantiation("paged_chunk_attention", torch.float32, 128).startswith("CUDA cores")
     rng = np.random.RandomState(3)
     h, kh, d = 32, 8, 128
@@ -341,3 +460,10 @@ def test_kernels_match_plain_on_the_card():
         got = paged.paged_chunk_attention_cuda(qc, kp, vp, x["pt"], starts, lens)
         ref = paged.paged_chunk_attention_plain(qc, kp, vp, x["pt"], starts, lens)
         torch.testing.assert_close(got, ref, atol=tol, rtol=1e-3)
+    for h, kh, d in ((8, 8, 128), (16, 8, 128), (32, 8, 96)):
+        q = torch.randn((S, h, d), device="cuda", dtype=torch.bfloat16)
+        kp, vp = (torch.randn((N, PAGE, kh, d), device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2))
+        got = paged.paged_decode_attention_cuda(q, kp, vp, x["pt"], lens)
+        ref = paged.paged_decode_attention_plain(q, kp, vp, x["pt"], lens)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)

@@ -9,12 +9,13 @@ Inputs are made with numpy from a seed and handed to both frameworks:
   attention with documents. Forward o and lse, then dq, dk, dv on the Pallas
   forward's o and lse. fp32 on both sides, so only the summation order
   differs: atol 1e-5;
-- emulations of the tensor-core forward and dk/dv walks of
+- emulations of the tensor-core forward, dq and dk/dv walks of
   csrc/attention_mma_kernels.cuh under splash's BandMask (their tile edges,
-  band bounds, edge tiles, dk/dv's far-to-near order, p and ds in three bf16
-  terms, per-tile sums) against the same Pallas outputs, at the card's tile
-  edges and at small ones that walk several tiles here, atol 1e-5; and a
-  read of the source: the tensor-core kernels exist only at bf16 D 32/64/128;
+  band bounds, edge tiles, dk/dv's far-to-near order, p, ds and do in three
+  bf16 terms, per-tile sums) against the same Pallas outputs, at the card's
+  tile edges and at small ones that walk several tiles here, atol 1e-5; and
+  a read of the sources: the tensor-core kernels exist only at bf16 D
+  32/64/128, and flash and splash share their bodies;
 - gradients of sum(sin(splash_attention(...))) through the port's autograd
   function against jax.grad of the JAX kernel, atol 1e-4 (the tolerance of
   TestSplashKernel);
@@ -170,20 +171,22 @@ def test_rows_that_see_no_key_give_neg_inf_lse_and_zero_grads():
 
 # -- the tensor-core walks ---------------------------------------------------
 #
-# csrc/attention_mma_kernels.cuh's forward and dk/dv bodies, which flash and
-# splash share, run under splash's BandMask: the forward walks 64-row q
-# tiles over the KV tiles [lo, hi) of 64 keys; dk/dv walks each 64-key tile's
-# 32-row q tiles [q_lo, q_hi) from the farthest to the nearest, the n_rep
-# heads interleaved; only edge tiles (across the causal diagonal, the
-# window's edge, the ragged end, or any tile when documents are given)
-# compare elements. Below, those walks in torch, with the bf16 products exact
-# (fp64), p and ds (and do) in three bf16 terms, each tile's products summed
-# on their own and added into the fp32 sums. The tile edges are parameters:
-# the card's, and small ones under which these inputs walk several tiles.
+# csrc/attention_mma_kernels.cuh's forward, dq and dk/dv bodies, which flash
+# and splash share, run under splash's BandMask: the forward walks 64-row q
+# tiles over the KV tiles [lo, hi) of 64 keys, dq the same q tiles over KV
+# tiles of 32 keys; dk/dv walks each 64-key tile's 32-row q tiles [q_lo,
+# q_hi) from the farthest to the nearest, the n_rep heads interleaved; only
+# edge tiles (across the causal diagonal, the window's edge, the ragged end,
+# or any tile when documents are given) compare elements. Below, those walks
+# in torch, with the bf16 products exact (fp64), p and ds (and do) in three
+# bf16 terms, each tile's products summed on their own and added into the
+# fp32 sums. The tile edges are parameters: the card's, and small ones under
+# which these inputs walk several tiles.
 
-WALK_EDGES = {  # name -> ((fwd rows, fwd keys), (dk/dv keys, dk/dv rows))
-    "card": ((64, 64), (64, 32)),
-    "small": ((16, 16), (16, 8)),
+# name -> ((fwd rows, fwd keys), (dk/dv keys, dk/dv rows), (dq rows, dq keys))
+WALK_EDGES = {
+    "card": ((64, 64), (64, 32), (64, 32)),
+    "small": ((16, 16), (16, 8), (16, 8)),
 }
 PDO_PRODUCTS = [(i, j) for i in range(3) for j in range(3) if i + j < 3]
 
@@ -279,6 +282,52 @@ def splash_fwd_walk(q3, k3, v3, docs, causal, window, rows=64, keys=64):
     return o, lse
 
 
+def splash_dq_walk(q3, k3, v3, do3, lse, delta, docs, causal, window, rows=64, keys=32):
+    """dq fp32 as splash_bwd_dq_mma_kernel computes it: per q tile, the KV
+    tiles [lo, hi) of its band (lo from the window's lower edge, clamped
+    before dividing), p = exp(s scale - lse) (0 on rows whose lse is
+    NEG_INF, and on rows past T), element compares on edge tiles only, dP
+    over do's three bf16 planes, dS in three terms, each tile's dS K added
+    into the fp32 sum."""
+    bh, t_len, d = q3.shape
+    bkh, s_len, _ = k3.shape
+    n_rep = bh // bkh
+    scale = np.float32(1.0 / np.sqrt(d))
+    kv_range, _, edge = band_bounds(t_len, s_len, causal, window)
+    kv_row = torch.arange(bh) // n_rep
+    docq = dock = None
+    if docs is not None:
+        per_row = docs[torch.arange(bh) // (bh // docs.shape[0])]
+        docq, dock = per_row[:, :t_len], per_row[:, :s_len]
+    dq = torch.zeros((bh, t_len, d))
+    for q0 in range(0, t_len, rows):
+        qt = pad_rows(q3, q0, rows).double()
+        qp = torch.arange(q0, q0 + rows)
+        planes = split_bf16(pad_rows(do3, q0, rows))
+        ls = torch.full((bh, rows), splash.NEG_INF)  # NEG_INF past T: those rows' p is 0
+        n = min(rows, t_len - q0)
+        ls[:, :n] = lse[:, q0:q0 + n]
+        dl = pad_rows(delta, q0, rows)
+        acc = torch.zeros((bh, rows, d))
+        lo, hi = kv_range(q0, rows, keys)
+        for jk in range(lo, hi):
+            k0 = jk * keys
+            kt = pad_rows(k3, k0, keys)[kv_row].double()
+            vt = pad_rows(v3, k0, keys)[kv_row].double()
+            s = (qt @ kt.transpose(1, 2)).float()
+            p = torch.where(ls[..., None] == splash.NEG_INF, 0.0,
+                            torch.exp(s * scale - ls[..., None]))
+            if edge(q0, k0, rows, keys, docs is not None):
+                kp = torch.arange(k0, k0 + keys)
+                p = torch.where(live_pairs(qp, kp, t_len, s_len, causal, window, docq, dock),
+                                p, 0.0)
+            dp = sum(pl @ vt.transpose(1, 2) for pl in planes).float()
+            ds = p * (dp - dl[..., None]) * scale
+            acc += sum(t_ @ kt for t_ in split_bf16(ds)).float()
+        dq[:, q0:q0 + n] = acc[:, :n]
+    return dq
+
+
 def splash_dkv_walk(q3, k3, v3, do3, lse, delta, docs, causal, window, keys=64, rows=32):
     """(dk, dv) fp32 as splash_bwd_dkv_mma_kernel computes them."""
     bh, t_len, d = q3.shape
@@ -339,6 +388,20 @@ def test_tensor_core_forward_walk_matches_pallas(case, edges, pallas):
 
 @pytest.mark.parametrize("edges", list(WALK_EDGES))
 @pytest.mark.parametrize("case", list(CASES))
+def test_tensor_core_dq_walk_matches_pallas(case, edges, pallas):
+    """On the Pallas forward's o and lse, as the kernels run in training."""
+    x = pallas[case]
+    causal, window = CASES[case][4], CASES[case][5]
+    docs = None if x["docs"] is None else t(x["docs"])
+    rows, keys = WALK_EDGES[edges][2]
+    do, o = t(x["do"]), t(x["o"])
+    dq = splash_dq_walk(t(x["q"]), t(x["k"]), t(x["v"]), do, t(x["lse"]), (do * o).sum(-1),
+                        docs, causal, window, rows, keys)
+    np.testing.assert_allclose(dq.numpy(), x["dq"], atol=TOL)
+
+
+@pytest.mark.parametrize("edges", list(WALK_EDGES))
+@pytest.mark.parametrize("case", list(CASES))
 def test_tensor_core_dkv_walk_matches_pallas(case, edges, pallas):
     """On the Pallas forward's o and lse, as the kernels run in training."""
     x = pallas[case]
@@ -354,9 +417,10 @@ def test_tensor_core_dkv_walk_matches_pallas(case, edges, pallas):
 
 def test_tensor_core_kernels_exist_only_at_bf16_d32_64_128():
     """Read from the sources: TensorCore<T, D> holds for bf16 at D 32, 64 and
-    128 alone, and the splash forward and dk/dv dispatch on it to their
-    tensor-core kernels (the shared bodies under BandMask), while dq never
-    does."""
+    128 alone, and the splash forward, dq and dk/dv dispatch on it to their
+    tensor-core kernels, each a wrapper of the body that flash's kernel of
+    the same name wraps (the shared bodies, under BandMask and
+    CausalMask)."""
     header = (build.CSRC_DIR / "attention_mma.cuh").read_text()
     dims = sorted(int(x) for x in re.findall(r"struct TensorCore<__nv_bfloat16, (\d+)>", header))
     assert dims == [32, 64, 128]
@@ -365,13 +429,17 @@ def test_tensor_core_kernels_exist_only_at_bf16_d32_64_128():
     assert '#include "attention_mma_kernels.cuh"' in src
     args = {name: src[src.index(f"struct {name} {{"):] for name in ("FwdArgs", "DqArgs", "DkvArgs")}
     args = {name: body[:body.index("\n};\n")] for name, body in args.items()}
+    flash_src = (build.CSRC_DIR / "flash_attention.cu").read_text()
     for name, kernel, body in (("FwdArgs", "splash_fwd", "fwd_mma_body"),
+                               ("DqArgs", "splash_bwd_dq", "dq_mma_body"),
                                ("DkvArgs", "splash_bwd_dkv", "dkv_mma_body")):
         assert "if constexpr (TensorCore<T, D>::value)" in args[name], name
         assert f"{kernel}_mma_kernel<D, DOCS>" in args[name], name
         assert f"{kernel}_kernel<T, D>" in args[name], name
         assert re.search(rf"{kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D>", src), name
-    assert "TensorCore" not in args["DqArgs"] and "mma" not in args["DqArgs"]
+        flash_kernel = kernel.replace("splash", "flash")
+        assert re.search(rf"{flash_kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D>",
+                         flash_src), name
 
 
 class TestDispatch:
@@ -461,14 +529,12 @@ CARD_TOL = 2e-5
 def test_kernels_match_plain_on_the_card():
     """On an sm_90 card: each splash kernel against its plain version, fp32
     and bf16, windowed with documents, a ragged last tile (T = 72) and full
-    attention with documents; at bf16 D 128 the forward and dk/dv launches
-    run the tensor-core kernels, dq the CUDA-core one."""
+    attention with documents; at bf16 D 128 the forward, dq and dk/dv
+    launches run the tensor-core kernels, at fp32 the CUDA-core ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (sm_90) and nvcc")
     for name in splash.launches:
-        tensor_cores = name != "splash_bwd_dq"
-        desc = splash.instantiation(name, torch.bfloat16, 128)
-        assert desc.startswith("bf16 tensor cores") == tensor_cores
+        assert splash.instantiation(name, torch.bfloat16, 128).startswith("bf16 tensor cores")
         assert splash.instantiation(name, torch.float32, 128).startswith("CUDA cores")
     for dtype, t_len, causal, window, lengths in [
         (torch.float32, 72, True, 40, None), (torch.bfloat16, 256, True, 100, (90, 100, 66)),
