@@ -17,8 +17,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              one position late) and decode faults (the last split dropped,
              the last position dropped), which those limits must fail; the
              chunk and decode kernels at other page sizes (12, 32, 64), head
-             dims (32, 64, 96) and GQA ratios (1, 2, 8). Decode runs the split-KV kernel (CUDA cores) at
-             every type and D; the bf16 chunk kernel at D 32/64/128 runs on
+             dims (32, 64, 96) and GQA ratios (1, 2, 8); the chunk kernel at
+             speculative verify's shape (16 slots from the burst's lengths,
+             C = 5 rows with 1..5 valid, and C = 3 and 1), on the rows verify
+             reads, with its times at C = 5 beside the plain version's,
+             SDPA's and the bound. Decode runs the split-KV kernel (CUDA
+             cores) at every type and D; the bf16 chunk kernel at D 32/64/128 runs on
              tensor cores (mma.sync, P split into bf16 terms), fp32 and other
              head dims on CUDA cores. The log names each instantiation;
 3. flash   - the flash forward, dq and dk/dv kernels against their plain
@@ -45,12 +49,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              over a prefill step, five decode steps and one chunk step (16
              mid-prefill slots at prefill_chunk=512) says where the time
              goes, the decode kernels' share of the decode steps and the
-             chunk kernel's share of a chunk step;
+             chunk kernel's share of a chunk step; then the serving
+             example's engine flags (quant fp8 through
+             quantize_serve_params(consume=True), prefix cache,
+             prefill_chunk=512, spec_tokens=4): 16 requests sharing a
+             1024-token prefix in two waves, the chunk kernel launched
+             exactly layers x (chunk-prefill + verify steps), the decode
+             kernel never, a prefix hit rate above 0; the fp8 tree's bytes
+             against bf16's, and verify and decode step times, bf16 and
+             fp8, each with torch.profiler over one more step;
 5. identity- in fp32 (llama3_8b width, 2 layers) the kernel engine is
              token-identical to the plain engine, whole-prompt and chunked,
-             and to the full-forward greedy reference on two prompts;
+             and to the full-forward greedy reference on two prompts; and
+             with the prefix cache, chunked prefill and spec_tokens=4 to the
+             plain engine with them and without them: two waves sharing a
+             prefix, a pool that forces preemption, a model that repeats
+             tokens (so that verify accepts drafts), and int8 on both sides;
 6. http    - create_serve_app on 127.0.0.1: POST /generate streamed and
-             buffered, GET /stats;
+             buffered, GET /stats; an app on the example's engine flags sends
+             X-Dstack-Prefix-Hit-Rate and X-Dstack-Spec-Accept-Rate, and
+             /stats its live values;
 7. train   - llama3_1b at full width and depth (fp32 masters, bf16
              activations, remat "full", attn_impl=flash, batch 2, seq 8192)
              trains 5 steps through train.train, with grad_accum=1 and 2: the
@@ -126,6 +144,11 @@ KV_LENS = [0, 1, 15, 16, 17, 1000, 4095, 8192, 0, 1, 15, 16, 17, 1003, 4095, 819
 BURST_LENGTHS = [int(n) for n in np.linspace(16, 1500, 16).astype(int)]
 # Valid chunk tokens per slot; chunk slot s starts at KV_LENS[s] - VALID[s].
 VALID = [0, 1, 15, 13, 17, 488, 495, 512, 0, 1, 10, 16, 5, 300, 512, 100]
+# The serving example's speculative decode: each verify step is a chunk of
+# SPEC_TOKENS + 1 rows a slot, of which 1..5 are valid (a request's budget
+# clips its last rows).
+SPEC_TOKENS = 4
+VERIFY_VALID = [1, 2, 3, 4, 5] * 3 + [5]
 
 
 def log(msg: str) -> None:
@@ -460,6 +483,90 @@ def paged_shapes() -> None:
                 f" {float((got - ref).abs().max()):.3e} (atol 1e-4, rtol 1e-3) ok")
 
 
+def verify_bound(starts, lens, c: int, item: int):
+    """(bound_ms, bound_by) of a chunk call of c rows a slot: q read once,
+    each slot's K/V positions read once, fp32 out written once; the score and
+    PV operations of every row (rows past valid attend kv_len positions, as
+    the kernel's do), at the bf16 tensor-core or fp32 rate."""
+    starts, lens = np.asarray(starts, np.int64), np.asarray(lens, np.int64)
+    rows = np.arange(c)
+    attended = np.minimum(lens[:, None], starts[:, None] + rows[None, :] + 1).sum()
+    q_elems = len(lens) * c * H * D
+    nbytes = q_elems * item + lens.sum() * 2 * KH * D * item + q_elems * 4 + len(lens) * 4 * 2
+    peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4.0 * attended * H * D / peak
+    return float(max(t_bytes, t_ops) * 1e3), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def verify_shapes(card: str) -> dict:
+    """The chunk kernel at speculative verify's shape: 16 slots whose chunks
+    start at the serving burst's lengths, C = SPEC_TOKENS + 1 = 5 rows with
+    1..5 valid (kv_lens = starts + valid), and at C = 3 and 1; at llama3_8b
+    heads (n_rep 4) these are 20, 12 and 4 rows of the tensor-core kernel's
+    64-row fold. Against the plain version on the rows i < valid that verify
+    reads (ROADMAP C), bf16 at atol 1e-4 / rtol 1e-3 and fp32 at 1e-5; each
+    launch's instantiation logged. At C = 5 bf16: times (CUDA events and
+    device time) beside the plain version's, SDPA's on the gathered K/V and
+    the bound."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    out = {}
+    for c in (SPEC_TOKENS + 1, 3, 1):
+        valid = [min(c, v) for v in VERIFY_VALID]
+        lens = [n + v for n, v in zip(BURST_LENGTHS, valid)]
+        for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 1e-3)):
+            x = kernel_inputs(dtype, seed=10 + c, lens=lens)
+            q = x["qc"][:, :c].contiguous()
+            starts = torch.tensor(BURST_LENGTHS, dtype=torch.int32, device="cuda")
+            args = (q, x["k_pages"], x["v_pages"], x["table"], starts, x["kv_lens"])
+            got, ref = paged.paged_chunk_attention_cuda(*args), paged.paged_chunk_attention_plain(*args)
+            torch.cuda.synchronize()
+            rows = (torch.arange(c, device="cuda")[None, :]
+                    < torch.tensor(valid, device="cuda")[:, None])
+            if not bool(torch.isfinite(got[rows]).all()):
+                raise AssertionError(f"paged_chunk_attention verify C={c}: non-finite output")
+            torch.testing.assert_close(got[rows], ref[rows], atol=atol, rtol=rtol)
+            err = float((got[rows] - ref[rows]).abs().max())
+            desc = paged.instantiation("paged_chunk_attention", dtype, D)
+            log(f"kernel paged_chunk_attention {str(dtype)[6:]} verify C={c} (16 slots from the"
+                f" burst's lengths, valid {min(valid)}..{max(valid)}, {c * H // KH} folded rows):"
+                f" max_abs_err {err:.3e} on rows i < valid (atol {atol:g}, rtol {rtol:g}) ok;"
+                f" runs {desc}")
+            if dtype == torch.bfloat16 and c == SPEC_TOKENS + 1:
+                k_dense, v_dense = dense_kv(x, lens)
+                pos = torch.arange(k_dense.shape[2], device="cuda")
+                limit = torch.minimum(x["kv_lens"].long()[:, None],
+                                      starts.long()[:, None] + torch.arange(c, device="cuda") + 1)
+                mask = (pos[None, None, :] < limit[:, :, None])[:, None]
+                q_t = q.transpose(1, 2)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+
+                def kernel():
+                    return paged.paged_chunk_attention_cuda(*args)
+
+                def library():
+                    return sdpa(q_t, k_dense, v_dense, attn_mask=mask)
+
+                out = {"verify_max_abs_err": err, "verify_ms": time_ms(kernel),
+                       "verify_device_ms": device_ms(kernel),
+                       "verify_plain_ms": time_ms(lambda: paged.paged_chunk_attention_plain(*args)),
+                       "verify_library_ms": time_ms(library)}
+                out["verify_bound_ms"], out["verify_bound_by"] = verify_bound(
+                    BURST_LENGTHS, lens, c, 2)
+                log(f"kernel paged_chunk_attention bf16 verify C={c} timing: CUDA events"
+                    f" {out['verify_ms']:.4f} ms, device time {out['verify_device_ms']:.4f} ms,"
+                    f" plain {out['verify_plain_ms']:.4f} ms, sdpa {out['verify_library_ms']:.4f}"
+                    f" ms, bound {out['verify_bound_ms']:.4f} ms ({out['verify_bound_by']}),"
+                    f" {out['verify_device_ms'] / out['verify_bound_ms']:.1f}x by device time"
+                    f" [{card}]")
+                del k_dense, v_dense
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(card: str) -> dict:
     import torch
 
@@ -541,6 +648,7 @@ def phase_kernels(card: str) -> dict:
         torch.cuda.empty_cache()
     paged_shapes()
     decode_burst_timing(card)
+    report["paged_chunk_attention"].update(verify_shapes(card))
     return report
 
 
@@ -1231,34 +1339,49 @@ def count_calls(engine, attr: str) -> list:
     return calls
 
 
-def drive_runner(engine, prompts, max_new: int, timeout: float = 600.0) -> dict:
-    """Submit every prompt through EngineRunner.submit and wait for all."""
+def drive_runner(engine, waves, max_new: int, timeout: float = 600.0) -> dict:
+    """Submit every prompt through EngineRunner.submit and wait for all. The
+    prompts come in waves: a wave is submitted once every request of the one
+    before it has its first token (its prompt is prefilled, and with the
+    prefix cache registered)."""
     from dstack_tpu_torch.workloads import serve
 
     errors = _StepErrors()
     serve.logger.addHandler(errors)
     runner = serve.EngineRunner(engine)
+    prompts = [p for wave in waves for p in wave]
     tokens = [[] for _ in prompts]
+    first = threading.Semaphore(0)
     finished = threading.Semaphore(0)
 
     def on_event(i):
         def cb(ev):
             tokens[i].append(ev.token)
+            if ev.index == 0:
+                first.release()
             if ev.done:
                 finished.release()
         return cb
 
-    t0 = time.monotonic()
-    runner.start()
-    try:
-        for i, p in enumerate(prompts):
-            runner.submit(p, max_new, on_event(i))
-        for _ in prompts:
-            while not finished.acquire(timeout=0.5):
+    def wait(sem, n, what):
+        for _ in range(n):
+            while not sem.acquire(timeout=0.5):
                 if errors.records:
                     raise RuntimeError("engine step failed:\n" + errors.records[0])
                 if time.monotonic() - t0 > timeout:
-                    raise TimeoutError("requests did not finish")
+                    raise TimeoutError(f"requests did not {what}")
+
+    t0 = time.monotonic()
+    runner.start()
+    try:
+        i = 0
+        for w, wave in enumerate(waves):
+            if w:
+                wait(first, len(waves[w - 1]), "reach their first token")
+            for p in wave:
+                runner.submit(p, max_new, on_event(i))
+                i += 1
+        wait(finished, len(prompts), "finish")
         wall = time.monotonic() - t0
     finally:
         runner.shutdown()
@@ -1301,7 +1424,7 @@ def phase_serve(card: str) -> dict:
         chunk_calls = count_calls(engine, "_chunk_fn") if chunk else [0]
         torch.cuda.synchronize()
         paged.reset_launches()
-        out = drive_runner(engine, prompts, max_new)
+        out = drive_runner(engine, [prompts], max_new)
         got = dict(paged.launches)
         for p, toks in zip(prompts, out["tokens"]):
             if len(toks) != max_new or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -1330,9 +1453,185 @@ def phase_serve(card: str) -> dict:
         del engine
         torch.cuda.empty_cache()
     profile_steps(cfg, params, prompts, card)
+    weight_only_on_card(cfg, card)
+    for name, n in serve_example_flags(cfg, params, card).items():
+        launches[name] += n
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def tree_bytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in params.values())
+
+
+def step_ms(cfg, params, quant: str, spec_tokens: int, card: str, steps: int = 8) -> float:
+    """Median wall time of one engine step with 16 slots decoding (prompts of
+    128 tokens, budgets that keep every verify row valid): a plain decode
+    step, or with spec_tokens a verify step. Each step ends by copying its
+    tokens to the host, which waits for the card. Then torch.profiler over
+    one more step: where its time goes."""
+    from dstack_tpu_torch.workloads import serve
+
+    engine = serve.ServeEngine(
+        cfg,
+        serve.EngineConfig(max_batch=16, num_pages=1024, page_size=16, quant=quant,
+                           spec_tokens=spec_tokens),
+        params=params,
+    )
+    rng = np.random.RandomState(3)
+    for _ in range(16):
+        engine.submit(rng.randint(0, cfg.vocab_size, 128).tolist(), max_new_tokens=128)
+    engine.step()  # admission, prefill and the first decode step
+    times = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        engine.step()
+        times.append((time.monotonic() - t0) * 1e3)
+    kind = "verify" if spec_tokens else "decode"
+    profile_window(f"{'bf16' if quant == 'none' else quant} {kind} step (16 slots)", engine.step,
+                   card, share_of="paged_chunk_mma_kernel" if spec_tokens else "paged_decode_")
+    if engine.active_count != 16:
+        raise AssertionError(f"{engine.active_count} slots decoding, not 16")
+    del engine
+    return float(np.median(times))
+
+
+# weight_only_matmul on the card against fp64 sums, as a share of the largest
+# |product|: an fp32-accumulated product scaled before one cast sits near fp32
+# rounding; the planted fault (the bf16 product rounded before the scale, two
+# roundings where the JAX package has one) must read above the limit.
+WEIGHT_ONLY_LIMIT = 1e-4
+
+
+def weight_only_on_card(cfg, card: str) -> None:
+    """The serve path's quantized projections on the card: quantize_fp8 and
+    quantize_int8 give the same bits and scales on the card as on the CPU,
+    and weight_only_matmul's card branch (bf16 x, torch.mm with an fp32
+    output) agrees with fp64 sums of the same values and scales, at
+    llama3_8b's wq, w_gate, w_down and lm_head shapes, on a 3-D x of the
+    verify step's [16 slots, spec_tokens + 1 rows, K]."""
+    import torch
+
+    from dstack_tpu_torch.workloads import quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {"wq": (cfg.d_model, cfg.n_heads * cfg.head_dim),
+              "w_gate": (cfg.d_model, cfg.d_ff), "w_down": (cfg.d_ff, cfg.d_model),
+              "lm_head": (cfg.d_model, cfg.vocab_size)}
+    for name, (k, n) in shapes.items():
+        w = (torch.randn(k, n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        x = torch.randn(16, SPEC_TOKENS + 1, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for mode in quantize.WEIGHT_ONLY_MODES:
+            qw = quantize.quantize_weight(w, mode=mode)
+            if name in ("wq", "w_down"):
+                cpu = quantize.quantize_weight(w.cpu(), mode=mode)
+                bits = torch.uint8 if mode == "fp8" else torch.int8
+                if not (torch.equal(qw.values.cpu().view(bits), cpu.values.view(bits))
+                        and torch.equal(qw.scales.cpu(), cpu.scales)):
+                    raise AssertionError(f"quantize {mode} {name}: the card's bits differ"
+                                         " from the CPU's")
+            out = quantize.weight_only_matmul(x, qw.values, qw.scales)
+            ref = (x.double() @ qw.values.double()) * qw.scales.double()
+            top = ref.abs().max().item()
+            err = (out.double() - ref).abs().max().item() / top
+            upcast = (x.float() @ qw.values.float()) * qw.scales
+            upcast_err = (upcast.double() - ref).abs().max().item() / top
+            fault = (x @ qw.values.to(torch.bfloat16)).float() * qw.scales
+            fault_err = (fault.double() - ref).abs().max().item() / top
+            log(f"weight_only_matmul {mode} {name} x{list(x.shape)} w[{k}, {n}]: error"
+                f" {err:.3e} of the largest |product| {top:.4g} (limit {WEIGHT_ONLY_LIMIT:g});"
+                f" fp32 upcast {upcast_err:.3e}; planted bf16-before-scale fault"
+                f" {fault_err:.3e} [{card}]")
+            if out.dtype != torch.float32 or out.shape != (*x.shape[:-1], n):
+                raise AssertionError(f"weight_only_matmul gave {out.dtype} {list(out.shape)}")
+            if not err <= WEIGHT_ONLY_LIMIT:
+                raise AssertionError(f"weight_only_matmul {mode} {name}: error {err:.3e}")
+            if not fault_err > WEIGHT_ONLY_LIMIT:
+                raise AssertionError(f"the planted fault passed at {fault_err:.3e}")
+            del qw, out, ref, upcast, fault
+        del w, x
+    torch.cuda.empty_cache()
+
+
+def serve_example_flags(cfg, params, card: str) -> dict:
+    """The serving example's engine flags on llama3_8b (bf16, the seeded
+    weights): quant="fp8" through quantize_serve_params(consume=True),
+    prefix_cache, prefill_chunk=512, spec_tokens=4, 4096 pages of 16, 16
+    slots. 16 requests in two waves of 8, each prompt one shared 1024-token
+    system prefix (64 pages) and a distinct suffix of 16..476 tokens, 32 new
+    tokens each; wave 2 is submitted once wave 1's prompts are registered,
+    so it hits the cache. The chunk kernel must launch exactly layers x
+    (chunk-prefill steps + verify steps) times and the decode kernel never.
+    Step times of a verify and a plain decode step at 16 slots, bf16 beside
+    fp8. Consumes ``params``; returns the run's launches."""
+    import torch
+
+    from dstack_tpu_torch.workloads import serve
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    bf16_bytes = tree_bytes(params)
+    times = {("bf16", spec): step_ms(cfg, params, "none", spec, card) for spec in (0, SPEC_TOKENS)}
+    t0 = time.monotonic()
+    qparams = serve.quantize_serve_params(params, consume=True, mode="fp8")
+    torch.cuda.synchronize()
+    log(f"serve example flags: fp8 weights {tree_bytes(qparams) / 1e9:.3f} GB against bf16"
+        f" {bf16_bytes / 1e9:.3f} GB, quantized in {time.monotonic() - t0:.1f} s")
+    times.update({("fp8", spec): step_ms(cfg, qparams, "fp8", spec, card)
+                  for spec in (0, SPEC_TOKENS)})
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(4)
+    prefix = rng.randint(0, cfg.vocab_size, 1024).tolist()
+    suffixes = [int(n) for n in np.linspace(16, 476, 16).astype(int)]
+    prompts = [prefix + rng.randint(0, cfg.vocab_size, n).tolist() for n in suffixes]
+    waves = [prompts[:8], prompts[8:]]
+    max_new = 32
+    engine = serve.ServeEngine(
+        cfg,
+        serve.EngineConfig(max_batch=16, num_pages=4096, page_size=16, quant="fp8",
+                           prefix_cache=True, prefill_chunk=CHUNK, spec_tokens=SPEC_TOKENS),
+        params=qparams,
+    )
+    if engine.decode_impl != "cuda" or "lm_head" in engine.params:
+        raise AssertionError(f"engine runs {engine.decode_impl} on {sorted(engine.params)}")
+    calls = {attr: count_calls(engine, attr) for attr in ("_chunk_fn", "_verify_fn", "_decode_fn")}
+    torch.cuda.synchronize()
+    paged.reset_launches()
+    out = drive_runner(engine, waves, max_new)
+    got = dict(paged.launches)
+    for p, toks in zip(prompts, out["tokens"]):
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request of {len(p)} tokens returned {toks}")
+    chunk_steps, verify_steps = calls["_chunk_fn"][0], calls["_verify_fn"][0]
+    if got["paged_chunk_attention"] != cfg.n_layers * (chunk_steps + verify_steps):
+        raise AssertionError(
+            f"chunk kernel launches {got['paged_chunk_attention']} != {cfg.n_layers} layers x"
+            f" ({chunk_steps} chunk-prefill + {verify_steps} verify steps)"
+        )
+    if got["paged_decode_attention"] or calls["_decode_fn"][0]:
+        raise AssertionError(f"spec_tokens={SPEC_TOKENS} ran decode steps: {got}")
+    if not verify_steps:
+        raise AssertionError("no verify step ran")
+    stats = engine.stats()
+    if not stats["prefix_hit_rate"] > 0:
+        raise AssertionError(f"wave 2 did not hit the prefix cache: {stats}")
+    lat = engine.flight.latency_summary()
+    n_tok = sum(len(t) for t in out["tokens"])
+    log(f"serve example flags (fp8, prefix cache, prefill_chunk={CHUNK},"
+        f" spec_tokens={SPEC_TOKENS}): 16 requests (1024-token shared prefix + 16..476) x"
+        f" {max_new} tokens in two waves, {out['wall_s']:.2f} s, {n_tok / out['wall_s']:.1f}"
+        f" tokens/s, TTFT p50 {lat['ttft_p50_ms']} ms p99 {lat['ttft_p99_ms']} ms, ITL p50"
+        f" {lat['itl_p50_ms']} ms; prefix hit rate {stats['prefix_hit_rate']}, spec accept"
+        f" rate {stats['spec_accept_rate']} (windowed {stats['spec_accept_rate_windowed']}),"
+        f" cached pages {stats['cached_pages']}; chunk-prefill steps {chunk_steps}, verify"
+        f" steps {verify_steps}, launches {got} [{card}]")
+    log(f"serve step times at 16 slots (median of 8): bf16 decode"
+        f" {times['bf16', 0]:.2f} ms, bf16 verify {times['bf16', SPEC_TOKENS]:.2f} ms; fp8"
+        f" decode {times['fp8', 0]:.2f} ms, fp8 verify {times['fp8', SPEC_TOKENS]:.2f} ms [{card}]")
+    del engine, qparams
+    torch.cuda.empty_cache()
+    return got
 
 
 def profile_window(label: str, run, card: str, share_of: str = "") -> None:
@@ -1412,14 +1711,19 @@ def profile_steps(cfg, params, prompts, card: str, decode_steps: int = 5) -> Non
 # -- phase 5: fp32 token identity ----------------------------------------------
 
 
-def run_engine(engine, prompts, max_new: int):
-    reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
-    steps = 0
-    while engine.has_work():
-        engine.step()
-        steps += 1
-        if steps > 10_000:
-            raise RuntimeError("engine never drained")
+def run_engine(engine, prompts, max_new: int, waves: int = 1):
+    """Token streams of ``prompts``, submitted in ``waves`` equal waves (each
+    after the one before has drained)."""
+    size = -(-len(prompts) // waves)
+    reqs = []
+    for start in range(0, len(prompts), size):
+        reqs += [engine.submit(p, max_new_tokens=max_new) for p in prompts[start:start + size]]
+        steps = 0
+        while engine.has_work():
+            engine.step()
+            steps += 1
+            if steps > 10_000:
+                raise RuntimeError("engine never drained")
     return [r.tokens for r in reqs]
 
 
@@ -1459,7 +1763,66 @@ def phase_identity():
             raise AssertionError(f"engine {toks} != greedy reference {ref}")
     log("identity: fp32 kernel engine == plain engine (whole-prompt and chunk 256)"
         " == chunked == greedy reference on 2 prompts; 4 prompts x 24 tokens")
+    identity_example_flags(cfg, params)
     return cfg, params
+
+
+def identity_example_flags(cfg, params) -> None:
+    """fp32, the serving example's engine flags (prefix cache, chunked
+    prefill, spec_tokens=4): the kernel engine against the plain engine, and
+    both against a plain engine without them; in two waves sharing a
+    320-token prefix (wave 2 hits the cache), in a pool of 40 pages that
+    forces preemption, and on a model that tends to repeat tokens, so that
+    verify accepts drafts (on random weights it accepts almost none); then
+    with quant="int8" on both sides."""
+    from dstack_tpu_torch.workloads import serve
+
+    # The repeating model: its layers write a quarter of their usual scale
+    # into the residual and its lm_head leans toward the input embedding, so
+    # the greedy stream often repeats its last token, which the n-gram
+    # proposer drafts when it finds no match.
+    repeating = dict(params, lm_head=params["lm_head"] + params["embed"].T,
+                     wo=params["wo"] / 4, w_down=params["w_down"] / 4)
+
+    rng = np.random.RandomState(2)
+    prefix = rng.randint(0, cfg.vocab_size, 320).tolist()
+    shared = [prefix + rng.randint(0, cfg.vocab_size, n).tolist() for n in (17, 90, 41, 150)]
+    tight = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (200, 190, 180, 170)]
+    max_new = 24
+    flags = dict(prefix_cache=True, prefill_chunk=256, spec_tokens=SPEC_TOKENS)
+    runs = {
+        "two waves": (params, shared, 2, dict(num_pages=512), flags),
+        "preemption": (params, tight, 1, dict(num_pages=40), flags),
+        "repeating model": (repeating, shared, 2, dict(num_pages=512), flags),
+        "int8, two waves": (params, shared, 2, dict(num_pages=512), dict(flags, quant="int8")),
+    }
+    for label, (weights, prompts, waves, pool, feats) in runs.items():
+        streams, stats = {}, {}
+        for name, impl, f in (("cuda", "cuda", feats), ("plain", "plain", feats),
+                              ("plain, no flags", "plain", {"quant": feats.get("quant", "none")})):
+            engine = serve.ServeEngine(
+                cfg,
+                serve.EngineConfig(max_batch=4, page_size=16, max_seq=2048, decode_impl=impl,
+                                   **pool, **f),
+                params=weights,
+            )
+            streams[name] = run_engine(engine, prompts, max_new, waves)
+            stats[name] = engine.stats()
+            del engine
+        if not streams["cuda"] == streams["plain"] == streams["plain, no flags"]:
+            raise AssertionError(f"identity ({label}): {streams}")
+        cuda = stats["cuda"]
+        if waves > 1 and not cuda["prefix_hit_rate"] > 0:
+            raise AssertionError(f"identity ({label}): no prefix hit: {cuda}")
+        if label == "preemption" and not cuda["preemptions"] >= 1:
+            raise AssertionError(f"identity ({label}): the pool forced no preemption: {cuda}")
+        if label == "repeating model" and not cuda["spec_accept_rate"] > 0.1:
+            raise AssertionError(f"identity ({label}): verify accepted no draft: {cuda}")
+        log(f"identity ({label}): fp32 kernel engine == plain engine with prefix cache,"
+            f" prefill_chunk 256, spec_tokens {SPEC_TOKENS}{', int8' if 'quant' in feats else ''}"
+            f" == plain engine without them; {len(prompts)} prompts x {max_new} tokens, hit rate"
+            f" {cuda['prefix_hit_rate']}, accept rate {cuda['spec_accept_rate']}, preemptions"
+            f" {cuda['preemptions']}")
 
 
 # -- phase 6: HTTP -------------------------------------------------------------
@@ -1523,6 +1886,70 @@ def phase_http(cfg, params) -> None:
     if stats["finished_requests"] != 2 or stats["decode_impl"] != "cuda":
         raise AssertionError(f"unexpected /stats {stats}")
     log(f"http: POST /generate streamed == buffered ({streamed}); /stats ok")
+    http_example_flags(cfg, params)
+
+
+def http_example_flags(cfg, params) -> None:
+    """An app on the serving example's engine flags (fp8, prefix cache,
+    prefill_chunk=512, spec_tokens=4) answers two /generate requests sharing
+    a 64-token prefix: both carry X-Dstack-Prefix-Hit-Rate and
+    X-Dstack-Spec-Accept-Rate, the second's hit rate is above 0, and /stats
+    shows the live values."""
+    import aiohttp
+    from aiohttp import web
+
+    from dstack_tpu_torch.workloads import serve
+
+    engine = serve.ServeEngine(
+        cfg,
+        serve.EngineConfig(max_batch=4, num_pages=64, page_size=16, max_seq=256, quant="fp8",
+                           prefix_cache=True, prefill_chunk=CHUNK, spec_tokens=SPEC_TOKENS),
+        params=params,
+    )
+    runner = serve.EngineRunner(engine)
+    prefix = list(range(100, 164))
+
+    async def exercise():
+        app_runner = web.AppRunner(serve.create_serve_app(runner))
+        await app_runner.setup()
+        site = web.TCPSite(app_runner, "127.0.0.1", 0)
+        await site.start()
+        port = site._server.sockets[0].getsockname()[1]
+        base = f"http://127.0.0.1:{port}"
+        headers = []
+        try:
+            async with aiohttp.ClientSession() as session:
+                for tail in ([7, 8, 9], [7, 8, 10]):
+                    body = {"prompt_tokens": prefix + tail, "max_tokens": 8, "stream": False}
+                    async with session.post(f"{base}/generate", json=body) as resp:
+                        resp.raise_for_status()
+                        if len((await resp.json())["tokens"]) != 8:
+                            raise AssertionError("/generate did not return 8 tokens")
+                        headers.append({h: resp.headers.get(h) for h in (
+                            "X-Dstack-Prefix-Hit-Rate", "X-Dstack-Spec-Accept-Rate")})
+                async with session.get(f"{base}/stats") as resp:
+                    resp.raise_for_status()
+                    stats = await resp.json()
+        finally:
+            await app_runner.cleanup()
+        return headers, stats
+
+    runner.start()
+    try:
+        headers, stats = asyncio.run(exercise())
+    finally:
+        runner.shutdown()
+        runner.join(timeout=60)
+    if any(v is None for h in headers for v in h.values()):
+        raise AssertionError(f"gauge headers missing: {headers}")
+    if not float(headers[1]["X-Dstack-Prefix-Hit-Rate"]) > 0:
+        raise AssertionError(f"the second request did not hit the prefix cache: {headers}")
+    live = {k: stats[k] for k in ("quant", "prefix_cache", "spec_tokens", "prefix_hit_rate",
+                                  "cached_pages", "spec_accept_rate_windowed")}
+    if (live["quant"], live["prefix_cache"], live["spec_tokens"]) != ("fp8", 1, SPEC_TOKENS) or (
+            not live["prefix_hit_rate"] > 0 or not live["cached_pages"] > 0):
+        raise AssertionError(f"unexpected /stats {stats}")
+    log(f"http (example flags): both gauge headers on /generate ({headers}); /stats {live}")
 
 
 # -- phase 7: the training path ------------------------------------------------
@@ -1898,7 +2325,8 @@ def main() -> int:
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
-            **{key: entry[key] for key in ("device_ms", "library_device_ms") if key in entry},
+            **{key: value for key, value in entry.items()
+               if key in ("device_ms", "library_device_ms") or key.startswith("verify_")},
         })
     log(f"total {time.monotonic() - t_start:.1f} s [{card}]")
     log(card)

@@ -119,7 +119,7 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None) -> None:
         if cfg.quant not in ("int8", "fp8"):
             raise ValueError(f"unknown quant {cfg.quant!r}; expected none, int8 or fp8")
         raise NotImplementedError(
-            f"quant={cfg.quant} is not yet ported to PyTorch (ROADMAP item 3)"
+            f"quant={cfg.quant} in training is not yet ported to PyTorch (ROADMAP item 3b)"
         )
     if cfg.tp_overlap or cfg.fsdp_overlap:
         raise NotImplementedError(

@@ -1,10 +1,13 @@
 """Parameter trees from numpy into the port's dict of tensors.
 
-``params_from_numpy`` takes the JAX ``init_params`` tree as numpy arrays
-(``{k: np.asarray(v)}``) and stores every tensor once in the serving dtype.
-The JAX step functions cast each weight to the activation dtype on every
-use, so casting once at engine build gives the same values, and keeps
-llama3_8b at its bf16 size on the card.
+``params_from_numpy`` takes a JAX parameter tree as numpy arrays
+(``{k: np.asarray(v)}``): the ``init_params`` tree, or the weight-only serve
+layout ``quantize_serve_params`` makes of it. Floating-point weights are
+stored once in the serving dtype: the JAX step functions cast each weight to
+the activation dtype on every use, so casting once at engine build gives the
+same values, and keeps llama3_8b at its bf16 size on the card. Quantized
+leaves keep their own dtype: ``*_q`` values stay int8 or fp8 (ml_dtypes'
+fp8 through its bits, as bfloat16), and ``*_s`` scales stay fp32.
 """
 
 from __future__ import annotations
@@ -15,16 +18,29 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.workloads.model import Params
+from dstack_tpu_torch.workloads.quantize import leaf_dtype
+
+# ml_dtypes' names -> the torch dtype that reads the same bits.
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
     a = np.array(a)  # a writable copy: arrays from JAX are read-only
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret its bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name in _BIT_VIEWS:  # ml_dtypes' types: reinterpret their bits
+        bits, dtype = _BIT_VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(bits)).view(dtype)
     return torch.from_numpy(a)
 
 
 def params_from_numpy(
     tree: Mapping[str, np.ndarray], device: torch.device, dtype: torch.dtype
 ) -> Params:
-    return {k: _tensor(np.asarray(v)).to(device=device, dtype=dtype) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        t = _tensor(np.asarray(v))
+        out[k] = t.to(device=device, dtype=leaf_dtype(k, t, dtype))
+    return out

@@ -11,19 +11,32 @@ prefill, on a CUDA card:
   prefill on blockwise attention (or, with ``prefill_chunk``, at most that
   many tokens per request per step over the paged prefix), and the running
   batch advances one token per step through single-query paged attention.
+- **Prefix cache** (``prefix_cache=True``): full KV pages of prompt blocks
+  are kept in a refcounted hash chain (``PrefixCache``); a request sharing a
+  cached prefix reuses those pages and prefills only its suffix, through the
+  chunk step. Cached pages are never written again; idle blocks are evicted
+  LRU, leaves first, before a dry pool preempts.
+- **Speculative decode** (``spec_tokens=k``): a host-side n-gram proposer
+  drafts k tokens per slot, and one chunk step (``emit="all"``) scores all
+  of them; greedy accept/reject emits 1..k+1 tokens a step, token-identical
+  to one-token greedy decode. Every decode step is then a verify step.
+- **Weight-only int8/fp8** (``quant``): projection weights are quantized
+  once at engine build (``quantize_serve_params``) and dequantized on use
+  (``quantize.weight_only_matmul``).
 - **Kernels**: ``decode_impl="cuda"`` (the default on a CUDA device) runs the
   hand-written paged decode and paged chunk kernels
   (``kernels/paged.py``); ``"plain"`` runs the gather references of
-  ``attention.py``, as the JAX engine's ``"xla"`` does.
+  ``attention.py``, as the JAX engine's ``"xla"`` does. Chunked prefill, the
+  prefix cache's suffix prefill and speculative verify all run the chunk
+  kernel.
 - **HTTP**: the same aiohttp routes, headers and JSON keys as the JAX engine
   (``create_serve_app``), so the control plane's proxy serves either.
 
 The step functions are plain eager functions; the host-side scheduling is
 the JAX engine's, line for line. Decoding is greedy (argmax), and in fp32 the
 engine is token-identical to the JAX engine on the same weights. Not yet
-ported: serve meshes, weight-only quantization, the prefix cache,
-speculative decode, the draft head and checkpoint restore; asking for one
-raises.
+ported: serve meshes (ROADMAP item 6), the draft head (item 8) and
+checkpoint restore (item 4); asking for one raises.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ import torch
 
 from dstack_tpu_torch.core import tracing
 from dstack_tpu_torch.workloads import model as model_lib
+from dstack_tpu_torch.workloads import quantize as quant_lib
+from dstack_tpu_torch.workloads import telemetry as telemetry_lib
 from dstack_tpu_torch.workloads.attention import (
     blockwise_attention,
     paged_chunk_attention,
@@ -61,6 +76,10 @@ from dstack_tpu_torch.workloads.kernels.platform import (
 
 logger = logging.getLogger(__name__)
 
+_WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_NORM_KEYS = ("attn_norm", "mlp_norm")
+_LAYER_KEYS = _WEIGHT_KEYS + _NORM_KEYS
+
 DECODE_IMPLS = ("auto", "plain", "cuda")
 
 
@@ -76,19 +95,67 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to dstack_tpu_torch")
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to dstack_tpu_torch (ROADMAP item {item})"
+    )
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x[..., K] @ w[K, N] in the activation dtype (weights are stored in
-    it, so this is the JAX engine's cast-on-use dot with quant "none")."""
-    return x @ w
+def quantize_serve_params(params: dict, consume: bool = False, mode: str = "int8") -> dict:
+    """Weight-only quantization for serving: every projection weight becomes
+    quantized values + per-output-channel fp32 scales (``<k>_q`` /
+    ``<k>_s``); the embedding and the norms stay as they are. ``mode`` is
+    "int8" or "fp8" (e4m3); both dequantize on use.
+
+    With ``consume=True`` the input dict is drained as it is quantized: each
+    fp weight is popped the moment its quantized twin exists, so peak memory
+    is the fp tree plus one quantized copy of one weight, never two full
+    trees."""
+    out = {
+        k: params.pop(k) if consume else params[k]
+        for k in ("embed", "final_norm", "attn_norm", "mlp_norm")
+    }
+    for k in _WEIGHT_KEYS + ("lm_head",):
+        w = params.pop(k) if consume else params[k]
+        qw = quant_lib.quantize_weight(w, mode=mode)  # contraction = 2nd-to-last
+        del w
+        out[k + "_q"] = qw.values
+        out[k + "_s"] = qw.scales
+    return out
 
 
-def _logits(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+def _serve_layer_keys(quant: str):
+    if not quant_lib.is_weight_only(quant):
+        return _LAYER_KEYS
+    return tuple(f"{k}_{suffix}" for k in _WEIGHT_KEYS for suffix in ("q", "s")) + _NORM_KEYS
+
+
+def _place(params: dict, device: torch.device, adt: torch.dtype) -> dict:
+    """The engine's copy of a tree on its device: quantized values in their
+    own dtype, scales in fp32, every other leaf in the activation dtype,
+    cast once here (the JAX engine casts on every use, to the same values)."""
+    return {
+        k: v.to(device=device, dtype=quant_lib.leaf_dtype(k, v, adt))
+        for k, v in params.items()
+    }
+
+
+def _proj(x: torch.Tensor, params: dict, key: str, layer: int, quant: str) -> torch.Tensor:
+    """x[..., K] @ params[key][layer] in the activation dtype: the fp weight
+    (stored in that dtype, so this is the JAX engine's cast-on-use dot), or
+    weight-only int8/fp8, scaled in fp32 and rounded once."""
+    if quant_lib.is_weight_only(quant):
+        return quant_lib.weight_only_matmul(
+            x, params[key + "_q"][layer], params[key + "_s"][layer]
+        ).to(x.dtype)
+    return x @ params[key][layer]
+
+
+def _logits(x: torch.Tensor, params: dict, quant: str) -> torch.Tensor:
     """fp32 logits, as the JAX engine's fp32-accumulating lm_head dot."""
-    return x.float() @ lm_head.float()
+    if quant_lib.is_weight_only(quant):
+        return quant_lib.weight_only_matmul(x, params["lm_head_q"], params["lm_head_s"])
+    return x.float() @ params["lm_head"].float()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +174,23 @@ class EngineConfig:
     # Paged attention: "auto" = CUDA kernels on a CUDA device, gather
     # references on the CPU; "plain"/"cuda" force one.
     decode_impl: str = "auto"
-    # Not yet ported; anything but the default raises.
+    # "int8" / "fp8" = weight-only quantization (quantize_serve_params):
+    # projection weights stored int8 or fp8-e4m3 + per-channel scales,
+    # dequantized on use.
     quant: str = "none"
     # Max prompt tokens prefilled per request per engine step (0 = whole
     # prompt in one batched prefill).
     prefill_chunk: int = 0
-    # Not yet ported; anything but the default raises.
+    # Cross-request prefix caching: full KV pages of prompt blocks are kept in
+    # a refcounted registry after prefill; later requests sharing the prefix
+    # skip recomputing it. Evicted LRU when the allocator runs dry.
     prefix_cache: bool = False
+    # Speculative decode: k draft tokens per slot from an n-gram proposer,
+    # verified in one batched chunk step (0 = one token per step).
     spec_tokens: int = 0
+    # Sliding window (spec steps) behind the windowed accept rate on /stats
+    # and X-Dstack-Spec-Accept-Rate.
+    spec_window: int = 64
 
 
 class TokenEvent(NamedTuple):
@@ -136,9 +212,11 @@ class GenRequest:
     preemptions: int = 0
     # Generated tokens already folded into `prompt` by earlier preemptions.
     absorbed: int = 0
-    # Prompt tokens whose KV is in pages for the CURRENT admission;
-    # < len(prompt) means the slot is mid-prefill and not yet decoding.
+    # Prompt tokens whose KV is in pages for the CURRENT admission (cache
+    # hits + chunks done); < len(prompt) means the slot is mid-prefill.
     pos: int = 0
+    # Prompt tokens served from the prefix cache at last admission.
+    cached_tokens: int = 0
     # Host-side lifecycle stamps (time.monotonic), set once each.
     trace_id: Optional[str] = None
     admitted_t: float = 0.0
@@ -146,6 +224,14 @@ class GenRequest:
     first_token_t: float = 0.0
     finished_t: float = 0.0
     token_times: List[float] = dataclasses.field(default_factory=list)
+    # Per-request speculative-decode accounting.
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # n-gram proposer state, built on the first draft: the emitted stream
+    # (prompt + generated, each token once) and its continuation index;
+    # _emit keeps both current.
+    spec_ctx: Optional[List[int]] = None
+    spec_index: Optional[dict] = None
 
 
 def _rope_single(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -178,12 +264,12 @@ def _scatter_kv(pool: torch.Tensor, index, kv: torch.Tensor) -> None:
     pool.index_put_((page, off), flat[rows].to(pool.dtype))
 
 
-def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float) -> torch.Tensor:
+def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float, quant: str) -> torch.Tensor:
     h2 = model_lib._rms_norm(x, params["mlp_norm"][layer], eps)
-    gate = _proj(h2, params["w_gate"][layer])
-    up = _proj(h2, params["w_up"][layer])
+    gate = _proj(h2, params, "w_gate", layer, quant)
+    up = _proj(h2, params, "w_up", layer, quant)
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + _proj(hidden, params["w_down"][layer])
+    return x + _proj(hidden, params, "w_down", layer, quant)
 
 
 # The step functions update the KV pools in place (the JAX engine donates
@@ -191,12 +277,14 @@ def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float) -> torch.Tensor:
 # tokens. Host inputs arrive as numpy arrays or CPU tensors.
 
 
-def make_prefill_fn(cfg: LlamaConfig):
+def make_prefill_fn(cfg: LlamaConfig, quant: str = "none"):
     """(params, tokens, k_pages, v_pages, write_page, write_off, lens) ->
     next_tokens [B]. tokens [B, T] right-padded prompts; write_page/write_off
     [B, T] map each position into the pool (pool-sized page = dropped
     write); lens [B] true prompt lengths. Blockwise causal attention over the
-    prompt itself; the greedy token after each prompt's last position."""
+    prompt itself; the greedy token after each prompt's last position. With
+    a weight-only ``quant`` the params are the ``quantize_serve_params``
+    layout."""
 
     def prefill(params, tokens, k_pages, v_pages, write_page, write_off, lens):
         dev = params["embed"].device
@@ -208,25 +296,25 @@ def make_prefill_fn(cfg: LlamaConfig):
         positions = torch.arange(t, device=dev)
         for layer in range(cfg.n_layers):
             h_in = model_lib._rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-            q = _proj(h_in, params["wq"][layer]).reshape(b, t, h, hd)
-            k = _proj(h_in, params["wk"][layer]).reshape(b, t, kh, hd)
-            v = _proj(h_in, params["wv"][layer]).reshape(b, t, kh, hd)
+            q = _proj(h_in, params, "wq", layer, quant).reshape(b, t, h, hd)
+            k = _proj(h_in, params, "wk", layer, quant).reshape(b, t, kh, hd)
+            v = _proj(h_in, params, "wv", layer, quant).reshape(b, t, kh, hd)
             q = model_lib._rope(q, positions, cfg.rope_theta)
             k = model_lib._rope(k, positions, cfg.rope_theta)
             _scatter_kv(k_pages[layer], index, k)
             _scatter_kv(v_pages[layer], index, v)
             o = blockwise_attention(q, k, v, causal=True)
-            x = x + _proj(o.to(x.dtype).reshape(b, t, h * hd), params["wo"][layer])
-            x = _mlp(x, params, layer, cfg.norm_eps)
+            x = x + _proj(o.to(x.dtype).reshape(b, t, h * hd), params, "wo", layer, quant)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
         last_idx = (torch.as_tensor(lens).to(dev).long() - 1).clamp(0, t - 1)
         last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
-        return _logits(last, params["lm_head"]).argmax(-1).int()
+        return _logits(last, params, quant).argmax(-1).int()
 
     return prefill
 
 
-def make_decode_fn(cfg: LlamaConfig, decode_impl: str = "plain"):
+def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain"):
     """(params, last_tokens, positions, k_pages, v_pages, page_tables,
     write_page, write_off) -> next_tokens [S]. One query per slot: the last
     emitted token's K/V is appended at `positions`, then it attends over the
@@ -248,31 +336,37 @@ def make_decode_fn(cfg: LlamaConfig, decode_impl: str = "plain"):
         x = params["embed"][last_tokens]  # [S, D]
         for layer in range(cfg.n_layers):
             h_in = model_lib._rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-            q = _proj(h_in, params["wq"][layer]).reshape(s, h, hd)
-            k = _proj(h_in, params["wk"][layer]).reshape(s, kh, hd)
-            v = _proj(h_in, params["wv"][layer]).reshape(s, kh, hd)
+            q = _proj(h_in, params, "wq", layer, quant).reshape(s, h, hd)
+            k = _proj(h_in, params, "wk", layer, quant).reshape(s, kh, hd)
+            v = _proj(h_in, params, "wv", layer, quant).reshape(s, kh, hd)
             q = _rope_single(q, positions, cfg.rope_theta)
             k = _rope_single(k, positions, cfg.rope_theta)
             _scatter_kv(k_pages[layer], index, k)
             _scatter_kv(v_pages[layer], index, v)
             o = attend(q, k_pages[layer], v_pages[layer], page_tables, kv_lens)
-            x = x + _proj(o.to(x.dtype).reshape(s, h * hd), params["wo"][layer])
-            x = _mlp(x, params, layer, cfg.norm_eps)
+            x = x + _proj(o.to(x.dtype).reshape(s, h * hd), params, "wo", layer, quant)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return _logits(x, params["lm_head"]).argmax(-1).int()
+        return _logits(x, params, quant).argmax(-1).int()
 
     return decode
 
 
-def make_chunk_fn(cfg: LlamaConfig, decode_impl: str = "plain"):
+def make_chunk_fn(
+    cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain", emit: str = "last"
+):
     """(params, tokens, starts, valid, k_pages, v_pages, page_tables,
-    write_page, write_off) -> next_tokens [S]: chunked prefill. tokens
-    [S, C], the first at absolute position starts[s]; valid [S] real tokens
-    per row. Each token's K/V is scattered into the slot's pages, then the C
-    queries attend causally over the paged prefix including the chunk
-    (decode is the C == 1 case). Returns the greedy token after each slot's
-    last valid position: the JAX engine's emit="last" (its emit="all" serves
-    speculative verify, not yet ported)."""
+    write_page, write_off) -> next tokens: the one step behind chunked
+    prefill, the prefix cache's suffix prefill and speculative verify.
+    tokens [S, C], the first at absolute position starts[s]; valid [S] real
+    tokens per row. Each token's K/V is scattered into the slot's pages,
+    then the C queries attend causally over the paged prefix including the
+    chunk (decode is the C == 1 case).
+
+    emit="last" returns [S] greedy tokens after each slot's last valid
+    position (prefill); emit="all" returns [S, C] greedy tokens at every
+    position (verify: position i's argmax is the model's next token after
+    tokens[:, :i+1], which the host compares against the drafts)."""
     cuda = decode_impl == "cuda"
 
     def chunk_step(params, tokens, starts, valid, k_pages, v_pages, page_tables,
@@ -290,9 +384,9 @@ def make_chunk_fn(cfg: LlamaConfig, decode_impl: str = "plain"):
         x = params["embed"][tokens]  # [S, C, D]
         for layer in range(cfg.n_layers):
             h_in = model_lib._rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-            q = _proj(h_in, params["wq"][layer]).reshape(s, c, h, hd)
-            k = _proj(h_in, params["wk"][layer]).reshape(s, c, kh, hd)
-            v = _proj(h_in, params["wv"][layer]).reshape(s, c, kh, hd)
+            q = _proj(h_in, params, "wq", layer, quant).reshape(s, c, h, hd)
+            k = _proj(h_in, params, "wk", layer, quant).reshape(s, c, kh, hd)
+            v = _proj(h_in, params, "wv", layer, quant).reshape(s, c, kh, hd)
             q = _rope_chunk(q, positions, cfg.rope_theta)
             k = _rope_chunk(k, positions, cfg.rope_theta)
             _scatter_kv(k_pages[layer], index, k)
@@ -303,14 +397,184 @@ def make_chunk_fn(cfg: LlamaConfig, decode_impl: str = "plain"):
                 )
             else:
                 o = paged_chunk_attention(q, k_pages[layer], v_pages[layer], page_tables, starts)
-            x = x + _proj(o.to(x.dtype).reshape(s, c, h * hd), params["wo"][layer])
-            x = _mlp(x, params, layer, cfg.norm_eps)
+            x = x + _proj(o.to(x.dtype).reshape(s, c, h * hd), params, "wo", layer, quant)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
-        last_idx = (valid.long() - 1).clamp(0, c - 1)
-        hidden = x[torch.arange(s, device=dev), last_idx]  # [S, D]
-        return _logits(hidden, params["lm_head"]).argmax(-1).int()
+        if emit == "last":
+            last_idx = (valid.long() - 1).clamp(0, c - 1)
+            x = x[torch.arange(s, device=dev), last_idx]  # [S, D]
+        return _logits(x, params, quant).argmax(-1).int()  # [S] or [S, C]
 
     return chunk_step
+
+
+def _ngram_record(context: List[int], i: int, index: dict, max_n: int = 3) -> None:
+    """Token context[i] just arrived: every n-gram ending at i-1 now has a
+    continuation starting at i; record it (latest occurrence wins). Grams
+    without a continuation are never recorded, so a lookup cannot match the
+    trailing gram against itself."""
+    for n in range(1, max_n + 1):
+        if n > i:
+            break
+        index[tuple(context[i - n:i])] = i
+
+
+def _ngram_index(context: List[int], max_n: int = 3) -> dict:
+    """Continuation index over a whole context (built at the first draft;
+    after that ``_ngram_record`` keeps it in O(max_n) per emitted token)."""
+    index: dict = {}
+    for i in range(1, len(context)):
+        _ngram_record(context, i, index, max_n)
+    return index
+
+
+def propose_from_index(context: List[int], index: dict, k: int, max_n: int = 3) -> List[int]:
+    """Self-drafting n-gram proposer (prompt-lookup decoding): the k tokens
+    that followed the most recent earlier occurrence of the context's
+    trailing n-gram (longest n first), looked up in O(max_n) in the
+    context's ``_ngram_index`` instead of a backward scan per slot per step.
+    A miss proposes the last token repeated: a draft is only a throughput
+    bet, and the verify step keeps the output token-identical to greedy
+    whatever is proposed."""
+    if k <= 0 or not context:
+        return []
+    for n in range(min(max_n, len(context) - 1), 0, -1):
+        pos = index.get(tuple(context[-n:]))
+        if pos is not None:
+            drafts = context[pos:pos + k]
+            return drafts + [context[-1]] * (k - len(drafts))
+    return [context[-1]] * k
+
+
+class _CacheBlock:
+    """One cached full page of KV: the block's hash-chain key, the page id it
+    seals, how many live requests reference it, and an LRU stamp."""
+
+    __slots__ = ("key", "page", "refs", "last_used")
+
+    def __init__(self, key, page: int, refs: int, last_used: int) -> None:
+        self.key = key
+        self.page = page
+        self.refs = refs
+        self.last_used = last_used
+
+
+class PrefixCache:
+    """Refcounted registry of sealed full-page prompt blocks, keyed by a hash
+    chain: block i's key is (parent_key, tuple(block_tokens)), an exact
+    match, and a prefix match is a walk down the chain.
+
+    Invariants:
+    - a cached page is never written again (registration happens only after
+      the owning prefill filled it with prompt tokens, and generation writes
+      past the prompt), so sharing needs no copy-on-write: divergence ends
+      the match and the request allocates private pages from there;
+    - a block with refs > 0 is never evicted (``evict`` frees only LRU blocks
+      with refs == 0 and no cached children; a child's users hold refs on
+      every ancestor, so a parent cannot be freed under a live child);
+    - match() caps at len(prompt) - 1 tokens, so prefill always has at least
+      one position left to compute the first output token from.
+    """
+
+    def __init__(self, page_size: int) -> None:
+        self.page_size = page_size
+        self.blocks: Dict[tuple, _CacheBlock] = {}
+        self._page_block: Dict[int, _CacheBlock] = {}
+        self._children: Dict[tuple, int] = {}  # key -> cached child count
+        self._clock = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self.blocks)
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, prompt: List[int]) -> Tuple[List[int], int]:
+        """Longest cached prefix of ``prompt`` in whole blocks: (page_ids,
+        matched_token_count). Takes a reference on every matched block; the
+        caller releases them at slot teardown, or at once if admission
+        fails."""
+        p = self.page_size
+        max_blocks = (len(prompt) - 1) // p
+        key: Optional[tuple] = None
+        matched: List[_CacheBlock] = []
+        for b in range(max_blocks):
+            key = (key, tuple(prompt[b * p:(b + 1) * p]))
+            blk = self.blocks.get(key)
+            if blk is None:
+                break
+            matched.append(blk)
+        stamp = self._tick()
+        for blk in matched:
+            blk.refs += 1
+            blk.last_used = stamp
+        return [blk.page for blk in matched], len(matched) * p
+
+    def register(self, prompt: List[int], slot_pages: List[int]) -> None:
+        """Seal the full prompt blocks of a finished prefill. slot_pages[i]
+        holds tokens [i*p, (i+1)*p). The owner keeps using each page, so a
+        new block starts at refs = 1; a key already cached is skipped (a
+        concurrent duplicate prefill keeps its copy private, freed at
+        release like any private page)."""
+        p = self.page_size
+        key: Optional[tuple] = None
+        stamp = self._tick()
+        for b in range(len(prompt) // p):
+            key = (key, tuple(prompt[b * p:(b + 1) * p]))
+            if key in self.blocks:
+                continue
+            page = slot_pages[b]
+            if page in self._page_block:
+                # This position is served by a cached page (a matched block).
+                continue
+            self.blocks[key] = _CacheBlock(key, page, refs=1, last_used=stamp)
+            self._page_block[page] = self.blocks[key]
+            if key[0] is not None:
+                self._children[key[0]] = self._children.get(key[0], 0) + 1
+
+    def release(self, pages: List[int]) -> List[int]:
+        """Drop one reference per cached page in ``pages``; returns the pages
+        that are not cached (private: the caller frees those). Cached pages
+        stay resident at refs == 0 until evicted."""
+        private: List[int] = []
+        stamp = self._tick()
+        for page in pages:
+            blk = self._page_block.get(page)
+            if blk is None:
+                private.append(page)
+            else:
+                blk.refs -= 1
+                blk.last_used = stamp
+        return private
+
+    def evictable_count(self) -> int:
+        return sum(1 for blk in self.blocks.values() if blk.refs == 0)
+
+    def evict(self, n: int) -> List[int]:
+        """Free up to n pages from refs == 0 blocks, LRU first, leaves before
+        parents (every refs == 0 subtree has a refs == 0 leaf, so leaf-first
+        eviction can always drain it)."""
+        freed: List[int] = []
+        while len(freed) < n:
+            candidates = [
+                blk for blk in self.blocks.values()
+                if blk.refs == 0 and self._children.get(blk.key, 0) == 0
+            ]
+            if not candidates:
+                break
+            victim = min(candidates, key=lambda blk: blk.last_used)
+            del self.blocks[victim.key]
+            del self._page_block[victim.page]
+            parent = victim.key[0]
+            if parent is not None:
+                self._children[parent] -= 1
+                if not self._children[parent]:
+                    del self._children[parent]
+            freed.append(victim.page)
+            self.evictions += 1
+        return freed
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -434,6 +698,10 @@ class ServeEngine:
     tables, slot occupancy — lives on the host; the device sees fixed-shape
     decode batches and bucketed prefill shapes. ``device`` defaults to the
     CUDA card and raises where there is none; tests pass ``device="cpu"``.
+    ``params`` is the ``init_params`` tree or, under a weight-only ``quant``,
+    may already be the ``quantize_serve_params`` layout; ``self.params`` is
+    the tree the step functions read (quantized under ``quant``: the fp tree
+    is not kept).
     """
 
     def __init__(
@@ -449,15 +717,9 @@ class ServeEngine:
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
         if mesh is not None:
-            raise _not_ported("a serve mesh")
+            raise _not_ported("a serve mesh", 6)
         if draft_params is not None:
-            raise _not_ported("the speculative-decode draft head")
-        if self.ecfg.quant != "none":
-            raise _not_ported(f"quant={self.ecfg.quant!r}")
-        if self.ecfg.prefix_cache:
-            raise _not_ported("the prefix cache")
-        if self.ecfg.spec_tokens:
-            raise _not_ported("speculative decode")
+            raise _not_ported("the speculative-decode draft head", 8)
         if self.ecfg.policy not in ("continuous", "static"):
             raise ValueError(f"unknown scheduling policy {self.ecfg.policy!r}")
         if self.ecfg.prefill_chunk < 0:
@@ -465,6 +727,18 @@ class ServeEngine:
                 f"prefill_chunk must be >= 0 (0 = whole-prompt prefill), got"
                 f" {self.ecfg.prefill_chunk}"
             )
+        if self.ecfg.spec_tokens < 0:
+            raise ValueError(
+                f"spec_tokens must be >= 0 (0 = one token per step), got"
+                f" {self.ecfg.spec_tokens}"
+            )
+        if self.ecfg.prefix_cache and self.ecfg.num_pages < 2:
+            raise ValueError(
+                "prefix_cache needs a page pool of at least 2 (one cacheable"
+                " block plus the active tail)"
+            )
+        quant = self.ecfg.quant
+        quant_lib.check_quant(quant)
         self.device = resolve_device(device)
         self.decode_impl = resolve_decode_impl(self.ecfg.decode_impl, self.device)
         if self.decode_impl == "cuda":
@@ -473,15 +747,25 @@ class ServeEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = model_lib.init_params(cfg, gen, self.device, dtype=adt)
-        # Weights live on the device in the activation dtype, cast once here
-        # (a no-op for a tree already stored so).
-        self.params = {k: v.to(device=self.device, dtype=adt) for k, v in params.items()}
+        # Weight-only int8/fp8: quantize once here, unless the tree is already
+        # in that layout (re-quantizing quantized values would be wrong).
+        if quant_lib.is_weight_only(quant) and "lm_head_q" not in params:
+            params = quantize_serve_params(params, mode=quant)
+        missing = [k for k in _serve_layer_keys(quant) if k not in params]
+        if missing:
+            raise ValueError(f"params lack {missing} for quant={quant!r}")
+        self.params = _place(params, self.device, adt)
 
-        self._prefill_fn = make_prefill_fn(cfg)
-        self._decode_fn = make_decode_fn(cfg, self.decode_impl)
-        self._tier2_prefill = self.ecfg.prefill_chunk > 0
+        self._prefill_fn = make_prefill_fn(cfg, quant)
+        self._decode_fn = make_decode_fn(cfg, quant, self.decode_impl)
+        # Tier-2 prefill (chunked and/or cache-hit suffix) replaces the
+        # whole-prompt prefill path.
+        self._tier2_prefill = self.ecfg.prefill_chunk > 0 or self.ecfg.prefix_cache
         if self._tier2_prefill:
-            self._chunk_fn = make_chunk_fn(cfg, self.decode_impl)
+            self._chunk_fn = make_chunk_fn(cfg, quant, self.decode_impl, "last")
+        if self.ecfg.spec_tokens > 0:
+            self._verify_fn = make_chunk_fn(cfg, quant, self.decode_impl, "all")
+        self._cache = PrefixCache(self.ecfg.page_size) if self.ecfg.prefix_cache else None
 
         page, pool = self.ecfg.page_size, self.ecfg.num_pages
         max_seq = self.ecfg.max_seq or cfg.max_seq_len
@@ -508,6 +792,15 @@ class ServeEngine:
         self.total_tokens = 0
         self.total_finished = 0
         self.total_preemptions = 0
+        self.total_prefix_lookup_tokens = 0  # prompt tokens through admission
+        self.total_prefix_hit_tokens = 0     # of those, served from the cache
+        self.total_spec_proposed = 0         # draft tokens sent to verify
+        self.total_spec_accepted = 0         # of those, accepted
+        # Per-slot-per-step (proposed, accepted) samples behind
+        # spec_accept_rate_windowed.
+        self._spec_recent: Deque[Tuple[int, int]] = collections.deque(
+            maxlen=max(self.ecfg.spec_window, 1)
+        )
 
     # -- submission (thread-safe) -----------------------------------------
 
@@ -562,13 +855,41 @@ class ServeEngine:
     def has_work(self) -> bool:
         return bool(self.pending) or self.active_count > 0
 
+    @property
+    def available_pages(self) -> int:
+        """Pages the allocator can produce right now: the free list plus
+        refs == 0 cache blocks it may evict."""
+        n = len(self._free)
+        if self._cache is not None:
+            n += self._cache.evictable_count()
+        return n
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the prefix cache."""
+        return self.total_prefix_hit_tokens / max(self.total_prefix_lookup_tokens, 1)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Fraction of proposed draft tokens the verify step accepted."""
+        return self.total_spec_accepted / max(self.total_spec_proposed, 1)
+
+    @property
+    def spec_accept_rate_windowed(self) -> float:
+        """Accept rate over the last spec_window spec steps: what the
+        proposer does now, where the lifetime rate dilutes a cold streak with
+        history. 0.0 before any spec step."""
+        proposed = sum(p for p, _ in self._spec_recent)
+        if proposed == 0:
+            return 0.0
+        return sum(a for _, a in self._spec_recent) / proposed
+
     def stats(self) -> Dict[str, float]:
-        # The JAX engine's keys; the unported features report their "off" values.
         return {
             "queue_depth": self.queue_depth,
             "active": self.active_count,
             "free_pages": self.free_pages,
-            "available_pages": self.free_pages,
+            "available_pages": self.available_pages,
             "total_pages": self.ecfg.num_pages,
             "max_batch": self.ecfg.max_batch,
             "steps": self.total_steps,
@@ -578,25 +899,26 @@ class ServeEngine:
             "policy": self.ecfg.policy,
             "decode_impl": self.decode_impl,
             "quant": self.ecfg.quant,
-            "mesh": "",
+            "mesh": "",  # meshless: serve meshes are ROADMAP item 6
             "prefill_chunk": self.ecfg.prefill_chunk,
-            "prefix_cache": 0,
-            "spec_tokens": 0,
-            "cached_pages": 0,
-            "prefix_evictions": 0,
-            "prefix_hit_rate": 0.0,
-            "spec_accept_rate": 0.0,
-            "spec_accept_rate_windowed": 0.0,
+            "prefix_cache": int(self.ecfg.prefix_cache),
+            "spec_tokens": self.ecfg.spec_tokens,
+            "cached_pages": len(self._cache) if self._cache else 0,
+            "prefix_evictions": self._cache.evictions if self._cache else 0,
+            "prefix_hit_rate": round(self.prefix_hit_rate, 4),
+            "spec_accept_rate": round(self.spec_accept_rate, 4),
+            "spec_accept_rate_windowed": round(self.spec_accept_rate_windowed, 4),
             "spec_proposer": "ngram",
-            "spec_fallbacks": 0,
+            "spec_fallbacks": 0,  # draft head -> n-gram switches (item 8)
         }
 
     # -- the step loop -----------------------------------------------------
 
     def step(self) -> List[TokenEvent]:
         """One engine iteration: admit -> prefill (whole-prompt, or one chunk
-        per mid-prefill slot) -> one decode step. Returns the tokens emitted
-        this step, in emission order."""
+        per mid-prefill slot) -> one decode step (one token, or draft +
+        verify with spec_tokens). Returns the tokens emitted this step, in
+        emission order."""
         events: List[TokenEvent] = []
         # Step-stage attribution (host wall time; each _run_* ends by copying
         # its tokens to the host, which waits for the device).
@@ -628,7 +950,10 @@ class ServeEngine:
             if r is not None and not self._prefilling(s)
         ]
         if decoding:
-            self._run_decode(decoding, events)
+            if self.ecfg.spec_tokens > 0:
+                self._run_spec_decode(decoding, events)
+            else:
+                self._run_decode(decoding, events)
             tracing.observe(
                 "dstack_tpu_serve_step_stage_seconds",
                 time.monotonic() - t_prefill, {**labels, "stage": "decode"},
@@ -644,15 +969,24 @@ class ServeEngine:
         return -(-tokens // self.ecfg.page_size)
 
     def _try_alloc(self, n: int) -> Optional[List[int]]:
-        """Pop n pages from the free list; None (nothing taken) when the pool
-        cannot produce n pages."""
+        """Pop n pages from the free list, evicting LRU refs == 0 cache
+        blocks to refill it if needed; None (nothing taken, nothing evicted)
+        when the pool cannot produce n pages. Eviction runs only when it can
+        satisfy the request: a failed allocation leaves its caller blocked
+        either way, and destroying cached prefixes for it would cost every
+        later sharer a re-prefill."""
+        if len(self._free) < n and self._cache is not None:
+            if len(self._free) + self._cache.evictable_count() >= n:
+                self._free.extend(self._cache.evict(n - len(self._free)))
         if len(self._free) < n:
             return None
         return [self._free.pop() for _ in range(n)]
 
     def _admit(self) -> List[Tuple[int, GenRequest]]:
         """Move queued requests into free slots (FIFO, head-of-line blocking
-        when pages are short). Static policy: only admit into an EMPTY batch."""
+        when pages are short). Static policy: only admit into an EMPTY batch.
+        With the prefix cache, the prompt's longest cached block-prefix
+        arrives as shared pages and only the suffix needs fresh ones."""
         if self.ecfg.policy == "static" and self.active_count:
             return []
         admitted: List[Tuple[int, GenRequest]] = []
@@ -662,19 +996,34 @@ class ServeEngine:
                 if not self.pending:
                     break
                 req = self.pending[0]
+                shared_pages: List[int] = []
+                matched = 0
+                if self._cache is not None:
+                    shared_pages, matched = self._cache.match(req.prompt)
                 # Reserve the prompt plus one decode page of headroom; growth
                 # beyond that allocates on demand (preempting if dry).
-                pages = self._try_alloc(self._pages_for(len(req.prompt) + 1))
-                if pages is None:
+                need = self._pages_for(len(req.prompt) + 1) - len(shared_pages)
+                new_pages = self._try_alloc(need)
+                if new_pages is None:
+                    if shared_pages:  # roll back the match's references
+                        self._free.extend(self._cache.release(shared_pages))
                     break
                 self.pending.popleft()
             slot = free_slots.pop(0)
+            pages = shared_pages + new_pages
             self.slot_pages[slot] = pages
             row = self.page_tables[slot]
             row[:] = 0
             row[: len(pages)] = pages
-            self.seq_lens[slot] = 0
-            req.pos = 0
+            self.seq_lens[slot] = matched
+            req.pos = matched
+            req.cached_tokens = matched
+            if req.preemptions == 0:
+                # A preemption resume re-matches its own sealed blocks:
+                # counting that as a hit would inflate the hit rate exactly
+                # when the pool is under pressure.
+                self.total_prefix_lookup_tokens += len(req.prompt)
+                self.total_prefix_hit_tokens += matched
             if req.admitted_t == 0.0:
                 # First admission only: a preemption re-admission is decode
                 # backpressure, not queue wait.
@@ -724,15 +1073,17 @@ class ServeEngine:
 
     def _run_chunk_prefill(self, events: List[TokenEvent]) -> None:
         """Advance every mid-prefill slot by one chunk of at most
-        prefill_chunk tokens. The final chunk's last-position argmax is the
-        request's first generated token."""
+        prefill_chunk tokens (without chunking, a cache-hit suffix in one
+        bucketed chunk). The final chunk's last-position argmax is the
+        request's first generated token; its full prompt blocks then enter
+        the prefix cache."""
         page = self.ecfg.page_size
         pool = self.ecfg.num_pages
         slots = [s for s in range(self.ecfg.max_batch) if self._prefilling(s)]
         if not slots:
             return
         remaining = {s: len(self.slots[s].prompt) - self.slots[s].pos for s in slots}
-        chunk = self.ecfg.prefill_chunk
+        chunk = self.ecfg.prefill_chunk or _bucket(max(remaining.values()), lo=8)
         s_pad = _bucket(len(slots), lo=1)
         tokens = np.zeros((s_pad, chunk), np.int32)
         starts = np.zeros(s_pad, np.int32)
@@ -765,6 +1116,8 @@ class ServeEngine:
             self.seq_lens[slot] = req.pos
             if req.pos < len(req.prompt):
                 continue  # more chunks to go; nothing emitted yet
+            if self._cache is not None:
+                self._cache.register(req.prompt, self.slot_pages[slot])
             self._emit(slot, req, int(next_tokens[i]), events)
 
     def _run_decode(self, decoding: List[int], events: List[TokenEvent]) -> None:
@@ -794,16 +1147,102 @@ class ServeEngine:
             self.seq_lens[slot] += 1  # the last token's KV just landed
             self._emit(slot, req, int(next_tokens[slot]), events)
 
-    def _ensure_decode_pages(self, decoding: List[int]) -> None:
-        """Every decoding slot about to write position seq_len needs that
-        position's page; a dry pool preempts the youngest request (fewest
-        generated tokens) back to the queue, so its pages fund the older
-        requests and it re-prefills later from prompt + generated."""
+    def _run_spec_decode(self, decoding: List[int], events: List[TokenEvent]) -> None:
+        """Draft + verify decode step: each slot's row is [last_token,
+        d1..dk] at positions seq_len..seq_len+k; one chunk step scores all of
+        them, and position i's argmax is the model's next token after the
+        row's first i+1 tokens. Greedy accept runs left to right: draft
+        d_{i+1} is accepted iff it equals argmax_i; the first mismatch emits
+        the correction instead. Every emitted token is what one-token greedy
+        decode would emit; speculation changes only how many land a step.
+        Rejected positions' K/V stays in the pages but is never read: seq_len
+        advances only past accepted tokens, and the next step rewrites those
+        positions before attending."""
+        page = self.ecfg.page_size
+        pool = self.ecfg.num_pages
+        mb = self.ecfg.max_batch
+        c = self.ecfg.spec_tokens + 1
+        # Clip each slot's row to the tokens it may still emit: emitted per
+        # step <= valid, and submit() holds prompt + max_new <= max_seq, so
+        # seq_len + valid never crosses the page-table width either.
+        valid = np.zeros(mb, np.int32)
+        for slot in decoding:
+            req = self.slots[slot]
+            valid[slot] = min(c, req.max_new_tokens - len(req.tokens))
+        self._ensure_decode_pages(decoding, extra=valid)
+        tokens = np.zeros((mb, c), np.int32)
+        starts = np.zeros(mb, np.int32)
+        write_page = np.full((mb, c), pool, np.int32)
+        write_off = np.zeros((mb, c), np.int32)
+        active = []
+        drafts: Dict[int, List[int]] = {}
+        for slot in decoding:
+            req = self.slots[slot]
+            if req is None:  # preempted by _ensure_decode_pages
+                continue
+            n = int(valid[slot])
+            row = [int(self.last_tokens[slot])]
+            if n > 1:
+                if req.spec_ctx is None:
+                    # prompt + tokens[absorbed:] is the emitted stream with
+                    # each token once (a preemption refold already moved
+                    # tokens[:absorbed] into the prompt).
+                    req.spec_ctx = list(req.prompt) + list(req.tokens[req.absorbed:])
+                    req.spec_index = _ngram_index(req.spec_ctx)
+                row += propose_from_index(req.spec_ctx, req.spec_index, n - 1)
+            drafts[slot] = row[1:]
+            tokens[slot, :n] = row
+            starts[slot] = self.seq_lens[slot]
+            pos = int(self.seq_lens[slot]) + np.arange(n)
+            pages = np.asarray(self.slot_pages[slot], np.int32)
+            write_page[slot, :n] = pages[pos // page]
+            write_off[slot, :n] = pos % page
+            active.append(slot)
+        if not active:
+            return
+
+        out_tokens = self._verify_fn(
+            self.params, tokens, starts, valid, self.k_pages, self.v_pages,
+            self.page_tables, write_page, write_off,
+        ).cpu().numpy()  # [mb, c]
+        for slot in active:
+            req = self.slots[slot]
+            n = int(valid[slot])
+            row_drafts = drafts[slot]
+            accepted = 0
+            while accepted < n - 1 and row_drafts[accepted] == int(out_tokens[slot, accepted]):
+                accepted += 1
+            emitted = row_drafts[:accepted] + [int(out_tokens[slot, accepted])]
+            self.total_spec_proposed += n - 1
+            self.total_spec_accepted += accepted
+            req.spec_proposed += n - 1
+            req.spec_accepted += accepted
+            self._spec_recent.append((n - 1, accepted))
+            # The accepted row positions' K/V (0..accepted) just landed; the
+            # emitted tail token is not yet written.
+            self.seq_lens[slot] += accepted + 1
+            for token in emitted:
+                self._emit(slot, req, token, events)
+                if req.done:
+                    break
+
+    def _ensure_decode_pages(
+        self, decoding: List[int], extra: Optional[np.ndarray] = None
+    ) -> None:
+        """Every decoding slot about to write position seq_len (through
+        seq_len + extra - 1 under speculation) needs those positions' pages;
+        a dry pool (free list and evictable cache blocks) preempts the
+        youngest request (fewest generated tokens) back to the queue, so its
+        pages fund the older requests and it re-prefills later from prompt +
+        generated."""
         page = self.ecfg.page_size
         for slot in decoding:
             if self.slots[slot] is None:
                 continue
-            need_idx = int(self.seq_lens[slot]) // page
+            last_pos = int(self.seq_lens[slot])
+            if extra is not None:
+                last_pos += max(int(extra[slot]) - 1, 0)
+            need_idx = last_pos // page
             while need_idx >= len(self.slot_pages[slot]):
                 got = self._try_alloc(1)
                 if got is None:
@@ -863,6 +1302,9 @@ class ServeEngine:
             tracing.observe(
                 "dstack_tpu_serve_itl_seconds", now - req.token_times[-2], labels
             )
+        if req.spec_ctx is not None:
+            req.spec_ctx.append(token)
+            _ngram_record(req.spec_ctx, len(req.spec_ctx) - 1, req.spec_index)
         self.total_tokens += 1
         done = (
             len(req.tokens) >= req.max_new_tokens
@@ -886,8 +1328,8 @@ class ServeEngine:
 
     def _request_trace(self, req: GenRequest) -> dict:
         """The flight-recorder record for a completed request (the JAX
-        engine's keys; the prefix cache and speculative decode are not
-        ported, so their counts are 0)."""
+        engine's keys): stage spans as durations, per-token gaps and the
+        request's cache and speculation counts."""
         ttft = req.first_token_t - req.submitted_t
         return {
             "req_id": req.req_id,
@@ -902,11 +1344,11 @@ class ServeEngine:
             "decode_s": round(req.finished_t - req.first_token_t, 6),
             "total_s": round(req.finished_t - req.submitted_t, 6),
             "prompt_tokens": len(req.prompt) - req.absorbed,
-            "cached_tokens": 0,
+            "cached_tokens": req.cached_tokens,
             "tokens": len(req.tokens),
             "preemptions": req.preemptions,
-            "spec_proposed": 0,
-            "spec_accepted": 0,
+            "spec_proposed": req.spec_proposed,
+            "spec_accepted": req.spec_accepted,
             "itl_ms": [
                 round((b - a) * 1000, 3)
                 for a, b in zip(req.token_times, req.token_times[1:])
@@ -914,7 +1356,12 @@ class ServeEngine:
         }
 
     def _release_slot(self, slot: int) -> None:
-        self._free.extend(self.slot_pages[slot])
+        if self._cache is not None:
+            # Cached pages stay resident at refs == 0 (LRU-evictable); only
+            # private pages return to the free list.
+            self._free.extend(self._cache.release(self.slot_pages[slot]))
+        else:
+            self._free.extend(self.slot_pages[slot])
         self.slot_pages[slot] = []
         self.page_tables[slot, :] = 0
         self.seq_lens[slot] = 0
@@ -980,6 +1427,18 @@ class EngineRunner(threading.Thread):
         self._subs: Dict[str, Callable[[TokenEvent], None]] = {}
         self._subs_lock = threading.Lock()
         self._sub_counter = 0
+        # Workload telemetry (a no-op unless the runner agent exported
+        # DSTACK_TPU_TELEMETRY_PATH): one `engine` point a second while
+        # stepping, so queue depth, hit rates and TTFT/ITL reach the control
+        # plane even when no request reads the proxy headers.
+        self._telemetry = telemetry_lib.get_emitter()
+        self._telemetry_interval = 1.0
+        self._last_telemetry = 0.0
+        if self._telemetry.enabled:
+            self._telemetry.mark(
+                "run_start", workload="serve",
+                max_batch=engine.ecfg.max_batch, policy=engine.ecfg.policy,
+            )
         # contextvars don't cross thread boundaries: capture the constructing
         # context (trace id included) for the step loop.
         self._step_loop_in_ctx = tracing.wrap_with_context(self._step_loop)
@@ -1016,6 +1475,25 @@ class EngineRunner(threading.Thread):
         except Exception:
             logger.exception("engine step failed")
             return
+        if self._telemetry.enabled:
+            now = time.monotonic()
+            if now - self._last_telemetry >= self._telemetry_interval:
+                self._last_telemetry = now
+                s = self.engine.stats()
+                self._telemetry.emit(
+                    "engine",
+                    queue_depth=s["queue_depth"],
+                    active=s["active"],
+                    free_pages=s["free_pages"],
+                    generated_tokens=s["generated_tokens"],
+                    finished_requests=s["finished_requests"],
+                    preemptions=s["preemptions"],
+                    prefix_hit_rate=s["prefix_hit_rate"],
+                    spec_accept_rate=s["spec_accept_rate"],
+                    # TTFT/ITL quantiles over the flight-recorder window:
+                    # `dstack-tpu top`'s latency columns.
+                    **self.engine.flight.latency_summary(),
+                )
         for ev in events:
             with self._subs_lock:
                 callback = self._subs.get(ev.req_id)
@@ -1046,8 +1524,9 @@ class EngineRunner(threading.Thread):
 def create_serve_app(runner: EngineRunner):
     """aiohttp app: POST /generate (SSE token stream or buffered JSON),
     GET /stats, /health, /debug/traces and /metrics. Every response carries
-    X-Dstack-Queue-Depth so the proxy records engine backlog without an
-    extra hop."""
+    X-Dstack-Queue-Depth, and with the prefix cache or speculative decode on
+    X-Dstack-Prefix-Hit-Rate / X-Dstack-Spec-Accept-Rate (windowed), so the
+    proxy records engine gauges without an extra hop."""
     import asyncio
 
     from aiohttp import web
@@ -1055,7 +1534,13 @@ def create_serve_app(runner: EngineRunner):
     engine = runner.engine
 
     def qd_headers() -> dict:
-        return {"X-Dstack-Queue-Depth": str(engine.queue_depth)}
+        headers = {"X-Dstack-Queue-Depth": str(engine.queue_depth)}
+        if engine.ecfg.prefix_cache:
+            headers["X-Dstack-Prefix-Hit-Rate"] = f"{engine.prefix_hit_rate:.4f}"
+        if engine.ecfg.spec_tokens > 0:
+            # Windowed, not lifetime: the proxy gauge is a health signal.
+            headers["X-Dstack-Spec-Accept-Rate"] = f"{engine.spec_accept_rate_windowed:.4f}"
+        return headers
 
     async def generate(request: web.Request) -> web.StreamResponse:
         try:
@@ -1177,10 +1662,12 @@ def create_serve_app(runner: EngineRunner):
     return app
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
     """``python -m dstack_tpu_torch.workloads.serve``: the runnable serving
-    entrypoint. Binds DSTACK_SERVICE_PORT (the control plane's contract)
-    unless --port says otherwise. Serves synthetic weights from a seed."""
+    entrypoint, with the JAX CLI's flags. Binds DSTACK_SERVICE_PORT (the
+    control plane's contract) unless --port says otherwise. Serves synthetic
+    weights from a seed; --checkpoint-dir, --spec-model and a --mesh raise
+    until ROADMAP items 4, 8 and 6 port them."""
     import argparse
 
     from aiohttp import web
@@ -1203,13 +1690,62 @@ def main() -> None:
                         choices=list(DECODE_IMPLS),
                         help="paged attention: auto = CUDA kernels on a CUDA"
                              " device, gather references on the CPU")
+    parser.add_argument("--quant", default="none", choices=list(quant_lib.QUANT_MODES),
+                        help="int8/fp8 = weight-only quantization (projection"
+                             " weights stored int8 or fp8-e4m3 + per-channel"
+                             " scales, dequantized on use)")
     parser.add_argument("--prefill-chunk", type=int, default=0, dest="prefill_chunk",
                         help="max prompt tokens prefilled per engine step"
                              " (0 = whole prompt at once)")
+    parser.add_argument("--prefix-cache", action="store_true", dest="prefix_cache",
+                        help="reuse KV pages across requests sharing a prompt"
+                             " prefix (refcounted, LRU-evicted full blocks)")
+    parser.add_argument("--spec-tokens", type=int, default=0, dest="spec_tokens",
+                        help="speculative decode: n-gram draft tokens verified"
+                             " per step (0 = off); output stays token-identical"
+                             " to greedy")
+    parser.add_argument("--spec-model", default="", dest="spec_model",
+                        help="checkpoint dir of a distilled draft head (not yet"
+                             " ported: ROADMAP item 8)")
+    # The draft head's and checkpoint restore's options: parsed so the JAX
+    # command lines are accepted, and refused when given (not yet ported).
+    parser.add_argument("--spec-model-step", type=int, default=None, dest="spec_model_step",
+                        help="draft-head checkpoint step (not yet ported:"
+                             " ROADMAP item 8)")
+    parser.add_argument("--spec-fallback-window", type=int, default=None,
+                        dest="spec_fallback_window",
+                        help="the draft head's accept-rate fallback window"
+                             " (not yet ported: ROADMAP item 8)")
+    parser.add_argument("--spec-fallback-threshold", type=float, default=None,
+                        dest="spec_fallback_threshold",
+                        help="the draft head's accept-rate fallback threshold"
+                             " (not yet ported: ROADMAP item 8)")
+    parser.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir",
+                        help="restore weights from a train checkpoint (not yet"
+                             " ported: ROADMAP item 4)")
+    parser.add_argument("--checkpoint-step", type=int, default=None, dest="checkpoint_step",
+                        help="checkpoint step to restore (not yet ported:"
+                             " ROADMAP item 4)")
+    parser.add_argument("--mesh", default="",
+                        help="serve mesh spec, tpN or ddMxtpN (not yet ported:"
+                             " ROADMAP item 6); default meshless")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without one) or cpu")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
+    if args.mesh and args.mesh != "none":
+        raise _not_ported(f"--mesh {args.mesh} (a serve mesh)", 6)
+    for flag, value, what, item in (
+        ("--checkpoint-dir", args.checkpoint_dir, "checkpoint restore", 4),
+        ("--checkpoint-step", args.checkpoint_step, "checkpoint restore", 4),
+        ("--spec-model", args.spec_model, "the speculative-decode draft head", 8),
+        ("--spec-model-step", args.spec_model_step, "the speculative-decode draft head", 8),
+        ("--spec-fallback-window", args.spec_fallback_window, "the draft head's fallback", 8),
+        ("--spec-fallback-threshold", args.spec_fallback_threshold,
+         "the draft head's fallback", 8),
+    ):
+        if value not in (None, ""):
+            raise _not_ported(f"{flag} ({what})", item)
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_reference_matmul_precision()
@@ -1223,7 +1759,10 @@ def main() -> None:
             max_new_default=args.max_new,
             policy=args.policy,
             decode_impl=args.decode_impl,
+            quant=args.quant,
             prefill_chunk=args.prefill_chunk,
+            prefix_cache=args.prefix_cache,
+            spec_tokens=args.spec_tokens,
         ),
         device=device,
     )
@@ -1233,7 +1772,10 @@ def main() -> None:
         f"serving config={args.config} on :{args.port} "
         f"(pages={args.pages}x{args.page_size}, slots={args.max_batch}, "
         f"policy={args.policy}, decode={engine.decode_impl}, "
-        f"prefill_chunk={args.prefill_chunk}, device={device}, weights=synthetic)",
+        f"quant={args.quant}, prefill_chunk={args.prefill_chunk}, "
+        f"prefix_cache={args.prefix_cache}, spec_tokens={args.spec_tokens}, "
+        f"spec_proposer=ngram, mesh=none, "
+        f"device={device}, weights=synthetic)",
         flush=True,
     )
     try:

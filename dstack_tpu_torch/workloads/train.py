@@ -430,7 +430,7 @@ def _unported(args) -> Optional[str]:
          "--checkpoint-every/--checkpoint-dir/--resume", 4),
         (args.tp > 1 or args.tp_overlap or args.fsdp_overlap or args.multislice or args.ep,
          "--tp/--tp-overlap/--fsdp-overlap/--multislice/--ep (meshes)", 6),
-        (args.quant in ("int8", "fp8"), f"--quant {args.quant}", 3),
+        (args.quant in ("int8", "fp8"), f"--quant {args.quant}", "3b"),
         (args.autotune, "--autotune", 10),
     )
     for hit, what, item in checks:
