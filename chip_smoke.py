@@ -17,11 +17,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              one position late) and decode faults (the last split dropped,
              the last position dropped), which those limits must fail; the
              chunk and decode kernels at other page sizes (12, 32, 64), head
-             dims (32, 64, 96) and GQA ratios (1, 2, 8); the chunk kernel at
-             speculative verify's shape (16 slots from the burst's lengths,
-             C = 5 rows with 1..5 valid, and C = 3 and 1), on the rows verify
-             reads, with its times at C = 5 beside the plain version's,
-             SDPA's and the bound. Decode runs the split-KV kernel (CUDA
+             dims (32, 64, 96) and GQA ratios (1, 2, 8), and at llama3_1b's
+             D 128 / n_rep 2; the chunk kernel at speculative verify's shape
+             (16 slots from the burst's lengths, C = 5 rows with 1..5 valid,
+             and C = 3 and 1) at llama3_8b and llama3_1b heads, on the rows
+             verify reads, with its times at C = 5 (llama3_8b) beside the
+             plain version's, SDPA's and the bound. Decode runs the split-KV kernel (CUDA
              cores) at every type and D; the bf16 chunk kernel at D 32/64/128 runs on
              tensor cores (mma.sync, P split into bf16 terms), fp32 and other
              head dims on CUDA cores. The log names each instantiation;
@@ -65,6 +66,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              plain engine with them and without them: two waves sharing a
              prefix, a pool that forces preemption, a model that repeats
              tokens (so that verify accepts drafts), and int8 on both sides;
+             then the draft-head engine (a seeded random head, spec_tokens=4,
+             on the kernels) against greedy decoding, in two waves with the
+             prefix cache and chunked prefill, and under preemption;
 6. http    - create_serve_app on 127.0.0.1: POST /generate streamed and
              buffered, GET /stats; an app on the example's engine flags sends
              X-Dstack-Prefix-Hit-Rate and X-Dstack-Spec-Accept-Rate, and
@@ -84,8 +88,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 9. splash  - the splash forward, dq and dk/dv kernels against their plain
              versions at llama3_1b heads, T 8192 bf16, windows 4096, 0 and
              1024 and 4096 with four packed documents, plus fp32 (T 1024),
-             a ragged T = 72, causal=False with documents and D 96 (the
-             CUDA-core kernels at bf16) with documents, all at atol
+             a ragged T = 72, causal=False with documents, D 96 (the
+             CUDA-core kernels at bf16) with documents, and the handoff
+             distillation's B 2, T 2048, window 4096, all at atol
              2e-5; at window 4096 dq, dk/dv and their plain versions against
              fp64 sums per head (fp32 and bf16-valued do), at the same
              limit; the readings of planted band faults (the first or last
@@ -109,7 +114,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 11. splash identity - fp32, llama3_1b width with 2 layers, seq 1024,
              window 256: 3 steps on the splash kernels against 3 on
              splash_reference, with the fp32 and the bf16 first moment; the
-             splash route launches the forward kernel at T = 1000 and 63.
+             splash route launches the forward kernel at T = 1000 and 63;
+12. handoff - the trainer-to-server handoff on llama3_1b at full width and
+             depth. Training's quantized products at its wq, w_gate and
+             w_down shapes on 16384 rows: fp8_matmul (torch._scaled_mm,
+             fp32 output and accumulation) within FP8_LIMIT of fp64 sums of
+             the same e4m3 operands, two planted faults (a bf16 rounding
+             before the scales, one row's scale dropped) beyond it; exact
+             int8 sums (torch._int_mm), equal to the CPU's on 128 rows; the
+             straight-through gradients against the fp32 ones; the fp8,
+             int8 and bf16 products' times. Then, each in a child process,
+             train.main with the training example's flags and --quant fp8
+             --checkpoint-every 2 --checkpoint-dir D --resume --steps 4:
+             crashed at step 3 (DSTACK_TPU_TRAIN_CRASH_AT_STEP), resumed at
+             step 2, and its losses at steps 3 and 4 bit-equal to the same
+             run without checkpoints (and the crashed run's 1-3), exact
+             splash launches, the checkpoint and restart marks; train.main
+             --draft-head distilling against the step-4 target (saved at
+             step 12, the loss falls, one splash forward a layer and step);
+             the served .params, read back from step 12, carry the per-leaf
+             fp64 sums and sums of squares of the resumed run's parameters
+             in memory after its last step; then
+             serve.main with the serving example's flags (--quant fp8
+             --prefix-cache --prefill-chunk 512 --spec-tokens 4) and
+             --checkpoint-dir D --spec-model D on phase 4's two-wave traffic,
+             the chunk kernel launched exactly layers x (chunk-prefill +
+             verify steps) times and the decode kernel never, beside the
+             head without its fallback and the n-gram proposer.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -119,6 +150,7 @@ without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import logging
 import subprocess
@@ -148,6 +180,8 @@ VALID = [0, 1, 15, 13, 17, 488, 495, 512, 0, 1, 10, 16, 5, 300, 512, 100]
 # SPEC_TOKENS + 1 rows a slot, of which 1..5 are valid (a request's budget
 # clips its last rows).
 SPEC_TOKENS = 4
+# Readings one phase hands to a later one.
+MEASURED = {}
 VERIFY_VALID = [1, 2, 3, 4, 5] * 3 + [5]
 
 
@@ -223,6 +257,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def fresh_peak() -> None:
+    """Start a peak-memory reading from the live tensors alone: the engines
+    of earlier phases sit in reference cycles, and until the collector
+    frees them their weights and pools count toward the next peak."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call: the summed time of the kernels it launches,
     from torch.profiler over ``iters`` calls after a warm-up. For calls
@@ -251,10 +297,10 @@ def device_ms(fn, iters: int = 20) -> float:
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS):
+def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS, h: int = H):
     """Pages from a shuffled pool (non-contiguous page ids), tables zero past
     each slot's pages (slot s holds lens[s] positions), and the chunk
-    geometry's starts."""
+    geometry's starts; q of ``h`` heads."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -272,8 +318,8 @@ def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS):
     starts = torch.tensor(
         [n - v for n, v in zip(KV_LENS, VALID)], dtype=torch.int32, device="cuda"
     )
-    q1 = torch.randn((SLOTS, H, D), generator=gen, device="cuda").to(dtype)
-    qc = torch.randn((SLOTS, CHUNK, H, D), generator=gen, device="cuda").to(dtype)
+    q1 = torch.randn((SLOTS, h, D), generator=gen, device="cuda").to(dtype)
+    qc = torch.randn((SLOTS, CHUNK, h, D), generator=gen, device="cuda").to(dtype)
     return dict(
         q1=q1, qc=qc, k_pages=k_pages, v_pages=v_pages,
         table=torch.from_numpy(table).cuda(), kv_lens=kv_lens, starts=starts,
@@ -442,22 +488,25 @@ def decode_burst_timing(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def paged_shapes() -> None:
+def paged_shapes() -> dict:
     """The chunk and decode kernels off the serving example's geometry,
     against their plain versions (bf16, atol 1e-4 / rtol 1e-3): pages of 12
     rows (a tile gathers across page boundaries, and the decode kernel's
     float page quotient is not exact), 32 and 64 rows, D 64, 32 and 96 (the
     decode kernel's scalar loads), n_rep 1, 2 and 8 (decode warps without a
-    head); three slots (kv_len 0; 90; 300, across the decode split edge at
-    256), the chunk's 100 rows from position 0, 0 and 250, in a shuffled
-    pool."""
+    head), and page 16 at D 128 with n_rep 2 (llama3_1b's heads, which the
+    handoff serves); three slots (kv_len 0; 90; 300, across the decode split
+    edge at 256), the chunk's 100 rows from position 0, 0 and 250, in a
+    shuffled pool. Returns each kernel's largest error over these shapes."""
     import torch
 
     from dstack_tpu_torch.workloads.kernels import paged
 
     lens = torch.tensor([0, 90, 300], dtype=torch.int32, device="cuda")
     starts = torch.tensor([0, 0, 250], dtype=torch.int32, device="cuda")
-    for page, d, n_rep in ((12, 128, 4), (16, 64, 1), (32, 32, 2), (64, 128, 8), (16, 96, 4)):
+    worst = {}
+    for page, d, n_rep in ((12, 128, 4), (16, 64, 1), (32, 32, 2), (64, 128, 8), (16, 96, 4),
+                           (16, 128, 2)):
         gen = torch.Generator(device="cuda").manual_seed(page)
         n_pages = -(-300 // page)
         pool = 3 * n_pages + 2
@@ -479,8 +528,11 @@ def paged_shapes() -> None:
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
             if bool(got[0].abs().max() != 0):
                 raise AssertionError(f"{name} page {page}: kv_len 0 rows are not zero")
+            err = float((got - ref).abs().max())
+            worst[name] = max(worst.get(name, 0.0), err)
             log(f"kernel {name} bf16 page {page} D={d} n_rep {n_rep}: max_abs_err"
-                f" {float((got - ref).abs().max()):.3e} (atol 1e-4, rtol 1e-3) ok")
+                f" {err:.3e} (atol 1e-4, rtol 1e-3) ok")
+    return worst
 
 
 def verify_bound(starts, lens, c: int, item: int):
@@ -498,26 +550,28 @@ def verify_bound(starts, lens, c: int, item: int):
     return float(max(t_bytes, t_ops) * 1e3), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def verify_shapes(card: str) -> dict:
+def verify_shapes(card: str, h: int = H) -> dict:
     """The chunk kernel at speculative verify's shape: 16 slots whose chunks
     start at the serving burst's lengths, C = SPEC_TOKENS + 1 = 5 rows with
     1..5 valid (kv_lens = starts + valid), and at C = 3 and 1; at llama3_8b
     heads (n_rep 4) these are 20, 12 and 4 rows of the tensor-core kernel's
-    64-row fold. Against the plain version on the rows i < valid that verify
-    reads (ROADMAP C), bf16 at atol 1e-4 / rtol 1e-3 and fp32 at 1e-5; each
-    launch's instantiation logged. At C = 5 bf16: times (CUDA events and
-    device time) beside the plain version's, SDPA's on the gathered K/V and
-    the bound."""
+    64-row fold, at llama3_1b heads (h 16, n_rep 2) 10, 6 and 2. Against the
+    plain version on the rows i < valid that verify reads (ROADMAP C), bf16
+    at atol 1e-4 / rtol 1e-3 and fp32 at 1e-5; each launch's instantiation
+    logged. At llama3_8b heads, C = 5 bf16: times (CUDA events and device
+    time) beside the plain version's, SDPA's on the gathered K/V and the
+    bound. Returns those, or at other heads the largest error of the bf16
+    and fp32 cases."""
     import torch
 
     from dstack_tpu_torch.workloads.kernels import paged
 
-    out = {}
+    out = {} if h == H else {f"verify_h{h}_max_abs_err": 0.0}
     for c in (SPEC_TOKENS + 1, 3, 1):
         valid = [min(c, v) for v in VERIFY_VALID]
         lens = [n + v for n, v in zip(BURST_LENGTHS, valid)]
         for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 1e-3)):
-            x = kernel_inputs(dtype, seed=10 + c, lens=lens)
+            x = kernel_inputs(dtype, seed=10 + c, lens=lens, h=h)
             q = x["qc"][:, :c].contiguous()
             starts = torch.tensor(BURST_LENGTHS, dtype=torch.int32, device="cuda")
             args = (q, x["k_pages"], x["v_pages"], x["table"], starts, x["kv_lens"])
@@ -531,10 +585,13 @@ def verify_shapes(card: str) -> dict:
             err = float((got[rows] - ref[rows]).abs().max())
             desc = paged.instantiation("paged_chunk_attention", dtype, D)
             log(f"kernel paged_chunk_attention {str(dtype)[6:]} verify C={c} (16 slots from the"
-                f" burst's lengths, valid {min(valid)}..{max(valid)}, {c * H // KH} folded rows):"
-                f" max_abs_err {err:.3e} on rows i < valid (atol {atol:g}, rtol {rtol:g}) ok;"
-                f" runs {desc}")
-            if dtype == torch.bfloat16 and c == SPEC_TOKENS + 1:
+                f" burst's lengths, valid {min(valid)}..{max(valid)}, h {h}, {c * h // KH} folded"
+                f" rows): max_abs_err {err:.3e} on rows i < valid (atol {atol:g}, rtol {rtol:g})"
+                f" ok; runs {desc}")
+            if h != H:
+                key = f"verify_h{h}_max_abs_err"
+                out[key] = max(out[key], err)
+            elif dtype == torch.bfloat16 and c == SPEC_TOKENS + 1:
                 k_dense, v_dense = dense_kv(x, lens)
                 pos = torch.arange(k_dense.shape[2], device="cuda")
                 limit = torch.minimum(x["kv_lens"].long()[:, None],
@@ -646,9 +703,12 @@ def phase_kernels(card: str) -> dict:
             del k_dense, v_dense
         del x
         torch.cuda.empty_cache()
-    paged_shapes()
+    for name, err in paged_shapes().items():
+        report[name]["shapes_max_abs_err"] = err
     decode_burst_timing(card)
     report["paged_chunk_attention"].update(verify_shapes(card))
+    # llama3_1b's heads, which the handoff phase serves and verifies.
+    report["paged_chunk_attention"].update(verify_shapes(card, h=16))
     return report
 
 
@@ -987,6 +1047,9 @@ def flash_timing(label, b, h, kh, d, t, q3, k3, v3, do3) -> dict:
 # compared and timed; the first (the training example's) is the kernels line's.
 SPLASH_GEOMETRY = (2, 16, 8, 128, 8192)
 SPLASH_WINDOWS = (4096, 0, 1024)
+# The handoff's distillation runs the target's forward at B 2, T 2048 under
+# window 4096 (wider than T, so causal).
+DISTILL_SHAPE_LABEL = "T=2048, window wider than T (the distillation's target)"
 # Four packed documents of uneven length in each 8192-token row.
 SPLASH_DOCS = (3000, 1500, 2692, 1000)
 # Tolerance of every splash comparison, as flash's: the kernels keep every
@@ -1294,7 +1357,8 @@ def phase_splash() -> dict:
             raise AssertionError(f"{name} at window=1024 takes {w1024 / w0:.3f}x its window=0 time")
     del x, docs
     torch.cuda.empty_cache()
-    # fp32 and D 96 run the CUDA-core kernels.
+    # fp32 and D 96 run the CUDA-core kernels; the last case is the shape
+    # the handoff's distillation gives the forward kernel.
     for label, t_len, d_head, dtype, causal, window, lengths in (
         ("T=1024", 1024, d, torch.float32, True, 256, None),
         ("ragged T=72", 72, d, torch.bfloat16, True, 40, None),
@@ -1302,10 +1366,14 @@ def phase_splash() -> dict:
         ("T=1024, docs (300, 700, 24)", 1024, d, torch.bfloat16, False, 0, (300, 700, 24)),
         ("D=96, T=1024, docs (300, 700, 24)", 1024, 96, torch.bfloat16, True, 256,
          (300, 700, 24)),
+        (DISTILL_SHAPE_LABEL, 2048, d, torch.bfloat16, True, 4096, None),
     ):
         x = flash_inputs(b, h, kh, d_head, t_len, dtype, 31)
         docs = doc_plane(lengths, b) if lengths else None
-        keep(splash_compare(f"llama3_1b heads, {label}", *x, docs, causal, window))
+        errs = splash_compare(f"llama3_1b heads, {label}", *x, docs, causal, window)
+        keep(errs)
+        if label == DISTILL_SHAPE_LABEL:
+            report["splash_fwd"]["distill_max_abs_err"] = errs["splash_fwd"]
     for name, entry in report.items():
         entry.update(timing[SPLASH_WINDOWS[0]][name])
     return report
@@ -1764,7 +1832,53 @@ def phase_identity():
     log("identity: fp32 kernel engine == plain engine (whole-prompt and chunk 256)"
         " == chunked == greedy reference on 2 prompts; 4 prompts x 24 tokens")
     identity_example_flags(cfg, params)
+    identity_draft_head(cfg, params)
     return cfg, params
+
+
+def identity_draft_head(cfg, params) -> None:
+    """fp32: the draft-head engine (a seeded random head proposing
+    spec_tokens=4 on the kernels, its fallback off) against greedy decoding
+    (the plain engine, one token a step): with the prefix cache and chunked
+    prefill in two waves sharing a prefix, and in a pool that forces
+    preemption (each re-prefill must refresh the head's hidden state)."""
+    import torch
+
+    from dstack_tpu_torch.workloads import model, serve
+
+    draft = model.init_draft_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                                    torch.device("cuda"))
+    rng = np.random.RandomState(3)
+    prefix = rng.randint(0, cfg.vocab_size, 320).tolist()
+    shared = [prefix + rng.randint(0, cfg.vocab_size, n).tolist() for n in (17, 90, 41, 150)]
+    tight = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (200, 190, 180, 170)]
+    max_new = 24
+    for label, prompts, waves, pool, feats in (
+            ("two waves", shared, 2, 512, dict(prefix_cache=True, prefill_chunk=256)),
+            ("preemption", tight, 1, 40, {})):
+        streams, stats = {}, None
+        for name, impl, extra, head in (
+                ("draft head", "cuda", dict(feats, spec_tokens=SPEC_TOKENS,
+                                            spec_fallback_threshold=0.0), draft),
+                ("greedy", "plain", {}, None)):
+            engine = serve.ServeEngine(
+                cfg,
+                serve.EngineConfig(max_batch=4, page_size=16, max_seq=2048, num_pages=pool,
+                                   decode_impl=impl, **extra),
+                params=params, draft_params=head,
+            )
+            streams[name] = run_engine(engine, prompts, max_new, waves)
+            stats = stats or engine.stats()
+            del engine
+        if streams["draft head"] != streams["greedy"]:
+            raise AssertionError(f"identity draft head ({label}): {streams}")
+        if stats["spec_proposer"] != "draft" or (label == "preemption"
+                                                 and not stats["preemptions"] >= 1):
+            raise AssertionError(f"identity draft head ({label}): {stats}")
+        log(f"identity draft head ({label}): fp32 kernel engine with a random draft head,"
+            f" spec_tokens {SPEC_TOKENS}, == greedy plain engine; {len(prompts)} prompts x"
+            f" {max_new} tokens, accept rate {stats['spec_accept_rate']}, preemptions"
+            f" {stats['preemptions']}")
 
 
 def identity_example_flags(cfg, params) -> None:
@@ -2011,9 +2125,7 @@ def phase_train(card: str) -> dict:
             if profiler is not None:
                 profiler(step, loss)
 
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
+        fresh_peak()
         flash.reset_launches()
         stats = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                             device=torch.device("cuda"), grad_accum=grad_accum,
@@ -2169,8 +2281,7 @@ def phase_train_splash(card: str) -> dict:
     def train_recording_losses(*args, **kwargs):
         return inner(*args, on_step=lambda step, loss: losses.append(loss), **kwargs)
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     splash.reset_launches()
     flash.reset_launches()
     train.train = train_recording_losses
@@ -2180,6 +2291,7 @@ def phase_train_splash(card: str) -> dict:
         train.train = inner
     torch.cuda.synchronize()
     launches = check_splash_launches("train.main", cfg, 4, 3)
+    MEASURED["splash_main_p50_s"] = stats["p50_s"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(losses) != 3 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train.main {' '.join(SPLASH_MAIN_ARGV)}: losses {losses}")
@@ -2196,8 +2308,7 @@ def phase_train_splash(card: str) -> dict:
         losses.append(loss)
         profiler(step, loss)
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     splash.reset_launches()
     flash.reset_launches()
     stats = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -2270,6 +2381,434 @@ def phase_splash_identity() -> None:
         " T = 1000 and 63 and matches splash_reference")
 
 
+# -- phase 12: the trainer-to-server handoff -------------------------------------
+
+# fp8 products on the card against fp64 sums of the same e4m3 operands, as a
+# share of the largest |output|. Hopper's fp8 tensor cores keep fewer bits
+# than fp32 in each partial sum of a k-block, even with cuBLAS's fp32
+# promotion (use_fast_accum=False), so the card reads about 2e-4 where an
+# fp32 sum reads about 1e-7; a bf16 rounding before the scales reads about
+# 3e-3.
+FP8_LIMIT = 1e-3
+# The training example's single-card command line with --quant fp8, 4 steps.
+HANDOFF_TRAIN_ARGV = SPLASH_MAIN_ARGV[:-2] + ["--quant", "fp8", "--steps", "4"]
+# What the handoff writes at most: two llama3_1b TrainStates with a bf16
+# first moment (8.7 GB each) and a DraftTrainState (3.5 GB), with room.
+HANDOFF_DISK_BYTES = 30e9
+
+
+def quantized_projections_on_card(cfg, card: str) -> None:
+    """Training's quantized products at llama3_1b's wq, w_gate and w_down
+    shapes on a [2, 8192, K] bf16 x (16384 rows, one microbatch of the
+    training example) and an fp32 master weight: fp8_matmul within
+    FP8_LIMIT of fp64 sums of the same e4m3 operands and scales, two
+    planted faults (the sum rounded to bf16 before the scales, one row's
+    activation scale dropped) beyond it; int8_matmul's sums equal the exact
+    (fp64) sums on every row, and its quantized values and outputs equal
+    the CPU's bit for bit on 128 rows; the straight-through dx and dw equal
+    the fp32 gradients of x @ w; the times of the fp8, int8 and bf16
+    products."""
+    import torch
+
+    from dstack_tpu_torch.workloads import quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = {"wq": (cfg.d_model, cfg.n_heads * cfg.head_dim),
+              "w_gate": (cfg.d_model, cfg.d_ff), "w_down": (cfg.d_ff, cfg.d_model)}
+    for name, (k, n) in shapes.items():
+        x = torch.randn(2, 8192, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        x2 = x.reshape(-1, k)
+        # fp8
+        out = quantize.fp8_matmul(x, w)
+        xq, xs = quantize.quantize_fp8(x, -1)
+        wq, ws = quantize.quantize_fp8(w, 0)
+        acc64 = (xq.reshape(-1, k).double() @ wq.double()).reshape(2, 8192, n)
+        ref = acc64 * xs.double() * ws.double()
+        top = ref.abs().max().item()
+        err = (out.double() - ref).abs().max().item() / top
+        acc = quantize._fp8_dot(xq.reshape(-1, k), wq).reshape(2, 8192, n)
+        rounded = acc.to(torch.bfloat16).float() * xs * ws
+        dropped = acc * torch.where(torch.arange(16384, device="cuda").reshape(2, 8192, 1) == 777,
+                                    torch.ones_like(xs), xs) * ws
+        faults = {label: (f.double() - ref).abs().max().item() / top
+                  for label, f in (("bf16 before the scales", rounded),
+                                   ("row 777's scale dropped", dropped))}
+        if out.dtype != torch.float32 or not err <= FP8_LIMIT:
+            raise AssertionError(f"fp8_matmul {name}: {out.dtype}, error {err:.3e} of the"
+                                 f" largest |output| (limit {FP8_LIMIT:g})")
+        for label, ferr in faults.items():
+            if not ferr > FP8_LIMIT:
+                raise AssertionError(f"fp8 {name}: the planted fault ({label}) passed at {ferr:.3e}")
+        del acc64, ref, acc, rounded, dropped
+        # int8: exact sums on every row, and the CPU's bits on a sample.
+        xq8, xs8 = quantize.quantize_int8(x, -1)
+        wq8, ws8 = quantize.quantize_int8(w, 0)
+        sums = quantize._int8_dot(xq8.reshape(-1, k), wq8)
+        if not torch.equal(sums.double(), xq8.reshape(-1, k).double() @ wq8.double()):
+            raise AssertionError(f"int8 {name}: the card's int32 sums are not exact")
+        out8 = quantize.int8_matmul(x, w).reshape(-1, n)
+        rows = torch.arange(0, 16384, 128, device="cuda")
+        cpu = quantize.int8_matmul(x2[rows].cpu(), w.cpu())
+        xq_cpu, _ = quantize.quantize_int8(x2[rows].cpu(), -1)
+        if not (torch.equal(out8[rows].cpu(), cpu)
+                and torch.equal(xq8.reshape(-1, k)[rows].cpu(), xq_cpu)
+                and torch.equal(wq8.cpu(), quantize.quantize_int8(w.cpu(), 0)[0])):
+            raise AssertionError(f"int8 {name}: the card's values or outputs differ from the CPU's")
+        del sums, out8, xq8, wq8
+        # Straight-through gradients against the fp32 gradients of x @ w.
+        g = torch.randn(2, 8192, n, generator=gen, device="cuda")
+        grads = {}
+        for label, fn in (("fp8", quantize.fp8_matmul_ste), ("int8", quantize.int8_matmul_ste),
+                          ("fp32", lambda a, b: a.float() @ b)):
+            xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            fn(xa, wa).backward(g)
+            grads[label] = (xa.grad, wa.grad)
+        ste = []
+        for label in ("fp8", "int8"):
+            for got, want in zip(grads[label], grads["fp32"]):
+                if got.dtype != want.dtype:
+                    raise AssertionError(f"{label} STE {name}: grad dtype {got.dtype} != {want.dtype}")
+                diff = (got.float() - want.float()).abs().max().item()
+                ste.append(diff)
+                if diff > 1e-6 * want.float().abs().max().item():
+                    raise AssertionError(f"{label} STE {name}: grads {diff:.3e} from the fp32 ones")
+        del grads, g
+        times = {"fp8": time_ms(lambda: quantize.fp8_matmul(x, w)),
+                 "int8": time_ms(lambda: quantize.int8_matmul(x, w)),
+                 "bf16": time_ms(lambda: x @ w.to(torch.bfloat16))}
+        log(f"quantized projection {name} x[2, 8192, {k}] @ w[{k}, {n}]: fp8_matmul {err:.3e} of the"
+            f" largest |output| {top:.4g} from fp64 sums (limit {FP8_LIMIT:g}); planted faults"
+            f" {', '.join(f'{lb} {v:.3e}' for lb, v in faults.items())}; int8 sums exact, values"
+            f" and outputs equal to the CPU's on 128 rows; STE dx, dw {max(ste):.3e} from the fp32"
+            f" grads; times fp8 {times['fp8']:.4f} ms, int8 {times['int8']:.4f} ms, bf16"
+            f" {times['bf16']:.4f} ms (each with its quantization) [{card}]")
+        del x, w, out
+        torch.cuda.empty_cache()
+
+
+def param_sums(params: dict) -> dict:
+    """Each leaf's fp64 sum and sum of squares: a checksum of a tree held in
+    one process, to compare with the same tree read back in another."""
+    out = {}
+    for key, t in params.items():
+        d = t.detach().double()
+        out[key] = [float(d.sum()), float((d * d).sum())]
+        del d
+    return out
+
+
+def handoff_child(kind: str, argv_json: str, report: str) -> None:
+    """Run in a child process: ``train.main(argv)`` (``kind`` "train" or
+    "distill"), recording every step's loss and the attention kernels'
+    launches into ``report`` as JSON, also when the run ends on an injected
+    crash; for "train", also ``param_sums`` of the parameters the last step
+    left in memory."""
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    losses, last = {}, {}
+    inner, make_step = getattr(train, kind), train.make_train_step
+
+    def recording(*args, **kwargs):
+        return inner(*args, on_step=lambda step, loss: losses.__setitem__(step, loss), **kwargs)
+
+    def keeping_state(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def kept(state, *batch):
+            last["state"], metrics = step(state, *batch)
+            return last["state"], metrics
+
+        return kept
+
+    setattr(train, kind, recording)
+    train.make_train_step = keeping_state
+    flash.reset_launches()
+    splash.reset_launches()
+    stats = None
+    try:
+        stats = train.main(json.loads(argv_json))
+    finally:
+        sums = param_sums(last["state"].params) if "state" in last else None
+        with open(report, "w", encoding="utf-8") as f:
+            json.dump({"losses": losses, "splash": dict(splash.launches),
+                       "flash": dict(flash.launches), "stats": stats, "param_sums": sums,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+                       if torch.cuda.is_available() else 0.0}, f)
+
+
+def run_child(label: str, kind: str, argv: list, workdir: str, expect_rc: int = 0,
+              env: dict = None):
+    """``handoff_child`` in a new process; returns (its report, its stdout,
+    its telemetry points). Fails unless it exits with ``expect_rc``."""
+    import os
+
+    report = os.path.join(workdir, f"{label}.json")
+    telemetry = os.path.join(workdir, f"{label}.telemetry.jsonl")
+    child_env = {k: v for k, v in os.environ.items() if k != "DSTACK_TPU_TRAIN_CRASH_AT_STEP"}
+    child_env.update(env or {}, DSTACK_TPU_TELEMETRY_PATH=telemetry)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; chip_smoke.handoff_child(*sys.argv[1:])"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code, kind, json.dumps(argv), report],
+                          cwd=root, env=child_env, capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        log(f"  [{label}] {line}")
+    if proc.returncode != expect_rc:
+        raise AssertionError(f"{label}: exit {proc.returncode} (expected {expect_rc}):\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(report, encoding="utf-8") as f:
+        out = json.load(f)
+    out["losses"] = {int(s): loss for s, loss in out["losses"].items()}
+    out["wall_s"] = time.monotonic() - t0
+    with open(telemetry, encoding="utf-8") as f:
+        points = [json.loads(line) for line in f if line.strip()]
+    return out, proc.stdout, points
+
+
+def marks(points: list, event: str) -> list:
+    return [p for p in points if p.get("kind") == "mark" and p.get("event") == event]
+
+
+def check_child_splash(label: str, report: dict, layers: int, microbatches: int, steps: int,
+                       backward: bool = True) -> dict:
+    """A child's splash launches: exactly 2 x layers x microbatches x steps
+    forwards under remat and layers x microbatches x steps of each backward
+    kernel (``backward``), or one forward a layer and step and no backward
+    (the distillation's target, without gradients); no flash launch."""
+    calls = layers * microbatches * steps
+    want = ({"splash_fwd": 2 * calls, "splash_bwd_dq": calls, "splash_bwd_dkv": calls}
+            if backward else {"splash_fwd": calls, "splash_bwd_dq": 0, "splash_bwd_dkv": 0})
+    if report["splash"] != want or any(report["flash"].values()):
+        raise AssertionError(f"{label}: splash launches {report['splash']} != {want},"
+                             f" flash {report['flash']}")
+    return report["splash"]
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_marks(points: list, label: str) -> str:
+    """checkpoint_start / checkpoint_end (blocked_s) / checkpoint_saved
+    (write_s) brackets of a run, as a line; fails when one is missing."""
+    starts, ends, saved = (marks(points, e) for e in
+                           ("checkpoint_start", "checkpoint_end", "checkpoint_saved"))
+    if not starts or len(starts) != len(ends) or len(saved) != len(starts):
+        raise AssertionError(f"{label}: checkpoint marks start {starts} end {ends} saved {saved}")
+    if any("blocked_s" not in e or e.get("failed") for e in ends) or any(
+            "write_s" not in s for s in saved):
+        raise AssertionError(f"{label}: checkpoint marks without timings: {ends} {saved}")
+    return ", ".join(f"step {e['step']} blocked {e['blocked_s']:.3f} s write {s['write_s']:.3f} s"
+                     for e, s in zip(ends, saved))
+
+
+def serve_main_traffic(argv: list, waves, max_new: int) -> dict:
+    """``serve.main(argv)`` with web.run_app replaced: the engine main
+    builds serves ``waves`` through EngineRunner.submit (drive_runner) with
+    its step functions counted; returns the run's stats, latencies, tokens,
+    step counts and paged launches."""
+    from aiohttp import web
+
+    from dstack_tpu_torch.workloads import serve
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    seen = {}
+    create, run_app = serve.create_serve_app, web.run_app
+
+    def capture(runner):
+        seen["runner"] = runner
+        return create(runner)
+
+    def traffic(app, **kwargs):
+        runner = seen["runner"]
+        runner.shutdown()  # drive_runner runs its own runner over the engine
+        runner.join(timeout=60)
+        engine = runner.engine
+        calls = {a: count_calls(engine, a) for a in ("_chunk_fn", "_verify_fn", "_decode_fn")}
+        paged.reset_launches()
+        out = drive_runner(engine, waves, max_new)
+        seen.update(out, launches=dict(paged.launches), stats=engine.stats(),
+                    lat=engine.flight.latency_summary(),
+                    steps={a: c[0] for a, c in calls.items()}, engine=engine)
+
+    serve.create_serve_app, web.run_app = capture, traffic
+    try:
+        serve.main(argv)
+    finally:
+        serve.create_serve_app, web.run_app = create, run_app
+    del seen["runner"]
+    return seen
+
+
+def phase_handoff(card: str) -> dict:
+    """The trainer-to-server handoff on llama3_1b at full width and depth:
+    quantized projections on the card; the training example's command
+    line with --quant fp8 and checkpoints, crashed at step 3 and resumed,
+    against the same run without checkpoints; the draft head distilled
+    against the step-4 target; then serve.main with the serving example's
+    flags from that directory (--checkpoint-dir and --spec-model), against
+    the draft head without its fallback and the n-gram proposer on the same
+    traffic. Returns the kernels' launches of the paths it drives."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dstack_tpu_torch.workloads import checkpoint, serve
+    from dstack_tpu_torch.workloads.config import get_config
+
+    cfg = get_config("llama3_1b")
+    quantized_projections_on_card(cfg, card)
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-handoff-")
+    try:
+        free = shutil.disk_usage(workdir).free
+        if free < HANDOFF_DISK_BYTES:
+            raise RuntimeError(f"the handoff needs {HANDOFF_DISK_BYTES / 1e9:.0f} GB free under"
+                               f" {workdir}; {free / 1e9:.1f} GB are")
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        ckpt_args = ["--checkpoint-every", "2", "--checkpoint-dir", ckpt_dir, "--resume"]
+        torch.cuda.empty_cache()
+        crash, _, crash_points = run_child("crash", "train", HANDOFF_TRAIN_ARGV + ckpt_args,
+                                           workdir, expect_rc=1,
+                                           env={"DSTACK_TPU_TRAIN_CRASH_AT_STEP": "3"})
+        manager = checkpoint.CheckpointManager(ckpt_dir)
+        if sorted(crash["losses"]) != [1, 2, 3] or manager.complete_steps() != [2]:
+            raise AssertionError(f"crash run: losses {crash['losses']},"
+                                 f" checkpoints {manager.complete_steps()}")
+        resumed, _, resumed_points = run_child("resume", "train",
+                                               HANDOFF_TRAIN_ARGV + ckpt_args, workdir)
+        restart = marks(resumed_points, "restart")
+        if sorted(resumed["losses"]) != [3, 4] or manager.complete_steps() != [2, 4] or [
+                r.get("step") for r in restart] != [2]:
+            raise AssertionError(f"resumed run: losses {resumed['losses']}, checkpoints"
+                                 f" {manager.complete_steps()}, restart marks {restart}")
+        reference, _, _ = run_child("reference", "train", HANDOFF_TRAIN_ARGV, workdir)
+        ref = reference["losses"]
+        for label, run in (("crashed", crash), ("resumed", resumed)):
+            for step, loss in run["losses"].items():
+                if loss != ref[step]:
+                    raise AssertionError(f"{label} run's step {step} loss {loss!r} != the"
+                                         f" uninterrupted run's {ref[step]!r}")
+        if not all(np.isfinite(list(ref.values()))) or not ref[4] < ref[1]:
+            raise AssertionError(f"fp8 training: losses {ref}")
+        launches = {}
+        for label, run, steps in (("crash", crash, 3), ("resume", resumed, 2),
+                                  ("reference", reference, 4)):
+            for name, n in check_child_splash(label, run, cfg.n_layers, 4, steps).items():
+                launches[name] = launches.get(name, 0) + n
+        bytes_4 = dir_bytes(os.path.join(ckpt_dir, "step-00000004"))
+        p50 = reference["stats"]["p50_s"]
+        bf16_p50 = MEASURED.get("splash_main_p50_s", float("nan"))
+        log(f"handoff train ({' '.join(HANDOFF_TRAIN_ARGV)} + checkpoints every 2): crashed at"
+            f" step 3 and resumed at step 2; losses {[ref[s] for s in sorted(ref)]}, steps 3 and 4"
+            f" bit-equal across the resumed and the uninterrupted run (and steps 1-3 of the"
+            f" crashed one); fp8 step p50 {p50 * 1e3:.1f} ms against {bf16_p50 * 1e3:.1f} ms"
+            f" without --quant (phase 10), {reference['stats']['tokens_per_sec']:.1f} tokens/s,"
+            f" peak memory {reference['peak_gb']:.2f} GB; checkpoint of step 4"
+            f" {bytes_4 / 1e9:.3f} GB; crash run: {checkpoint_marks(crash_points, 'crash')};"
+            f" resumed run: {checkpoint_marks(resumed_points, 'resume')}; process walls"
+            f" {crash['wall_s']:.1f} / {resumed['wall_s']:.1f} / {reference['wall_s']:.1f} s;"
+            f" launches {launches} [{card}]")
+
+        distill_argv = ["--config", "llama3_1b", "--draft-head", "--attn-impl", "splash",
+                        "--attn-window", "4096", "--checkpoint-dir", ckpt_dir, "--steps", "8",
+                        "--seq", "2048"]
+        distilled, stdout, distill_points = run_child("distill", "distill", distill_argv, workdir)
+        losses = distilled["losses"]
+        if ("draft-head: frozen target from checkpoint step 4" not in stdout
+                or manager.complete_steps() != [4, 12] or sorted(losses) != list(range(1, 9))
+                or not all(np.isfinite(list(losses.values()))) or not losses[8] < losses[1]):
+            raise AssertionError(f"distillation: losses {losses}, checkpoints"
+                                 f" {manager.complete_steps()}")
+        for name, n in check_child_splash("distill", distilled, cfg.n_layers, 1, 8,
+                                          backward=False).items():
+            launches[name] += n
+        log(f"handoff distill ({' '.join(distill_argv)}): target from step 4, saved at step 12;"
+            f" losses {[round(losses[s], 4) for s in sorted(losses)]}, step p50"
+            f" {distilled['stats']['p50_s'] * 1e3:.1f} ms; DraftTrainState"
+            f" {dir_bytes(os.path.join(ckpt_dir, 'step-00000012')) / 1e9:.3f} GB,"
+            f" {checkpoint_marks(distill_points, 'distill')}; splash launches"
+            f" {distilled['splash']} [{card}]")
+
+        # The served weights are the trained ones: .params of step 12 (the
+        # DraftTrainState the distillation wrote) read back here carry the
+        # same per-leaf checksums as the parameters the resumed run held in
+        # memory after its step 4.
+        served, _ = serve.load_serve_params(ckpt_dir, cfg, step=12)
+        got, want = param_sums(served), resumed["param_sums"]
+        differ = [k for k in want if got.get(k) != want[k]]
+        if not want or sorted(got) != sorted(want) or differ:
+            raise AssertionError(f"step 12's .params differ from the trained state in"
+                                 f" {differ or sorted(set(got) ^ set(want or {}))}")
+        checksum = sum(s for s, _ in want.values())
+        del served
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(6)
+        prefix = rng.randint(0, cfg.vocab_size, 1024).tolist()
+        suffixes = [int(n) for n in np.linspace(16, 476, 16).astype(int)]
+        prompts = [prefix + rng.randint(0, cfg.vocab_size, n).tolist() for n in suffixes]
+        waves = [prompts[:8], prompts[8:]]
+        max_new = 32
+        serve_argv = ["--config", "llama3_1b", "--port", "0", "--max-batch", "16", "--pages",
+                      "4096", "--page-size", "16", "--quant", "fp8", "--prefix-cache",
+                      "--prefill-chunk", str(CHUNK), "--spec-tokens", str(SPEC_TOKENS),
+                      "--checkpoint-dir", ckpt_dir]
+        runs = {}
+        for label, proposer, extra in (
+                ("draft", "draft", ["--spec-model", ckpt_dir]),
+                ("draft, no fallback", "draft",
+                 ["--spec-model", ckpt_dir, "--spec-fallback-threshold", "0"]),
+                ("ngram", "ngram", [])):
+            run = serve_main_traffic(serve_argv + extra, waves, max_new)
+            engine, stats, steps = run.pop("engine"), run["stats"], run["steps"]
+            for p, toks in zip(prompts, run["tokens"]):
+                if len(toks) != max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+                    raise AssertionError(f"{proposer}: a request of {len(p)} tokens returned {toks}")
+            chunk_steps, verify_steps = steps["_chunk_fn"], steps["_verify_fn"]
+            got = run["launches"]
+            if (got["paged_chunk_attention"] != cfg.n_layers * (chunk_steps + verify_steps)
+                    or got["paged_decode_attention"] or steps["_decode_fn"] or not verify_steps):
+                raise AssertionError(f"{proposer}: launches {got}, steps {steps}")
+            if stats["spec_proposer"] != proposer or "lm_head" in engine.params or not (
+                    stats["prefix_hit_rate"] > 0):
+                raise AssertionError(f"{proposer}: {stats}")
+            del engine
+            torch.cuda.empty_cache()
+            runs[label] = run
+            n_tok = sum(len(t) for t in run["tokens"])
+            lat = run["lat"]
+            log(f"handoff serve ({label}; serve.main {' '.join(serve_argv + extra)}):"
+                f" 16 requests x {max_new} tokens in two waves, {run['wall_s']:.2f} s,"
+                f" {n_tok / run['wall_s']:.1f} tokens/s, TTFT p50 {lat['ttft_p50_ms']} ms p99"
+                f" {lat['ttft_p99_ms']} ms, ITL p50 {lat['itl_p50_ms']} ms; prefix hit rate"
+                f" {stats['prefix_hit_rate']}, spec accept rate {stats['spec_accept_rate']}"
+                f" (windowed {stats['spec_accept_rate_windowed']}), spec_fallbacks"
+                f" {stats['spec_fallbacks']}; chunk-prefill steps {chunk_steps}, verify steps"
+                f" {verify_steps}, launches {got} [{card}]")
+            launches["paged_chunk_attention"] = (launches.get("paged_chunk_attention", 0)
+                                                 + got["paged_chunk_attention"])
+            launches["paged_decode_attention"] = (launches.get("paged_decode_attention", 0)
+                                                  + got["paged_decode_attention"])
+        log(f"handoff: the served .params (step 12, read back) carry the per-leaf fp64 sums"
+            f" and sums of squares of the resumed run's parameters in memory after step 4"
+            f" ({len(want)} leaves, total sum {checksum!r}); spec accept rate of the draft head alone"
+            f" {runs['draft, no fallback']['stats']['spec_accept_rate']}, with the fallback"
+            f" {runs['draft']['stats']['spec_accept_rate']} ({runs['draft']['stats']['spec_fallbacks']}"
+            f" fallbacks), of the n-gram proposer {runs['ngram']['stats']['spec_accept_rate']}, on"
+            f" the same traffic (a head distilled 8 steps against random weights) [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2304,6 +2843,8 @@ def main() -> int:
     report.update(phase_splash())
     launches.update(phase_train_splash(card))
     phase_splash_identity()
+    for name, n in phase_handoff(card).items():
+        launches[name] += n
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",
@@ -2326,7 +2867,8 @@ def main() -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
             **{key: value for key, value in entry.items()
-               if key in ("device_ms", "library_device_ms") or key.startswith("verify_")},
+               if key in ("device_ms", "library_device_ms") or key.startswith("verify_")
+               or key.endswith("_max_abs_err")},
         })
     log(f"total {time.monotonic() - t_start:.1f} s [{card}]")
     log(card)

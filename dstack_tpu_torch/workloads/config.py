@@ -103,24 +103,35 @@ ATTN_IMPLS = ("auto", "xla", "blockwise", "plain", "flash", "flash_tpu",
               "splash")
 
 
-def validate_config(cfg: LlamaConfig, seq: Optional[int] = None) -> None:
+def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None) -> None:
     """Loud CLI-time validation of the perf-dispatch flags, without a mesh.
 
     The model-side dispatch falls back silently where a combination merely
     degrades (flash on a ragged length runs blockwise); an explicitly
     requested invalid combination is a config error and fails here, before
-    the first step. Features the port does not have yet raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    the first step. ``quant="fp8"`` needs fp8 tensor cores on a card
+    (compute capability 8.9 or higher; the CPU runs the exact products
+    upcast, as the reference allows off-TPU). Features the port does not
+    have yet raise ``NotImplementedError`` naming their ROADMAP item."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}"
         )
-    if cfg.quant != "none":
-        if cfg.quant not in ("int8", "fp8"):
-            raise ValueError(f"unknown quant {cfg.quant!r}; expected none, int8 or fp8")
-        raise NotImplementedError(
-            f"quant={cfg.quant} in training is not yet ported to PyTorch (ROADMAP item 3b)"
-        )
+    if cfg.quant not in ("none", "int8", "fp8"):
+        raise ValueError(f"unknown quant {cfg.quant!r}; expected none, int8 or fp8")
+    if cfg.quant == "fp8" and device is not None:
+        import torch
+
+        from dstack_tpu_torch.workloads.quantize import supports_fp8
+
+        device = torch.device(device)
+        if not supports_fp8(device):
+            cap = torch.cuda.get_device_capability(device)
+            raise ValueError(
+                f"quant=fp8 needs fp8 tensor cores (compute capability 8.9 or"
+                f" higher); {torch.cuda.get_device_name(device)} is"
+                f" sm_{cap[0]}{cap[1]} - use quant=int8 or none"
+            )
     if cfg.tp_overlap or cfg.fsdp_overlap:
         raise NotImplementedError(
             "tp_overlap/fsdp_overlap are not yet ported to PyTorch (ROADMAP item 6)"

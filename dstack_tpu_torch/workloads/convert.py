@@ -1,4 +1,5 @@
-"""Parameter trees from numpy into the port's dict of tensors.
+"""Parameter trees from numpy into the port's dict of tensors, and the
+dtype names a checkpoint's manifest uses.
 
 ``params_from_numpy`` takes a JAX parameter tree as numpy arrays
 (``{k: np.asarray(v)}``): the ``init_params`` tree, or the weight-only serve
@@ -7,7 +8,13 @@ stored once in the serving dtype: the JAX step functions cast each weight to
 the activation dtype on every use, so casting once at engine build gives the
 same values, and keeps llama3_8b at its bf16 size on the card. Quantized
 leaves keep their own dtype: ``*_q`` values stay int8 or fp8 (ml_dtypes'
-fp8 through its bits, as bfloat16), and ``*_s`` scales stay fp32.
+fp8 through its bits, as bfloat16), and ``*_s`` scales stay fp32. The
+draft head's tree (``model.init_draft_params``) converts the same way.
+
+numpy alone has no bfloat16 or fp8: a checkpoint stores those leaves as
+same-width unsigned integers and names the real dtype in its manifest
+(``"bfloat16"``, ``"float8_e4m3fn"``). ``storage_dtype`` and
+``tensor_from_host`` read such a name through the same bit views.
 """
 
 from __future__ import annotations
@@ -26,6 +33,26 @@ _BIT_VIEWS = {
     "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
     "float8_e5m2": (np.uint8, torch.float8_e5m2),
 }
+
+
+def storage_dtype(name: str):
+    """The numpy dtype that holds a leaf named ``name`` on disk: the
+    unsigned view for bfloat16 and fp8, None for numpy's own dtypes."""
+    return np.dtype(_BIT_VIEWS[name][0]) if name in _BIT_VIEWS else None
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a manifest's dtype name ("float32", "bfloat16")."""
+    return _BIT_VIEWS[name][1] if name in _BIT_VIEWS else getattr(torch, name)
+
+
+def tensor_from_host(a: np.ndarray, name: str) -> torch.Tensor:
+    """A host array in its storage dtype as the tensor of dtype ``name``
+    (bits reinterpreted for bfloat16 and fp8; no copy)."""
+    if name in _BIT_VIEWS:
+        bits, dtype = _BIT_VIEWS[name]
+        return torch.from_numpy(a.view(bits)).view(dtype)
+    return torch.from_numpy(a)
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

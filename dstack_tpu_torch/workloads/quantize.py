@@ -1,9 +1,8 @@
-"""Weight-only int8 and fp8 quantization for serving, in PyTorch.
+"""Int8 and fp8 quantized matmuls for training (straight-through) and
+serving (weight-only), in PyTorch.
 
-The serving half of ``dstack_tpu/workloads/quantize.py``, with its names and
-its numerics: per-output-channel absmax scales (symmetric, no zero point,
-fp32), computed once at engine build, and weights dequantized on use into
-the activation dtype with an fp32-accumulated product.
+The port of ``dstack_tpu/workloads/quantize.py``, with its names and its
+numerics: per-channel absmax scales (symmetric, no zero point, fp32).
 
 - **int8**: ``round(w / scale)`` clipped to [-127, 127]; ``torch.round``
   rounds half to even, as ``jnp.round`` does.
@@ -12,9 +11,24 @@ the activation dtype with an fp32-accumulated product.
   is the rounding (round to nearest even, in both libraries).
 
 On seeded data both give values bit-equal to the JAX package's and equal
-scales. No Pallas kernel backs this module: the dequantize-on-use product is
-a PyTorch matmul (see ``weight_only_matmul``). Training's quantized
-projections (the STE matmuls) are not ported yet (ROADMAP item 3b).
+scales.
+
+- **Training** (``int8_matmul_ste``, ``fp8_matmul_ste``): both operands are
+  quantized on every call (activations per row over K, weights per output
+  channel), the product is summed in int32 (int8) or fp32 (fp8), and both
+  scales multiply the fp32 sum, in JAX's order, before any cast. The
+  backward pass is straight-through: the exact fp32 gradients of ``x @ w``
+  against the original operands.
+- **Serving** (``quantize_weight``, ``weight_only_matmul``): weights are
+  quantized once at engine build and dequantized on use into the activation
+  dtype, with an fp32-accumulated product.
+
+No Pallas kernel backs this module: JAX computes these products with
+``dot_general``. On the card the int8 product is ``torch._int_mm`` (exact
+int32 sums) and the fp8 product ``torch._scaled_mm`` with unit scales, an
+fp32 output and cuBLAS's fp32 accumulation (``use_fast_accum=False``); on
+the CPU both upcast (int64 sums, which are exact; fp32 products of the fp8
+values, which are exact too, summed in fp32).
 """
 
 from __future__ import annotations
@@ -88,6 +102,122 @@ def quantize_weight(w: torch.Tensor, axis: int = -2, mode: str = "int8") -> Quan
     else:
         values, scales = quantize_int8(w, axis)
     return QuantizedWeight(values, scales)
+
+
+def _int8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of ``xq[M, K] @ wq[K, N]`` (int8). ``torch._int_mm``
+    wants more than 16 rows and K, N multiples of 8: fewer rows are padded
+    with zero rows, which add nothing."""
+    if not xq.is_cuda:
+        return (xq.long() @ wq.long()).int()
+    m, k = xq.shape
+    n = wq.shape[1]
+    if k % 8 or n % 8:
+        raise ValueError(f"int8 matmul on the card needs K and N multiples of 8, got K={k} N={n}")
+    if m <= 16:
+        xq = torch.cat([xq, xq.new_zeros(17 - m, k)])
+    return torch._int_mm(xq, wq)[:m]
+
+
+def _fp8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """fp32 sums of ``xq[M, K] @ wq[K, N]`` (fp8 values). On the card:
+    ``torch._scaled_mm`` with unit scales, an fp32 output and fp32
+    accumulation; the second operand goes in column-major, as cuBLASLt
+    wants it. On the CPU: the exact fp32 products, summed in fp32."""
+    if not xq.is_cuda:
+        return xq.float() @ wq.float()
+    k, n = wq.shape
+    if k % 16 or n % 16:
+        raise ValueError(f"fp8 matmul on the card needs K and N multiples of 16, got K={k} N={n}")
+    one = torch.ones((), dtype=torch.float32, device=xq.device)
+    return torch._scaled_mm(
+        xq, wq.t().contiguous().t(), scale_a=one, scale_b=one,
+        out_dtype=torch.float32, use_fast_accum=False,
+    )
+
+
+def _quantized_matmul(x: torch.Tensor, w: torch.Tensor, quantize, dot) -> torch.Tensor:
+    """``x[..., K] @ w[K, N]`` through ``quantize`` (activations per row,
+    weights per output channel) and ``dot``: the fp32 sum times the
+    activation scales times the weight scales, in that order."""
+    xq, xs = quantize(x, -1)   # xs [..., 1]
+    wq, ws = quantize(w, 0)    # ws [1, N]
+    acc = dot(xq.reshape(-1, x.shape[-1]), wq).reshape(*x.shape[:-1], w.shape[-1])
+    return acc.float() * xs * ws
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dynamically quantized ``x[..., K] @ w[K, N]`` -> fp32: int8 operands,
+    exact int32 sums; the only error is the rounding of the operands."""
+    return _quantized_matmul(x, w, quantize_int8, _int8_dot)
+
+
+def fp8_matmul(x: torch.Tensor, w: torch.Tensor, fmt: str = FP8_DEFAULT_FORMAT) -> torch.Tensor:
+    """Dynamically quantized fp8 ``x[..., K] @ w[K, N]`` -> fp32: the same
+    scale algebra as ``int8_matmul`` on fp8 operands, fp32 sums."""
+    return _quantized_matmul(x, w, lambda a, axis: quantize_fp8(a, axis, fmt), _fp8_dot)
+
+
+def _ste_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Straight-through: the gradients of ``y = x @ w`` as if nothing were
+    quantized, against the original operands, in fp32 (g is fp32), returned
+    in x's and w's dtypes."""
+    dx = g @ w.float().t()
+    dw = x.reshape(-1, x.shape[-1]).float().t() @ g.reshape(-1, g.shape[-1])
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _Int8MatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return int8_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ste_grads(*ctx.saved_tensors, g.float())
+
+
+class _Fp8MatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return fp8_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ste_grads(*ctx.saved_tensors, g.float())
+
+
+def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8_matmul with straight-through gradients (the train path)."""
+    return _Int8MatmulSTE.apply(x, w)
+
+
+def fp8_matmul_ste(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp8_matmul with straight-through gradients: forward in e4m3, the
+    backward the exact fp gradients, as int8_matmul_ste's."""
+    return _Fp8MatmulSTE.apply(x, w)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, quant: str, adt=None) -> torch.Tensor:
+    """The model-side dispatch: ``x[..., K] @ w[K, N]`` under the config's
+    ``quant`` mode, returned in ``adt`` (default x.dtype). ``w`` is the fp
+    master weight. The quantized products are cast to ``adt`` only after
+    their scales; the fp product casts the weight to ``adt`` on use."""
+    adt = adt or x.dtype
+    if quant == "int8":
+        return int8_matmul_ste(x, w).to(adt)
+    if quant == "fp8":
+        return fp8_matmul_ste(x, w).to(adt)
+    return (x @ w.to(adt)).to(adt)
+
+
+def supports_fp8(device: torch.device) -> bool:
+    """fp8 products run on the CPU (the exact products, upcast) and on
+    cards of compute capability 8.9 or higher (fp8 tensor cores)."""
+    device = torch.device(device)
+    return device.type == "cpu" or torch.cuda.get_device_capability(device) >= (8, 9)
 
 
 def weight_only_matmul(

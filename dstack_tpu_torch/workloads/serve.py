@@ -20,6 +20,15 @@ prefill, on a CUDA card:
   drafts k tokens per slot, and one chunk step (``emit="all"``) scores all
   of them; greedy accept/reject emits 1..k+1 tokens a step, token-identical
   to one-token greedy decode. Every decode step is then a verify step.
+- **Draft head** (``draft_params``, ``--spec-model``): a distilled
+  EAGLE-style head (``model.draft_apply``) proposes the k drafts from the
+  target's last hidden state instead; prefill, chunk and verify then hand
+  that hidden state back (``with_hidden``). A request whose windowed accept
+  rate falls under ``spec_fallback_threshold`` goes back to the n-gram
+  proposer for the rest of its life.
+- **Checkpoints** (``load_serve_params``, ``load_draft_params``): real
+  weights from a train checkpoint in the JAX package's format, the
+  ``.params`` subtree only, quantized as it is restored under ``quant``.
 - **Weight-only int8/fp8** (``quant``): projection weights are quantized
   once at engine build (``quantize_serve_params``) and dequantized on use
   (``quantize.weight_only_matmul``).
@@ -35,8 +44,7 @@ prefill, on a CUDA card:
 The step functions are plain eager functions; the host-side scheduling is
 the JAX engine's, line for line. Decoding is greedy (argmax), and in fp32 the
 engine is token-identical to the JAX engine on the same weights. Not yet
-ported: serve meshes (ROADMAP item 6), the draft head (item 8) and
-checkpoint restore (item 4); asking for one raises.
+ported: serve meshes (ROADMAP item 6); asking for one raises.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.core import tracing
+from dstack_tpu_torch.workloads import checkpoint as checkpoint_lib
+from dstack_tpu_torch.workloads import convert as convert_lib
 from dstack_tpu_torch.workloads import model as model_lib
 from dstack_tpu_torch.workloads import quantize as quant_lib
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
@@ -124,6 +134,72 @@ def quantize_serve_params(params: dict, consume: bool = False, mode: str = "int8
     return out
 
 
+def load_serve_params(
+    checkpoint_dir: str,
+    cfg: LlamaConfig,
+    quant: str = "none",
+    step: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Tuple[dict, dict]:
+    """Real weights for the engine from a train checkpoint: only the
+    ``.params`` subtree's bytes are read (a TrainState's optimizer moments
+    stay on disk; a params-only checkpoint restores too), each leaf at
+    cfg's shape in the param dtype on ``device``. Under a weight-only
+    ``quant`` the tree is quantized as it is consumed
+    (``quantize_serve_params(consume=True)``): the fp tree plus one
+    quantized leaf at the peak, never two trees. Returns ``(params,
+    manifest)`` in the layout ``ServeEngine`` takes for ``quant``."""
+    quant_lib.check_quant(quant)
+    device = resolve_device(device)
+    manager = checkpoint_lib.CheckpointManager(checkpoint_dir)
+    dtype = model_lib.dtype_of(cfg.param_dtype)
+    template = {k: checkpoint_lib.LeafSpec(shape, dtype, device)
+                for k, shape in model_lib.param_shapes(cfg).items()}
+    params, manifest = manager.restore_subtree(template, step=step, prefix=".params")
+    if quant_lib.is_weight_only(quant):
+        params = quantize_serve_params(params, consume=True, mode=quant)
+    return params, manifest
+
+
+def load_draft_params(
+    checkpoint_dir: str,
+    cfg: LlamaConfig,
+    step: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Tuple[dict, dict]:
+    """The draft head for --spec-model: the ``.draft`` subtree a
+    ``train --draft-head`` run saved. Its depth and width are what was
+    trained, so the template comes from the manifest's ``.draft`` leaves.
+    The head is never quantized. Returns ``(draft_params, manifest)``."""
+    device = resolve_device(device)
+    manager = checkpoint_lib.CheckpointManager(checkpoint_dir)
+    if step is None:
+        step = manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint in {checkpoint_dir}")
+    manifest = manager.read_manifest(step)
+    template = {}
+    for leaf in manifest["leaves"]:
+        key = leaf["key"]
+        if not key.startswith(".draft["):
+            continue
+        name = key[len(".draft"):].strip("[]'\"")
+        dtype = convert_lib.torch_dtype(leaf["dtype"])
+        template[name] = checkpoint_lib.LeafSpec(tuple(leaf["shape"]), dtype, device)
+    if not template:
+        raise ValueError(
+            f"checkpoint step {step} in {checkpoint_dir} has no .draft subtree - distill"
+            f" one with `train --draft-head`"
+        )
+    d = cfg.d_model
+    if tuple(template["w_fuse"].shape) != (2 * d, d):
+        raise ValueError(
+            f"draft head was trained for d_model {template['w_fuse'].shape[1]},"
+            f" engine config has {d}"
+        )
+    return manager.restore_subtree(template, step=step, prefix=".draft")
+
+
 def _serve_layer_keys(quant: str):
     if not quant_lib.is_weight_only(quant):
         return _LAYER_KEYS
@@ -188,6 +264,12 @@ class EngineConfig:
     # Speculative decode: k draft tokens per slot from an n-gram proposer,
     # verified in one batched chunk step (0 = one token per step).
     spec_tokens: int = 0
+    # Draft head (engine built with draft_params): a request whose accept
+    # rate over its last spec_fallback_window spec steps falls under
+    # spec_fallback_threshold goes back to the n-gram proposer for good. The
+    # window must fill first; a threshold <= 0 disables the fallback.
+    spec_fallback_window: int = 16
+    spec_fallback_threshold: float = 0.1
     # Sliding window (spec steps) behind the windowed accept rate on /stats
     # and X-Dstack-Spec-Accept-Rate.
     spec_window: int = 64
@@ -232,6 +314,11 @@ class GenRequest:
     # _emit keeps both current.
     spec_ctx: Optional[List[int]] = None
     spec_index: Optional[dict] = None
+    # Draft head: whether this request still drafts with it (False after a
+    # fallback, for the request's life), and the (proposed, accepted)
+    # samples of its latest spec steps (maxlen spec_fallback_window).
+    draft_ok: bool = True
+    spec_recent: Optional[Deque[Tuple[int, int]]] = None
 
 
 def _rope_single(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -277,14 +364,16 @@ def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float, quant: str) -> t
 # tokens. Host inputs arrive as numpy arrays or CPU tensors.
 
 
-def make_prefill_fn(cfg: LlamaConfig, quant: str = "none"):
+def make_prefill_fn(cfg: LlamaConfig, quant: str = "none", with_hidden: bool = False):
     """(params, tokens, k_pages, v_pages, write_page, write_off, lens) ->
     next_tokens [B]. tokens [B, T] right-padded prompts; write_page/write_off
     [B, T] map each position into the pool (pool-sized page = dropped
     write); lens [B] true prompt lengths. Blockwise causal attention over the
     prompt itself; the greedy token after each prompt's last position. With
     a weight-only ``quant`` the params are the ``quantize_serve_params``
-    layout."""
+    layout. ``with_hidden`` (draft-head engines) returns (next_tokens, the
+    last valid position's final hidden state [B, D]): the conditioning of
+    the first proposal after this prefill."""
 
     def prefill(params, tokens, k_pages, v_pages, write_page, write_off, lens):
         dev = params["embed"].device
@@ -309,7 +398,8 @@ def make_prefill_fn(cfg: LlamaConfig, quant: str = "none"):
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
         last_idx = (torch.as_tensor(lens).to(dev).long() - 1).clamp(0, t - 1)
         last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
-        return _logits(last, params, quant).argmax(-1).int()
+        out = _logits(last, params, quant).argmax(-1).int()
+        return (out, last) if with_hidden else out
 
     return prefill
 
@@ -353,7 +443,8 @@ def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "pl
 
 
 def make_chunk_fn(
-    cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain", emit: str = "last"
+    cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain", emit: str = "last",
+    with_hidden: bool = False,
 ):
     """(params, tokens, starts, valid, k_pages, v_pages, page_tables,
     write_page, write_off) -> next tokens: the one step behind chunked
@@ -366,7 +457,10 @@ def make_chunk_fn(
     emit="last" returns [S] greedy tokens after each slot's last valid
     position (prefill); emit="all" returns [S, C] greedy tokens at every
     position (verify: position i's argmax is the model's next token after
-    tokens[:, :i+1], which the host compares against the drafts)."""
+    tokens[:, :i+1], which the host compares against the drafts).
+    ``with_hidden`` (draft-head engines) also returns the final hidden
+    state: [S, D] at the last valid position for emit="last", [S, C, D] for
+    emit="all" (the host keeps the accepted position's)."""
     cuda = decode_impl == "cuda"
 
     def chunk_step(params, tokens, starts, valid, k_pages, v_pages, page_tables,
@@ -403,9 +497,33 @@ def make_chunk_fn(
         if emit == "last":
             last_idx = (valid.long() - 1).clamp(0, c - 1)
             x = x[torch.arange(s, device=dev), last_idx]  # [S, D]
-        return _logits(x, params, quant).argmax(-1).int()  # [S] or [S, C]
+        out = _logits(x, params, quant).argmax(-1).int()  # [S] or [S, C]
+        return (out, x) if with_hidden else out
 
     return chunk_step
+
+
+def make_draft_fn(cfg: LlamaConfig, k: int, quant: str = "none"):
+    """The draft head's proposer (--spec-model, in place of the n-gram
+    index): (params, draft, hidden [S, D], last_tokens [S]) -> drafts [S, k]
+    int32. Each of the k steps embeds the previous token through the
+    target's embed table, applies the head (model.draft_apply) and takes
+    the argmax of the target's quant-aware lm_head, so an int8/fp8 engine
+    drafts through the quantized lm_head its verify scores with; the head's
+    own output conditions the next step, the rollout the distillation
+    trained."""
+
+    def propose(params, draft, hidden, last_tokens):
+        h = hidden.to(params["embed"].dtype)
+        t = torch.as_tensor(last_tokens).to(h.device).long()
+        out = []
+        for _ in range(k):
+            h = model_lib.draft_apply(draft, h, params["embed"][t], cfg)
+            t = _logits(h, params, quant).argmax(-1)
+            out.append(t)
+        return torch.stack(out, dim=1).int()
+
+    return propose
 
 
 def _ngram_record(context: List[int], i: int, index: dict, max_n: int = 3) -> None:
@@ -701,7 +819,9 @@ class ServeEngine:
     ``params`` is the ``init_params`` tree or, under a weight-only ``quant``,
     may already be the ``quantize_serve_params`` layout; ``self.params`` is
     the tree the step functions read (quantized under ``quant``: the fp tree
-    is not kept).
+    is not kept). ``draft_params`` (``model.init_draft_params``' tree, or
+    ``load_draft_params``') makes the draft head the proposer of
+    speculative decode, which then needs ``spec_tokens > 0``.
     """
 
     def __init__(
@@ -718,8 +838,11 @@ class ServeEngine:
         self.ecfg = engine_cfg or EngineConfig()
         if mesh is not None:
             raise _not_ported("a serve mesh", 6)
-        if draft_params is not None:
-            raise _not_ported("the speculative-decode draft head", 8)
+        if draft_params is not None and self.ecfg.spec_tokens <= 0:
+            raise ValueError(
+                "draft_params given but spec_tokens == 0 - the draft head only"
+                " proposes inside speculative decode (--spec-tokens k)"
+            )
         if self.ecfg.policy not in ("continuous", "static"):
             raise ValueError(f"unknown scheduling policy {self.ecfg.policy!r}")
         if self.ecfg.prefill_chunk < 0:
@@ -755,16 +878,24 @@ class ServeEngine:
         if missing:
             raise ValueError(f"params lack {missing} for quant={quant!r}")
         self.params = _place(params, self.device, adt)
+        # The draft head proposes from the target's last hidden state, so
+        # every step that advances a slot (prefill, chunk prefill, verify)
+        # hands that state back; without a head they return tokens only.
+        self._use_draft = draft_params is not None
+        self.draft_params = _place(draft_params, self.device, adt) if self._use_draft else None
 
-        self._prefill_fn = make_prefill_fn(cfg, quant)
+        hidden = self._use_draft
+        self._prefill_fn = make_prefill_fn(cfg, quant, with_hidden=hidden)
         self._decode_fn = make_decode_fn(cfg, quant, self.decode_impl)
         # Tier-2 prefill (chunked and/or cache-hit suffix) replaces the
         # whole-prompt prefill path.
         self._tier2_prefill = self.ecfg.prefill_chunk > 0 or self.ecfg.prefix_cache
         if self._tier2_prefill:
-            self._chunk_fn = make_chunk_fn(cfg, quant, self.decode_impl, "last")
+            self._chunk_fn = make_chunk_fn(cfg, quant, self.decode_impl, "last", hidden)
         if self.ecfg.spec_tokens > 0:
-            self._verify_fn = make_chunk_fn(cfg, quant, self.decode_impl, "all")
+            self._verify_fn = make_chunk_fn(cfg, quant, self.decode_impl, "all", hidden)
+        if self._use_draft:
+            self._draft_fn = make_draft_fn(cfg, self.ecfg.spec_tokens, quant)
         self._cache = PrefixCache(self.ecfg.page_size) if self.ecfg.prefix_cache else None
 
         page, pool = self.ecfg.page_size, self.ecfg.num_pages
@@ -780,6 +911,11 @@ class ServeEngine:
         self.page_tables = np.zeros((mb, self.table_width), np.int32)
         self.seq_lens = np.zeros(mb, np.int64)       # KV positions stored
         self.last_tokens = np.zeros(mb, np.int32)    # last emitted token
+        # The target's hidden state behind each slot's last token: what the
+        # draft head conditions on. Set by prefill and by every verify step;
+        # a stale row is harmless, as it is rewritten before its next use.
+        if self._use_draft:
+            self.last_hidden = torch.zeros((mb, cfg.d_model), dtype=adt, device=self.device)
         self.slots: List[Optional[GenRequest]] = [None] * mb
         self.slot_pages: List[List[int]] = [[] for _ in range(mb)]
 
@@ -796,6 +932,7 @@ class ServeEngine:
         self.total_prefix_hit_tokens = 0     # of those, served from the cache
         self.total_spec_proposed = 0         # draft tokens sent to verify
         self.total_spec_accepted = 0         # of those, accepted
+        self.total_spec_fallbacks = 0        # requests switched draft -> n-gram
         # Per-slot-per-step (proposed, accepted) samples behind
         # spec_accept_rate_windowed.
         self._spec_recent: Deque[Tuple[int, int]] = collections.deque(
@@ -908,8 +1045,8 @@ class ServeEngine:
             "prefix_hit_rate": round(self.prefix_hit_rate, 4),
             "spec_accept_rate": round(self.spec_accept_rate, 4),
             "spec_accept_rate_windowed": round(self.spec_accept_rate_windowed, 4),
-            "spec_proposer": "ngram",
-            "spec_fallbacks": 0,  # draft head -> n-gram switches (item 8)
+            "spec_proposer": "draft" if self._use_draft else "ngram",
+            "spec_fallbacks": self.total_spec_fallbacks,
         }
 
     # -- the step loop -----------------------------------------------------
@@ -1063,9 +1200,13 @@ class ServeEngine:
             write_page[i, :n] = pages[pos // page]
             write_off[i, :n] = pos % page
 
-        next_tokens = self._prefill_fn(
+        out = self._prefill_fn(
             self.params, tokens, self.k_pages, self.v_pages, write_page, write_off, lens
-        ).cpu().numpy()
+        )
+        if self._use_draft:
+            out, hidden = out
+            self._set_hidden([slot for slot, _ in admitted], hidden[: len(admitted)])
+        next_tokens = out.cpu().numpy()
         for i, (slot, req) in enumerate(admitted):
             self.seq_lens[slot] = len(req.prompt)
             req.pos = len(req.prompt)
@@ -1106,10 +1247,14 @@ class ServeEngine:
             write_off[i, :n] = pos % page
             tables[i] = self.page_tables[slot]
 
-        next_tokens = self._chunk_fn(
+        out = self._chunk_fn(
             self.params, tokens, starts, valid, self.k_pages, self.v_pages,
             tables, write_page, write_off,
-        ).cpu().numpy()
+        )
+        hidden = None
+        if self._use_draft:
+            out, hidden = out
+        next_tokens = out.cpu().numpy()
         for i, slot in enumerate(slots):
             req = self.slots[slot]
             req.pos += int(valid[i])
@@ -1118,6 +1263,10 @@ class ServeEngine:
                 continue  # more chunks to go; nothing emitted yet
             if self._cache is not None:
                 self._cache.register(req.prompt, self.slot_pages[slot])
+            if hidden is not None:
+                # The final chunk's last valid position is the prompt's last
+                # token: the state the head conditions on next.
+                self._set_hidden([slot], hidden[i:i + 1])
             self._emit(slot, req, int(next_tokens[i]), events)
 
     def _run_decode(self, decoding: List[int], events: List[TokenEvent]) -> None:
@@ -1170,19 +1319,32 @@ class ServeEngine:
             req = self.slots[slot]
             valid[slot] = min(c, req.max_new_tokens - len(req.tokens))
         self._ensure_decode_pages(decoding, extra=valid)
+        # The draft head proposes for every slot in one batched call (rows of
+        # preempted or fallen-back slots are computed and ignored).
+        draft_rows = None
+        if self._use_draft and any(
+            self.slots[s] is not None and self.slots[s].draft_ok for s in decoding
+        ):
+            draft_rows = self._draft_fn(
+                self.params, self.draft_params, self.last_hidden, self.last_tokens
+            ).cpu().numpy()  # [mb, k]
         tokens = np.zeros((mb, c), np.int32)
         starts = np.zeros(mb, np.int32)
         write_page = np.full((mb, c), pool, np.int32)
         write_off = np.zeros((mb, c), np.int32)
         active = []
         drafts: Dict[int, List[int]] = {}
+        used_draft = set()
         for slot in decoding:
             req = self.slots[slot]
             if req is None:  # preempted by _ensure_decode_pages
                 continue
             n = int(valid[slot])
             row = [int(self.last_tokens[slot])]
-            if n > 1:
+            if n > 1 and draft_rows is not None and req.draft_ok:
+                row += [int(t) for t in draft_rows[slot, : n - 1]]
+                used_draft.add(slot)
+            elif n > 1:
                 if req.spec_ctx is None:
                     # prompt + tokens[absorbed:] is the emitted stream with
                     # each token once (a preemption refold already moved
@@ -1201,10 +1363,15 @@ class ServeEngine:
         if not active:
             return
 
-        out_tokens = self._verify_fn(
+        out = self._verify_fn(
             self.params, tokens, starts, valid, self.k_pages, self.v_pages,
             self.page_tables, write_page, write_off,
-        ).cpu().numpy()  # [mb, c]
+        )
+        hidden = None
+        if self._use_draft:
+            out, hidden = out  # hidden [mb, c, D]
+        out_tokens = out.cpu().numpy()  # [mb, c]
+        kept = []
         for slot in active:
             req = self.slots[slot]
             n = int(valid[slot])
@@ -1218,6 +1385,10 @@ class ServeEngine:
             req.spec_proposed += n - 1
             req.spec_accepted += accepted
             self._spec_recent.append((n - 1, accepted))
+            if hidden is not None:
+                kept.append((slot, accepted))
+                if slot in used_draft:
+                    self._track_draft_accept(req, n - 1, accepted)
             # The accepted row positions' K/V (0..accepted) just landed; the
             # emitted tail token is not yet written.
             self.seq_lens[slot] += accepted + 1
@@ -1225,6 +1396,34 @@ class ServeEngine:
                 self._emit(slot, req, token, events)
                 if req.done:
                     break
+        if kept:
+            # Row position `accepted` is the target's state after every
+            # token it kept: the conditioning of the slot's next proposal.
+            slots, rows = zip(*kept)
+            self._set_hidden(list(slots), hidden[list(slots), list(rows)])
+
+    def _set_hidden(self, slots: List[int], hidden: torch.Tensor) -> None:
+        """last_hidden[slots] = hidden (rows in the same order)."""
+        index = torch.tensor(slots, device=self.device)
+        self.last_hidden.index_copy_(0, index, hidden.to(self.last_hidden.dtype))
+
+    def _track_draft_accept(self, req: GenRequest, proposed: int, accepted: int) -> None:
+        """Per-request windowed accept tracking behind the draft -> n-gram
+        fallback: judged only once the window is full, and permanent for the
+        request (flapping would churn the n-gram index for nothing). A
+        threshold <= 0 disables it."""
+        if self.ecfg.spec_fallback_threshold <= 0:
+            return
+        if req.spec_recent is None:
+            req.spec_recent = collections.deque(maxlen=max(self.ecfg.spec_fallback_window, 1))
+        req.spec_recent.append((proposed, accepted))
+        if len(req.spec_recent) < req.spec_recent.maxlen:
+            return
+        total_p = sum(p for p, _ in req.spec_recent)
+        total_a = sum(a for _, a in req.spec_recent)
+        if total_p > 0 and total_a / total_p < self.ecfg.spec_fallback_threshold:
+            req.draft_ok = False
+            self.total_spec_fallbacks += 1
 
     def _ensure_decode_pages(
         self, decoding: List[int], extra: Optional[np.ndarray] = None
@@ -1666,8 +1865,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     """``python -m dstack_tpu_torch.workloads.serve``: the runnable serving
     entrypoint, with the JAX CLI's flags. Binds DSTACK_SERVICE_PORT (the
     control plane's contract) unless --port says otherwise. Serves synthetic
-    weights from a seed; --checkpoint-dir, --spec-model and a --mesh raise
-    until ROADMAP items 4, 8 and 6 port them."""
+    weights from a seed, or --checkpoint-dir's; --spec-model loads a draft
+    head. A --mesh raises until ROADMAP item 6 ports it."""
     import argparse
 
     from aiohttp import web
@@ -1705,27 +1904,27 @@ def main(argv: Optional[List[str]] = None) -> None:
                              " per step (0 = off); output stays token-identical"
                              " to greedy")
     parser.add_argument("--spec-model", default="", dest="spec_model",
-                        help="checkpoint dir of a distilled draft head (not yet"
-                             " ported: ROADMAP item 8)")
-    # The draft head's and checkpoint restore's options: parsed so the JAX
-    # command lines are accepted, and refused when given (not yet ported).
+                        help="checkpoint dir holding a distilled draft head (train"
+                             " --draft-head, .draft subtree); replaces the n-gram"
+                             " proposer for --spec-tokens, output stays"
+                             " token-identical to greedy")
     parser.add_argument("--spec-model-step", type=int, default=None, dest="spec_model_step",
-                        help="draft-head checkpoint step (not yet ported:"
-                             " ROADMAP item 8)")
-    parser.add_argument("--spec-fallback-window", type=int, default=None,
+                        help="draft-head checkpoint step (default: latest complete)")
+    parser.add_argument("--spec-fallback-window", type=int, default=16,
                         dest="spec_fallback_window",
-                        help="the draft head's accept-rate fallback window"
-                             " (not yet ported: ROADMAP item 8)")
-    parser.add_argument("--spec-fallback-threshold", type=float, default=None,
+                        help="spec steps per request the accept-rate fallback judges"
+                             " over (the window must fill first)")
+    parser.add_argument("--spec-fallback-threshold", type=float, default=0.1,
                         dest="spec_fallback_threshold",
-                        help="the draft head's accept-rate fallback threshold"
-                             " (not yet ported: ROADMAP item 8)")
+                        help="windowed accept rate below which a request falls back"
+                             " from the draft head to the n-gram proposer (<= 0"
+                             " disables the fallback)")
     parser.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir",
-                        help="restore weights from a train checkpoint (not yet"
-                             " ported: ROADMAP item 4)")
+                        help="restore real weights from a train checkpoint (the"
+                             " .params subtree of a TrainState, in the JAX package's"
+                             " format) instead of serving synthetic ones")
     parser.add_argument("--checkpoint-step", type=int, default=None, dest="checkpoint_step",
-                        help="checkpoint step to restore (not yet ported:"
-                             " ROADMAP item 4)")
+                        help="checkpoint step to restore (default: latest complete)")
     parser.add_argument("--mesh", default="",
                         help="serve mesh spec, tpN or ddMxtpN (not yet ported:"
                              " ROADMAP item 6); default meshless")
@@ -1735,21 +1934,28 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.mesh and args.mesh != "none":
         raise _not_ported(f"--mesh {args.mesh} (a serve mesh)", 6)
-    for flag, value, what, item in (
-        ("--checkpoint-dir", args.checkpoint_dir, "checkpoint restore", 4),
-        ("--checkpoint-step", args.checkpoint_step, "checkpoint restore", 4),
-        ("--spec-model", args.spec_model, "the speculative-decode draft head", 8),
-        ("--spec-model-step", args.spec_model_step, "the speculative-decode draft head", 8),
-        ("--spec-fallback-window", args.spec_fallback_window, "the draft head's fallback", 8),
-        ("--spec-fallback-threshold", args.spec_fallback_threshold,
-         "the draft head's fallback", 8),
-    ):
-        if value not in (None, ""):
-            raise _not_ported(f"{flag} ({what})", item)
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_reference_matmul_precision()
     cfg = get_config(args.config)
+    params = None
+    if args.checkpoint_dir:
+        params, restored = load_serve_params(
+            args.checkpoint_dir, cfg, quant=args.quant, step=args.checkpoint_step,
+            device=device,
+        )
+        print(f"restored checkpoint step {restored['step']} from {args.checkpoint_dir}"
+              + (f" (saved on mesh {restored['mesh']})" if restored.get("mesh") else ""),
+              flush=True)
+    draft_params = None
+    if args.spec_model:
+        if args.spec_tokens <= 0:
+            raise SystemExit("--spec-model needs --spec-tokens > 0")
+        draft_params, draft_manifest = load_draft_params(
+            args.spec_model, cfg, step=args.spec_model_step, device=device,
+        )
+        print(f"draft head restored from {args.spec_model} step {draft_manifest['step']}"
+              f" (.draft subtree)", flush=True)
     engine = ServeEngine(
         cfg,
         EngineConfig(
@@ -1763,9 +1969,14 @@ def main(argv: Optional[List[str]] = None) -> None:
             prefill_chunk=args.prefill_chunk,
             prefix_cache=args.prefix_cache,
             spec_tokens=args.spec_tokens,
+            spec_fallback_window=args.spec_fallback_window,
+            spec_fallback_threshold=args.spec_fallback_threshold,
         ),
+        params=params,
         device=device,
+        draft_params=draft_params,
     )
+    del params, draft_params
     runner = EngineRunner(engine)
     runner.start()
     print(
@@ -1774,8 +1985,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         f"policy={args.policy}, decode={engine.decode_impl}, "
         f"quant={args.quant}, prefill_chunk={args.prefill_chunk}, "
         f"prefix_cache={args.prefix_cache}, spec_tokens={args.spec_tokens}, "
-        f"spec_proposer=ngram, mesh=none, "
-        f"device={device}, weights=synthetic)",
+        f"spec_proposer={'draft' if engine._use_draft else 'ngram'}, mesh=none, "
+        f"device={device}, weights={'checkpoint' if args.checkpoint_dir else 'synthetic'})",
         flush=True,
     )
     try:

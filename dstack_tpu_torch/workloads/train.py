@@ -1,5 +1,6 @@
 """Training on one device: AdamW with global-norm clipping, gradient
-accumulation, the timed loop and the CLI.
+accumulation, checkpoints with resume, the draft head's distillation, the
+timed loop and the CLI.
 
 The port of ``dstack_tpu/workloads/train.py`` without a mesh. One call of
 the step function is one optimizer update, as the JAX package's jitted step;
@@ -7,16 +8,23 @@ the port updates the parameters and the optimizer's moments in place instead
 of returning new ones. Parameters are fp32 masters (cfg.param_dtype) and the
 forward runs in cfg.dtype (``model.forward`` casts each weight on use), so
 gradients reach the masters through those casts as ``jax.grad`` does.
+
+Checkpoints are the JAX package's (``checkpoint.py``): ``state_tree`` lays
+a state out as JAX's ``TrainState`` (or ``DraftTrainState``) flattens, with
+optax's ``chain(clip_by_global_norm, adamw)`` state as ``opt_state``, so
+either package resumes the other's run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
+from dstack_tpu_torch.workloads import checkpoint as checkpoint_lib
 from dstack_tpu_torch.workloads import data as data_lib
 from dstack_tpu_torch.workloads import model as model_lib
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
@@ -51,11 +59,18 @@ class OptimizerConfig:
     def build(self, params: Params) -> torch.optim.Optimizer:
         # optax.adamw decays every leaf, as one param group with weight_decay
         # does here: p -= lr * (adam_update + wd * p); eps is optax's default.
-        cls = AdamWBf16Mu if self.mu_dtype == "bfloat16" else torch.optim.AdamW
-        return cls(
-            list(params.values()), lr=self.learning_rate, betas=(self.b1, self.b2),
-            eps=1e-8, weight_decay=self.weight_decay,
-        )
+        # The moments exist from the start, as optax's ``init`` makes them, so
+        # a fresh state is a checkpoint template and a restore target.
+        if self.mu_dtype == "bfloat16":
+            return AdamWBf16Mu(list(params.values()), lr=self.learning_rate,
+                               betas=(self.b1, self.b2), eps=1e-8, weight_decay=self.weight_decay)
+        opt = torch.optim.AdamW(list(params.values()), lr=self.learning_rate,
+                                betas=(self.b1, self.b2), eps=1e-8,
+                                weight_decay=self.weight_decay)
+        for p in params.values():
+            opt.state[p].update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                                exp_avg_sq=torch.zeros_like(p))
+        return opt
 
 
 class AdamWBf16Mu(torch.optim.Optimizer):
@@ -74,6 +89,10 @@ class AdamWBf16Mu(torch.optim.Optimizer):
     def __init__(self, params, lr: float, betas: Tuple[float, float], eps: float,
                  weight_decay: float):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p].update(step=0, mu=torch.zeros_like(p, dtype=torch.bfloat16),
+                                     nu=torch.zeros_like(p, dtype=torch.float32))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -83,12 +102,6 @@ class AdamWBf16Mu(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            for p in params:
-                if not self.state[p]:
-                    self.state[p].update(
-                        step=0, mu=torch.zeros_like(p, dtype=torch.bfloat16),
-                        nu=torch.zeros_like(p, dtype=torch.float32),
-                    )
             states = [self.state[p] for p in params]
             grads = [p.grad.float() for p in params]
             mus = [st["mu"] for st in states]
@@ -210,8 +223,12 @@ def accumulate_grads(loss_fn, params: Params, tokens, targets, grad_accum: int,
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf (optax.global_norm)."""
-    return torch.sqrt(sum(torch.linalg.vector_norm(g.float()).square() for g in grads))
+    """sqrt of the sum of squares over every leaf (optax.global_norm). Each
+    leaf's sum of squares is a BLAS dot of the leaf with itself: no
+    temporary of the leaf's size, and on the CPU a blocked sum, where
+    ``torch.linalg.vector_norm`` accumulates serially and lands 1e-5 off
+    for a leaf of 10^6 entries."""
+    return torch.sqrt(sum(torch.dot(v, v) for v in (g.float().flatten() for g in grads)))
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
@@ -240,16 +257,137 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig, grad_accum: in
             loss, grads = accumulate_grads(
                 model_lib.loss_fn, state.params, tokens, targets, grad_accum, cfg=cfg
             )
-        grad_norm = global_norm(grads.values())
-        clip_by_global_norm_(grads.values(), optimizer.grad_clip, grad_norm)
-        for name, p in state.params.items():
-            p.grad = grads[name]
-        state.opt.step()
-        state.opt.zero_grad(set_to_none=True)
+        grad_norm = _apply_update(state.opt, state.params, grads, optimizer.grad_clip)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
 
     return step
+
+
+def _apply_update(opt: torch.optim.Optimizer, trained: Params, grads: Params,
+                  grad_clip: float) -> torch.Tensor:
+    """clip_by_global_norm then the AdamW update of ``trained`` in place;
+    returns the unclipped global norm."""
+    grad_norm = global_norm(grads.values())
+    clip_by_global_norm_(grads.values(), grad_clip, grad_norm)
+    for name, p in trained.items():
+        p.grad = grads[name]
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return grad_norm
+
+
+@dataclasses.dataclass
+class DraftTrainState:
+    """Distillation state for the draft head (--draft-head): the frozen
+    target rides along as ``params``, so one checkpoint serves both
+    ``serve.load_serve_params`` (``.params``) and ``serve.load_draft_params``
+    (``.draft``). Only ``draft`` trains; ``opt`` covers it alone."""
+
+    params: Params
+    draft: Params
+    opt: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_draft_distill_step(cfg: LlamaConfig, optimizer: OptimizerConfig, rollout: int = 2):
+    """Returns (state: DraftTrainState, tokens) -> (state, loss): one
+    distillation update. The frozen target's forward gives the hidden states
+    and argmax labels (model.draft_distill_loss); gradients reach
+    ``state.draft`` only. The target tree is shared, never copied."""
+
+    def step(state: DraftTrainState, tokens: torch.Tensor):
+        loss, grads = value_and_grad(
+            lambda draft: model_lib.draft_distill_loss(draft, state.params, tokens, cfg,
+                                                       rollout=rollout),
+            state.draft,
+        )
+        _apply_update(state.opt, state.draft, grads, optimizer.grad_clip)
+        state.step += 1
+        return state, loss
+
+    return step
+
+
+# -- the checkpoint layout ---------------------------------------------------
+# optax.chain(clip_by_global_norm, adamw) keeps its state as
+# (EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())):
+# the clip, the decoupled decay and the learning-rate scale hold no leaves.
+# These named tuples give checkpoint.leaf_entries the same key paths.
+
+
+class EmptyState(NamedTuple):
+    """optax's EmptyState: no leaves."""
+
+
+class ScaleByAdamState(NamedTuple):
+    count: torch.Tensor  # 0-d int32
+    mu: Params
+    nu: Params
+
+
+class TrainStateTree(NamedTuple):
+    params: Params
+    opt_state: tuple
+    step: torch.Tensor  # 0-d int32
+
+
+class DraftStateTree(NamedTuple):
+    params: Params
+    draft: Params
+    opt_state: tuple
+    step: torch.Tensor  # 0-d int32
+
+
+def _moment_keys(opt: torch.optim.Optimizer) -> Tuple[str, str]:
+    return ("mu", "nu") if isinstance(opt, AdamWBf16Mu) else ("exp_avg", "exp_avg_sq")
+
+
+def _trained(state) -> Params:
+    return state.draft if isinstance(state, DraftTrainState) else state.params
+
+
+def state_tree(state):
+    """``state`` laid out as JAX's TrainState (or DraftTrainState) flattens:
+    ``.params[...]`` (``.draft[...]``), ``.opt_state[1][0].count`` /
+    ``.mu[...]`` / ``.nu[...]`` and ``.step``. The tensors are the state's
+    own (no copy); the step counts are new 0-d int32 tensors. The
+    optimizer keeps a step count per parameter; all must agree."""
+    trained = _trained(state)
+    mu_key, nu_key = _moment_keys(state.opt)
+    counts = {int(state.opt.state[p]["step"]) for p in trained.values()}
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer's per-parameter step counts disagree: {sorted(counts)}")
+    adam = ScaleByAdamState(
+        count=torch.tensor(counts.pop(), dtype=torch.int32),
+        mu={k: state.opt.state[p][mu_key] for k, p in trained.items()},
+        nu={k: state.opt.state[p][nu_key] for k, p in trained.items()},
+    )
+    opt_state = (EmptyState(), (adam, EmptyState(), EmptyState()))
+    step = torch.tensor(state.step, dtype=torch.int32)
+    if isinstance(state, DraftTrainState):
+        return DraftStateTree(state.params, state.draft, opt_state, step)
+    return TrainStateTree(state.params, opt_state, step)
+
+
+@torch.no_grad()
+def load_state_tree(state, tree) -> None:
+    """Copy a restored ``state_tree`` layout into ``state`` in place: the
+    parameters, the moments, every parameter's optimizer step count (a
+    float tensor for torch's AdamW, whose bias correction reads it) and the
+    step."""
+    for name in ("params", "draft") if isinstance(state, DraftTrainState) else ("params",):
+        for k, t in getattr(state, name).items():
+            t.copy_(getattr(tree, name)[k])
+    adam = tree.opt_state[1][0]
+    count = int(adam.count)
+    mu_key, nu_key = _moment_keys(state.opt)
+    for k, p in _trained(state).items():
+        st = state.opt.state[p]
+        st[mu_key].copy_(adam.mu[k])
+        st[nu_key].copy_(adam.nu[k])
+        st["step"] = count if isinstance(state.opt, AdamWBf16Mu) else torch.tensor(float(count))
+    state.step = int(tree.step)
 
 
 def _step_time_stats(times) -> Dict[str, float]:
@@ -275,7 +413,7 @@ def _device_peak_flops(device: torch.device) -> float:
 
 def _timed_loop(steps: int, batch: int, seq: int, do_step,
                 flops_per_step: float = 0.0, telemetry=None,
-                step_extras=None, on_step=None,
+                step_extras=None, start_step: int = 0, on_step=None,
                 device: Optional[torch.device] = None) -> Dict[str, float]:
     """Shared throughput loop: ``do_step()`` advances the state and returns
     the loss as a 0-dim tensor; reading it as a float waits for the device
@@ -286,12 +424,14 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     give tokens/s and, on a card with a known peak, MFU. Every step lands on
     the telemetry channel with the reference's keys: compile_start /
     compile_end marks around the first call, then one ``step`` point per
-    iteration, then run_end. ``on_step(step, loss)`` fires after every
-    step."""
+    iteration, then run_end. ``start_step`` resumes the numbering after a
+    checkpoint restore: the loop runs ``steps - start_step`` steps numbered
+    ``start_step + 1 .. steps``. ``on_step(step, loss)`` fires after every
+    step; its exceptions propagate (an injected crash must end the run)."""
     if telemetry is None:
         telemetry = telemetry_lib.get_emitter()
-    if steps <= 0:
-        print("training done (0 steps)", flush=True)
+    if steps - start_step <= 0:
+        print(f"training done (0 steps remaining of {steps})", flush=True)
         return {}
     device = torch.device("cpu") if device is None else torch.device(device)
     peak_flops = _device_peak_flops(device) if flops_per_step else 0.0
@@ -301,12 +441,13 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     loss = float(do_step())
     compile_s = time.perf_counter() - t0
     telemetry.mark("compile_end", compile_s=compile_s)
-    print(f"step 1/{steps} loss={loss:.4f} compile+first-step {compile_s:.2f}s", flush=True)
+    print(f"step {start_step + 1}/{steps} loss={loss:.4f} compile+first-step {compile_s:.2f}s",
+          flush=True)
     if on_step is not None:
-        on_step(1, loss)
+        on_step(start_step + 1, loss)
 
     times = []
-    for i in range(1, steps):
+    for i in range(start_step + 1, steps):
         t0 = time.perf_counter()
         loss = float(do_step())
         dt = time.perf_counter() - t0
@@ -341,7 +482,7 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     if times:
         p50 = stats["p50_s"]
         stats["tokens_per_sec"] = batch * seq / max(p50, 1e-9)
-        summary = (f"done: {steps} steps, compile {compile_s:.2f}s, "
+        summary = (f"done: {steps - start_step} steps, compile {compile_s:.2f}s, "
                    f"step p50 {p50 * 1000:.1f}ms p90 {stats['p90_s'] * 1000:.1f}ms, "
                    f"{stats['tokens_per_sec']:,.0f} tok/s")
         if flops_per_step:
@@ -362,6 +503,66 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     )
     telemetry.flush()
     return stats
+
+
+def make_checkpoint_manager(args, telemetry):
+    """--checkpoint-dir -> a CheckpointManager (None when checkpointing is
+    off)."""
+    if not getattr(args, "checkpoint_dir", ""):
+        return None
+    return checkpoint_lib.CheckpointManager(args.checkpoint_dir, telemetry=telemetry)
+
+
+def maybe_resume(manager, resume: bool, state, telemetry):
+    """Restore the latest complete checkpoint into ``state`` (in place) when
+    --resume is set. Returns (state, start_step). A fresh directory under
+    --resume starts at step 0 (the first attempt of a retried gang passes
+    the same flags)."""
+    if manager is None or not resume:
+        return state, 0
+    step = manager.latest_step()
+    if step is None:
+        print("resume: no complete checkpoint found; starting fresh", flush=True)
+        return state, 0
+    tree, manifest = manager.restore(state_tree(state), step)
+    load_state_tree(state, tree)
+    del tree
+    start_step = int(manifest["step"])
+    telemetry.mark("restart", step=start_step, resumed=True, from_mesh=manifest.get("mesh"))
+    print(f"resumed from checkpoint step {start_step} (saved on mesh {manifest.get('mesh')})",
+          flush=True)
+    return state, start_step
+
+
+def make_checkpoint_hook(manager, every: int, total_steps: int, get_state,
+                         mesh_shape=None, resumed: bool = False):
+    """The _timed_loop on_step hook: save every N steps (the final state is
+    saved by the entry point after the loop, so the last step is not written
+    twice). DSTACK_TPU_TRAIN_CRASH_AT_STEP injects a preemption for the
+    control plane's smoke and bench runs, on the first attempt only (a
+    resumed run sails past the crash step it already survived).
+    ``get_state`` returns the checkpoint layout (``state_tree``)."""
+    crash_at = int(os.environ.get("DSTACK_TPU_TRAIN_CRASH_AT_STEP", "0") or 0)
+
+    def on_step(step: int, loss) -> None:
+        if manager is not None and every > 0 and step % every == 0 and step < total_steps:
+            manager.save(step, get_state(), data_offset=step, mesh_shape=mesh_shape)
+        if crash_at and not resumed and step >= crash_at:
+            print(f"injected preemption: exiting at step {step}", flush=True)
+            raise SystemExit(1)
+
+    return on_step
+
+
+def _chain(*hooks):
+    """One on_step hook that calls each given hook in turn."""
+    hooks = [h for h in hooks if h is not None]
+
+    def on_step(step: int, loss) -> None:
+        for hook in hooks:
+            hook(step, loss)
+
+    return on_step
 
 
 def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
@@ -391,33 +592,166 @@ def train(
     on_step: Optional[Callable[[int, float], None]] = None,
     telemetry=None,
     mu_dtype: Optional[str] = None,
+    ckpt: Optional[checkpoint_lib.CheckpointManager] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
 ) -> Dict[str, float]:
     """Train ``cfg`` for ``steps`` updates on ``device`` from synthetic
-    parameters and the input pipeline; returns the timed loop's stats."""
-    optimizer = make_optimizer(mu_dtype=mu_dtype)
-    state = init_train_state(cfg, optimizer, device)
-    step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum)
-    feed = data_lib.input_pipeline(
-        batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
-    )
-    flops_per_step = cfg.flops_per_token(seq) * batch * seq
-    box = {"state": state}
-    feed_wait = {"s": 0.0}
+    parameters and the input pipeline; returns the timed loop's stats.
 
-    def do_step():
-        t0 = time.perf_counter()
-        tokens, targets = next(feed)
-        feed_wait["s"] = time.perf_counter() - t0
-        box["state"], metrics = step_fn(box["state"], tokens, targets)
-        return metrics["loss"]
-
+    With ``ckpt``: ``resume`` restores the latest complete checkpoint and
+    the feed seeks past the batches it consumed; a save every
+    ``checkpoint_every`` steps, and the final state once more (blocking)
+    when ``checkpoint_every`` is set. ``on_step(step, loss)`` runs before the
+    checkpoint hook. The manager is closed (its last write drained) on the
+    way out, an injected crash included."""
+    if telemetry is None:
+        telemetry = telemetry_lib.get_emitter()
     try:
-        return _timed_loop(steps, batch, seq, do_step, flops_per_step,
-                           telemetry=telemetry,
-                           step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
-                           on_step=on_step, device=device)
+        optimizer = make_optimizer(mu_dtype=mu_dtype)
+        state = init_train_state(cfg, optimizer, device)
+        state, start_step = maybe_resume(ckpt, resume, state, telemetry)
+        step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum)
+        feed = data_lib.input_pipeline(
+            batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
+            start_batch=start_step,
+        )
+        flops_per_step = cfg.flops_per_token(seq) * batch * seq
+        box = {"state": state}
+        feed_wait = {"s": 0.0}
+
+        def do_step():
+            t0 = time.perf_counter()
+            tokens, targets = next(feed)
+            feed_wait["s"] = time.perf_counter() - t0
+            box["state"], metrics = step_fn(box["state"], tokens, targets)
+            return metrics["loss"]
+
+        hook = make_checkpoint_hook(ckpt, checkpoint_every, steps,
+                                    lambda: state_tree(box["state"]), resumed=start_step > 0)
+        try:
+            stats = _timed_loop(steps, batch, seq, do_step, flops_per_step,
+                                telemetry=telemetry,
+                                step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
+                                start_step=start_step, on_step=_chain(on_step, hook),
+                                device=device)
+            if ckpt is not None and checkpoint_every:
+                # The final state: a completed run's last step restores too.
+                ckpt.save(steps, state_tree(box["state"]), data_offset=steps, block=True)
+            return stats
+        finally:
+            feed.close()
     finally:
-        feed.close()
+        if ckpt is not None:
+            ckpt.close()
+
+
+def _restore_target(ckpt, step: int, cfg: LlamaConfig, device: torch.device) -> Tuple[Params, dict]:
+    """The ``.params`` subtree of checkpoint ``step`` at cfg's shapes and
+    param dtype on ``device``: a TrainState and a DraftTrainState both
+    hold it, and so does a params-only tree."""
+    dtype = model_lib.dtype_of(cfg.param_dtype)
+    template = {k: checkpoint_lib.LeafSpec(shape, dtype, device)
+                for k, shape in model_lib.param_shapes(cfg).items()}
+    return ckpt.restore_subtree(template, step=step, prefix=".params")
+
+
+def distill(
+    cfg: LlamaConfig,
+    *,
+    steps: int,
+    batch: int,
+    seq: int,
+    device: torch.device,
+    prefetch: int = 2,
+    data_path: Optional[str] = None,
+    on_step: Optional[Callable[[int, float], None]] = None,
+    telemetry=None,
+    mu_dtype: Optional[str] = None,
+    ckpt: Optional[checkpoint_lib.CheckpointManager] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    draft_layers: int = 2,
+    draft_ff: int = 0,
+    draft_lr: float = 1e-3,
+    rollout: int = 2,
+) -> Dict[str, float]:
+    """Distill the draft head against the frozen target (--draft-head).
+
+    The target is the latest checkpoint's ``.params`` in ``ckpt`` when there
+    is one (a TrainState or an earlier DraftTrainState), else the synthetic
+    init. The saved state is a DraftTrainState whose step numbers continue
+    past the target's, so ``latest_step`` lands on it and serve can point
+    --checkpoint-dir and --spec-model at the same directory; with
+    ``resume``, a latest step that holds ``.draft`` resumes in place. The
+    final state is saved (blocking) whenever there is a manager."""
+    if telemetry is None:
+        telemetry = telemetry_lib.get_emitter()
+    optimizer = make_optimizer(learning_rate=draft_lr, mu_dtype=mu_dtype)
+    feed = None
+    try:
+        base_step = 0
+        latest = ckpt.latest_step() if ckpt is not None else None
+        resume_full = latest is not None and resume and any(
+            leaf["key"].startswith(".draft") for leaf in ckpt.read_manifest(latest)["leaves"]
+        )
+        if latest is not None and not resume_full:
+            target, manifest = _restore_target(ckpt, latest, cfg, device)
+            base_step = int(manifest["step"])
+            print(f"draft-head: frozen target from checkpoint step {base_step}", flush=True)
+        else:
+            target = model_lib.init_params(
+                cfg, torch.Generator(device=device).manual_seed(0), device)
+        draft = model_lib.init_draft_params(
+            cfg, torch.Generator(device=device).manual_seed(1), device,
+            n_layers=draft_layers, d_ff=draft_ff,
+        )
+        for p in draft.values():
+            p.requires_grad_(True)
+        state = DraftTrainState(target, draft, optimizer.build(draft))
+        start_step = 0
+        if resume_full:
+            tree, manifest = ckpt.restore(state_tree(state), latest)
+            load_state_tree(state, tree)
+            del tree
+            start_step = state.step
+            base_step = int(manifest["step"]) - start_step
+            print(f"resumed draft head at draft step {start_step}"
+                  f" (checkpoint step {manifest['step']})", flush=True)
+        step_fn = make_draft_distill_step(cfg, optimizer, rollout=rollout)
+        feed = data_lib.input_pipeline(
+            batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch,
+            device=device, start_batch=start_step,
+        )
+        box = {"state": state}
+        feed_wait = {"s": 0.0}
+
+        def do_step():
+            t0 = time.perf_counter()
+            tokens, _ = next(feed)  # the teacher labels itself; targets unused
+            feed_wait["s"] = time.perf_counter() - t0
+            box["state"], loss = step_fn(box["state"], tokens)
+            return loss
+
+        def save_every(step: int, loss) -> None:
+            if ckpt is not None and checkpoint_every and step % checkpoint_every == 0 \
+                    and step < steps:
+                ckpt.save(base_step + step, state_tree(box["state"]), data_offset=step)
+
+        stats = _timed_loop(steps, batch, seq, do_step, telemetry=telemetry,
+                            step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
+                            start_step=start_step, on_step=_chain(on_step, save_every),
+                            device=device)
+        if ckpt is not None:
+            ckpt.save(base_step + steps, state_tree(box["state"]), data_offset=steps, block=True)
+            print(f"draft head saved at checkpoint step {base_step + steps} (.draft subtree)",
+                  flush=True)
+        return stats
+    finally:
+        if feed is not None:
+            feed.close()
+        if ckpt is not None:
+            ckpt.close()
 
 
 def _unported(args) -> Optional[str]:
@@ -425,12 +759,8 @@ def _unported(args) -> Optional[str]:
     yet, with its ROADMAP item."""
     checks = (
         (args.config in MOE_PRESET_NAMES, f"MoE config {args.config}", 9),
-        (args.draft_head, "--draft-head", 8),
-        (args.checkpoint_every or args.checkpoint_dir or args.resume,
-         "--checkpoint-every/--checkpoint-dir/--resume", 4),
         (args.tp > 1 or args.tp_overlap or args.fsdp_overlap or args.multislice or args.ep,
          "--tp/--tp-overlap/--fsdp-overlap/--multislice/--ep (meshes)", 6),
-        (args.quant in ("int8", "fp8"), f"--quant {args.quant}", "3b"),
         (args.autotune, "--autotune", 10),
     )
     for hit, what, item in checks:
@@ -483,20 +813,43 @@ def main(argv=None) -> Dict[str, float]:
                              " on; empty = synthetic tokens")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without one) or cpu")
+    parser.add_argument("--quant", default="", choices=["", "none", "int8", "fp8"],
+                        help="matmul precision: int8/fp8 = dynamically quantized"
+                             " projections with fp32 sums and straight-through"
+                             " gradients; fp8 (e4m3) needs compute capability 8.9+"
+                             " (config default if empty)")
+    parser.add_argument("--checkpoint-every", type=int, default=0, dest="checkpoint_every",
+                        help="save an async checkpoint every N steps (0 = off;"
+                             " requires --checkpoint-dir)")
+    parser.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir",
+                        help="directory for checkpoints, in the JAX package's format")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest complete checkpoint in"
+                             " --checkpoint-dir; a fresh dir starts at step 0")
+    parser.add_argument("--draft-head", action="store_true", dest="draft_head",
+                        help="distill a speculative-decode draft head against the"
+                             " frozen target instead of training the target; saved"
+                             " as the .draft subtree next to .params (serve --spec-model)")
+    parser.add_argument("--draft-layers", type=int, default=2, dest="draft_layers",
+                        help="draft-head depth (pre-norm residual blocks)")
+    parser.add_argument("--draft-ff", type=int, default=0, dest="draft_ff",
+                        help="draft-head MLP width (0 = 2 * d_model)")
+    parser.add_argument("--draft-lr", type=float, default=1e-3, dest="draft_lr",
+                        help="draft-head AdamW learning rate")
+    parser.add_argument("--draft-rollout", type=int, default=2, dest="draft_rollout",
+                        help="distillation rollout depth: steps >= 2 train the head"
+                             " on its own continuations")
     # Flags of the JAX entry point that the port does not have yet: they
     # parse, then raise naming their ROADMAP item.
-    parser.add_argument("--quant", default="", choices=["", "none", "int8", "fp8"])
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--tp-overlap", action="store_true", dest="tp_overlap")
     parser.add_argument("--fsdp-overlap", action="store_true", dest="fsdp_overlap")
     parser.add_argument("--multislice", action="store_true")
     parser.add_argument("--ep", type=int, default=0)
     parser.add_argument("--autotune", action="store_true")
-    parser.add_argument("--checkpoint-every", type=int, default=0, dest="checkpoint_every")
-    parser.add_argument("--checkpoint-dir", default="", dest="checkpoint_dir")
-    parser.add_argument("--resume", action="store_true")
-    parser.add_argument("--draft-head", action="store_true", dest="draft_head")
     args = parser.parse_args(argv)
+    if args.checkpoint_every and not args.checkpoint_dir:
+        raise SystemExit("--checkpoint-every requires --checkpoint-dir")
 
     missing = _unported(args)
     if missing:
@@ -504,6 +857,29 @@ def main(argv=None) -> Dict[str, float]:
     device = platform.resolve_device(args.device)
     if device.type == "cuda":
         platform.set_reference_matmul_precision()
+    telemetry = telemetry_lib.get_emitter()
+    telemetry.set_identity(proc=0)
+    if args.draft_head:
+        cfg = apply_perf_overrides(get_config(args.config), args)
+        batch = args.batch or 2
+        seq = args.seq or cfg.max_seq_len
+        validate_config(cfg, seq=seq, device=device)
+        print(f"draft-head distillation: config={args.config} device={device} batch={batch}"
+              f" seq={seq} layers={args.draft_layers} rollout={args.draft_rollout}"
+              f" lr={args.draft_lr}", flush=True)
+        telemetry.mark("run_start", workload="train_draft", config=args.config, devices=1,
+                       batch=batch, seq=seq)
+        try:
+            return distill(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
+                           prefetch=args.prefetch, data_path=args.data or None,
+                           telemetry=telemetry, mu_dtype=args.mu_dtype or None,
+                           ckpt=make_checkpoint_manager(args, telemetry),
+                           checkpoint_every=args.checkpoint_every, resume=args.resume,
+                           draft_layers=args.draft_layers, draft_ff=args.draft_ff,
+                           draft_lr=args.draft_lr, rollout=args.draft_rollout)
+        finally:
+            telemetry.close()
+
     cfg = get_config(args.config)
     if args.remat_policy:
         cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
@@ -511,22 +887,23 @@ def main(argv=None) -> Dict[str, float]:
     model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
     batch = args.batch or 2 * args.grad_accum
     seq = args.seq or cfg.max_seq_len
-    validate_config(cfg, seq=seq)
+    validate_config(cfg, seq=seq, device=device)
 
     print(f"config={args.config} device={device} batch={batch} seq={seq} "
           f"grad_accum={args.grad_accum} attn_impl={cfg.attn_impl} "
-          f"attn_window={cfg.attn_window} mu_dtype={args.mu_dtype or 'float32'} "
+          f"attn_window={cfg.attn_window} quant={cfg.quant} "
+          f"mu_dtype={args.mu_dtype or 'float32'} "
           f"remat={cfg.remat_policy if cfg.remat else 'off'} prefetch={args.prefetch} "
           f"params={cfg.num_params() / 1e9:.3f}B", flush=True)
-    telemetry = telemetry_lib.get_emitter()
-    telemetry.set_identity(proc=0)
     telemetry.mark("run_start", workload="train", config=args.config, devices=1,
                    batch=batch, seq=seq, grad_accum=args.grad_accum)
     try:
         return train(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
                      grad_accum=args.grad_accum, prefetch=args.prefetch,
                      data_path=args.data or None, telemetry=telemetry,
-                     mu_dtype=args.mu_dtype or None)
+                     mu_dtype=args.mu_dtype or None,
+                     ckpt=make_checkpoint_manager(args, telemetry),
+                     checkpoint_every=args.checkpoint_every, resume=args.resume)
     finally:
         telemetry.close()
 

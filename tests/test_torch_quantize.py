@@ -1,5 +1,4 @@
-"""The PyTorch port's weight-only quantization against the JAX package, on
-the CPU.
+"""The PyTorch port's quantization against the JAX package, on the CPU.
 
 The same seeded numpy weights go through ``dstack_tpu.workloads.quantize``
 and ``dstack_tpu_torch.workloads.quantize``: int8 values must be equal as
@@ -9,8 +8,16 @@ atol 1e-5 / rtol 1e-5 (both sum exact products in fp32, in different
 orders). The serve layout (``quantize_serve_params``) has the JAX keys and
 dtypes, and ``convert.params_from_numpy`` carries a JAX-quantized tree
 across unchanged.
+
+Training's half: ``int8_matmul`` bit-equal to JAX's (exact int32 sums),
+``fp8_matmul`` within 1e-6 of the largest output (the same exact products
+summed in another order), the straight-through gradients exactly the fp32
+gradients of ``x @ w``, the lm_head under int8 and fp8 as JAX's forward has
+it, and three quantized train steps against JAX's ``make_train_step``
+(within QUANT_STEP_RTOL, for the reason given there).
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -122,8 +129,6 @@ def test_weight_only_matmul_matches_jax(mode, x_dtype):
 @pytest.fixture(scope="module")
 def trees():
     """A small model's JAX init_params tree, as numpy arrays."""
-    import jax
-
     from dstack_tpu.workloads import model as jmodel
     from dstack_tpu.workloads.config import get_config
 
@@ -178,3 +183,126 @@ def test_engine_takes_a_quantized_tree_as_it_quantizes_its_own(trees):
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
     assert "lm_head" in fp, "the engine does not consume the caller's tree"
+
+
+# -- training's quantized projections (straight-through) ---------------------------
+
+
+def operands(x_dtype="float32", seed=6):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(3, 5, 64).astype(np.float32)
+    w = (rng.randn(64, 40) / 8).astype(np.float32)
+    if x_dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_int8_matmul_is_bit_equal_to_jax(x_dtype):
+    """Exact int32 sums on both sides, then the same fp32 scale products."""
+    x, w = operands(x_dtype)
+    ref = np.asarray(jq.int8_matmul(jnp.asarray(x), jnp.asarray(w)))
+    got = tq.int8_matmul(as_torch(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (3, 5, 40)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_fp8_matmul_matches_jax_within_its_tolerance(x_dtype):
+    """Bit-equal fp8 operands and scales; the exact products are summed in
+    fp32 in another order, so the outputs agree within 1e-6 of the largest
+    |output|."""
+    x, w = operands(x_dtype)
+    ref = np.asarray(jq.fp8_matmul(jnp.asarray(x), jnp.asarray(w)))
+    got = tq.fp8_matmul(as_torch(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_ste_grads_are_exactly_the_fp_grads(mode):
+    """The backward of the quantized product is the fp32 backward of x @ w
+    against the original operands, in their dtypes; and JAX's within 1e-6."""
+    x, w = operands()
+    g = np.random.RandomState(7).randn(3, 5, 40).astype(np.float32)
+    ste = {"int8": tq.int8_matmul_ste, "fp8": tq.fp8_matmul_ste}[mode]
+    grads = {}
+    for name, fn in (("ste", ste), ("fp", lambda a, b: a @ b)):
+        tx, tw = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(w).requires_grad_(True)
+        fn(tx, tw).backward(torch.from_numpy(g))
+        grads[name] = (tx.grad.numpy(), tw.grad.numpy())
+    for got, want in zip(grads["ste"], grads["fp"]):
+        np.testing.assert_array_equal(got, want)
+    jste = {"int8": jq.int8_matmul_ste, "fp8": jq.fp8_matmul_ste}[mode]
+    _, vjp = jax.vjp(jste, jnp.asarray(x), jnp.asarray(w))
+    for got, want in zip(grads["ste"], vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def quant_trees():
+    from dstack_tpu.workloads import model as jmodel
+    from dstack_tpu.workloads.config import get_config
+
+    params = jmodel.init_params(get_config("test", **TINY_KW), jax.random.PRNGKey(1))
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_lm_head_follows_jax_under_each_quant_mode(quant, quant_trees):
+    """The forward's logits against JAX's (1e-5): under int8 the lm_head is
+    the quantized product of the final hidden state, under fp8 it stays the
+    fp product."""
+    from dstack_tpu.workloads import model as jmodel
+    from dstack_tpu.workloads.config import get_config as jget
+    from dstack_tpu_torch.workloads import model as tmodel
+    from dstack_tpu_torch.workloads.config import get_config as tget
+
+    jcfg, tcfg = jget("test", quant=quant, **TINY_KW), tget("test", quant=quant, **TINY_KW)
+    tokens = np.random.RandomState(8).randint(0, 251, (2, 12)).astype(np.int32)
+    params = params_from_numpy(quant_trees, torch.device("cpu"), torch.float32)
+    ref = np.asarray(jmodel.forward({k: jnp.asarray(v) for k, v in quant_trees.items()},
+                                    jnp.asarray(tokens), jcfg))
+    logits = tmodel.forward(params, torch.from_numpy(tokens), tcfg)
+    np.testing.assert_allclose(logits.numpy(), ref, atol=1e-5)
+    hidden = tmodel.forward(params, torch.from_numpy(tokens), tcfg, return_hidden=True)
+    head = (tq.int8_matmul(hidden, params["lm_head"]) if quant == "int8"
+            else hidden @ params["lm_head"])
+    np.testing.assert_array_equal(logits.numpy(), head.numpy())
+
+
+# Quantized train steps against JAX: relative tolerance of losses and grad
+# norms. The two sides' fp32 roundings differ by ~1e-7 (summation order);
+# an activation or weight that close to an int8 or e4m3 rounding boundary
+# quantizes to the next grid value on one side only (one step of 1/127 of
+# its row's absmax, or 2^-3 of itself), which moves the loss by ~1e-4.
+QUANT_STEP_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantized_train_steps_match_jax(quant, quant_trees):
+    """3 updates under --quant against JAX's make_train_step from the same
+    parameters and batches: loss and unclipped grad norm at every step
+    within QUANT_STEP_RTOL."""
+    from dstack_tpu.workloads import train as jtrain
+    from dstack_tpu.workloads.config import get_config as jget
+    from dstack_tpu_torch.workloads import train as ttrain
+    from dstack_tpu_torch.workloads.config import get_config as tget
+
+    jcfg, tcfg = jget("test", quant=quant, **TINY_KW), tget("test", quant=quant, **TINY_KW)
+    jparams = {k: jnp.array(v) for k, v in quant_trees.items()}
+    jstate = jtrain.TrainState(jparams, jtrain.make_optimizer().init(jparams),
+                               jnp.zeros((), jnp.int32))
+    jstep = jtrain.make_train_step(jcfg, jtrain.make_optimizer())
+    optimizer = ttrain.make_optimizer()
+    state = ttrain.init_train_state(
+        tcfg, optimizer, params=params_from_numpy(quant_trees, torch.device("cpu"), torch.float32))
+    step = ttrain.make_train_step(tcfg, optimizer)
+    for i in range(3):
+        tokens = np.random.RandomState(30 + i).randint(0, 251, (2, 16)).astype(np.int32)
+        targets = np.roll(tokens, -1, axis=1)
+        jstate, jm = jstep(jstate, tokens, targets)
+        state, m = step(state, torch.from_numpy(tokens), torch.from_numpy(targets))
+        np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=QUANT_STEP_RTOL)
+        np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
+                                   rtol=QUANT_STEP_RTOL)
+        assert m["step"] == int(jm["step"]) == i + 1

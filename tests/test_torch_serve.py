@@ -10,7 +10,8 @@ flags together (fp8, prefix cache, chunked prefill, speculative decode). The
 n-gram proposer and a scripted ``PrefixCache`` sequence agree with the JAX
 objects. The HTTP apps must answer alike, gauge headers included; a runner
 writes the JAX runner's ``engine`` telemetry point; the engine must refuse to
-run without a device it was not told about, and what is not yet ported
+run without a device it was not told about; the checkpoint and draft-head
+flags keep their error contracts, and a serve mesh (not yet ported)
 raises; the port must import nothing of JAX or of the JAX package.
 """
 
@@ -307,36 +308,87 @@ def test_no_device_means_cuda_and_raises_without_it(torch_params, monkeypatch):
         tserve.main()
 
 
+@pytest.mark.parametrize("what", ["mesh", "main-mesh-tp4"])
+def test_unported_features_raise(what, torch_params):
+    """A serve mesh is not yet ported: the engine's mesh and the CLI's
+    --mesh raise, naming ROADMAP item 6."""
+    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP item 6"):
+        if what == "main-mesh-tp4":
+            tserve.main(["--config", "test", "--device", "cpu", "--mesh", "tp4"])
+        else:
+            tserve.ServeEngine(TTINY, tserve.EngineConfig(**BASE, spec_tokens=4),
+                               params=torch_params, device="cpu", mesh=object())
+
+
+@pytest.fixture(scope="module")
+def test_preset_checkpoints(tmp_path_factory):
+    """Checkpoints of the ``test`` preset written by the port's train.main:
+    a TrainState (step 1) and a DraftTrainState (step 1)."""
+    from dstack_tpu_torch.workloads import train as ttrain
+
+    dirs = {name: tmp_path_factory.mktemp(name) for name in ("train", "draft")}
+    common = ["--device", "cpu", "--config", "test", "--seq", "32", "--steps", "1"]
+    ttrain.main([*common, "--checkpoint-dir", str(dirs["train"]), "--checkpoint-every", "1"])
+    ttrain.main([*common, "--draft-head", "--checkpoint-dir", str(dirs["draft"])])
+    return {name: str(d) for name, d in dirs.items()}
+
+
+def _serve_main(argv, monkeypatch):
+    """serve.main on the CPU with web.run_app replaced; returns its engine."""
+    from aiohttp import web
+
+    seen = {}
+    create = tserve.create_serve_app
+    monkeypatch.setattr(tserve, "create_serve_app",
+                        lambda runner: seen.setdefault("runner", runner) and create(runner))
+    monkeypatch.setattr(web, "run_app", lambda app, **kwargs: None)
+    tserve.main(["--config", "test", "--device", "cpu", "--port", "0", "--max-batch", "2",
+                 "--pages", "64", *argv])
+    seen["runner"].join(timeout=30)
+    return seen["runner"].engine
+
+
 @pytest.mark.parametrize(
     "what",
-    ["mesh", "draft-params", "main-checkpoint-dir", "main-checkpoint-step",
-     "main-spec-model", "main-spec-model-step", "main-spec-fallback-window",
-     "main-spec-fallback-threshold", "main-mesh-tp4"],
+    ["draft-params", "main-checkpoint-dir", "main-checkpoint-step", "main-spec-model",
+     "main-spec-model-step", "main-spec-fallback-window", "main-spec-fallback-threshold"],
 )
-def test_unported_features_raise(what, torch_params):
-    """What is not yet ported raises, naming its ROADMAP item: the engine's
-    mesh and draft head, and every CLI flag of checkpoint restore, the draft
-    head and the mesh, whatever value it is given."""
-    item = {"mesh": 6, "draft-params": 8, "main-checkpoint-dir": 4, "main-checkpoint-step": 4,
-            "main-spec-model": 8, "main-spec-model-step": 8, "main-spec-fallback-window": 8,
-            "main-spec-fallback-threshold": 8, "main-mesh-tp4": 6}[what]
-    match = f"not yet ported.*ROADMAP item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        if what.startswith("main-"):
-            flag = {"main-checkpoint-dir": ["--checkpoint-dir", "/nonexistent"],
-                    "main-checkpoint-step": ["--checkpoint-step", "0"],
-                    "main-spec-model": ["--spec-tokens", "4", "--spec-model", "/nonexistent"],
-                    "main-spec-model-step": ["--spec-tokens", "4", "--spec-model-step", "0"],
-                    "main-spec-fallback-window": ["--spec-fallback-window", "16"],
-                    "main-spec-fallback-threshold": ["--spec-fallback-threshold", "0.0"],
-                    "main-mesh-tp4": ["--mesh", "tp4"]}[what]
-            tserve.main(["--config", "test", "--device", "cpu", *flag])
-        else:
-            kwargs = {"mesh": dict(mesh=object()), "draft-params": dict(draft_params={})}[what]
-            tserve.ServeEngine(
-                TTINY, tserve.EngineConfig(**BASE, spec_tokens=4), params=torch_params,
-                device="cpu", **kwargs,
-            )
+def test_checkpoint_and_draft_flags_keep_their_contracts(what, torch_params, tmp_path,
+                                                         test_preset_checkpoints, monkeypatch):
+    """Checkpoint restore and the draft head, once refused naming ROADMAP
+    items 4 and 8, hold their own error contracts: a head needs
+    speculative decode, an empty directory or a missing step raises, a
+    checkpoint without a ``.draft`` subtree is no draft head; the fallback
+    knobs reach the engine."""
+    from dstack_tpu_torch.workloads import model as tmodel
+
+    ckpt = test_preset_checkpoints
+    if what == "draft-params":
+        draft = tmodel.init_draft_params(TTINY, torch.Generator().manual_seed(7), "cpu")
+        with pytest.raises(ValueError, match="spec_tokens == 0"):
+            tserve.ServeEngine(TTINY, tserve.EngineConfig(**BASE), params=torch_params,
+                               device="cpu", draft_params=draft)
+        return
+    argv, error, match = {
+        "main-checkpoint-dir": (["--checkpoint-dir", str(tmp_path)], FileNotFoundError,
+                                "no complete checkpoint"),
+        "main-checkpoint-step": (["--checkpoint-dir", ckpt["train"], "--checkpoint-step", "7"],
+                                 FileNotFoundError, "step-00000007 has no readable manifest"),
+        "main-spec-model": (["--spec-tokens", "4", "--spec-model", ckpt["train"]], ValueError,
+                            "no .draft subtree"),
+        "main-spec-model-step": (["--spec-tokens", "4", "--spec-model", ckpt["draft"],
+                                  "--spec-model-step", "7"], FileNotFoundError,
+                                 "no readable manifest"),
+        "main-spec-fallback-window": (["--spec-fallback-window", "16"], None, None),
+        "main-spec-fallback-threshold": (["--spec-fallback-threshold", "0.0"], None, None),
+    }[what]
+    if error is not None:
+        with pytest.raises(error, match=match):
+            _serve_main(argv, monkeypatch)
+        return
+    engine = _serve_main(argv, monkeypatch)
+    assert engine.ecfg.spec_fallback_window == 16
+    assert engine.ecfg.spec_fallback_threshold == (0.0 if "threshold" in what else 0.1)
 
 
 def test_main_serves_the_example_flags_on_the_cpu(monkeypatch):
@@ -366,6 +418,7 @@ def test_the_port_imports_nothing_of_jax():
         "import dstack_tpu_torch.workloads.kernels.build, dstack_tpu_torch.workloads.convert\n"
         "import dstack_tpu_torch.workloads.train, dstack_tpu_torch.workloads.kernels.flash\n"
         "import dstack_tpu_torch.workloads.kernels.splash, dstack_tpu_torch.workloads.quantize\n"
+        "import dstack_tpu_torch.workloads.checkpoint, dstack_tpu_torch.workloads.model\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dstack_tpu' or m.startswith('dstack_tpu.')]\n"
         "print(bad)\n"

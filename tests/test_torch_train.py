@@ -355,10 +355,31 @@ def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize(
     "argv",
-    [["--tp", "2"], ["--quant", "int8"], ["--checkpoint-dir", "ckpt"], ["--config", "moe_test"],
-     ["--draft-head"], ["--autotune"], ["--remat-policy", "save_proj"]],
+    [["--tp", "2"], ["--config", "moe_test"], ["--autotune"], ["--remat-policy", "save_proj"]],
     ids=lambda a: a[-1] if len(a) == 1 else a[0].lstrip("-"),
 )
 def test_unported_flags_raise_naming_their_item(argv):
     with pytest.raises(NotImplementedError, match=r"not yet ported .*ROADMAP item \d+"):
         ttrain.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+@pytest.mark.parametrize("flag", ["quant", "checkpoint-dir", "draft-head"])
+def test_ported_flags_run_on_the_cpu(flag, tmp_path):
+    """The flags that once raised naming ROADMAP items 3b, 4 and 8 run:
+    int8 training, a checkpointed run (which leaves its final step), and
+    the draft head's distillation (which saves a DraftTrainState)."""
+    argv = {"quant": ["--quant", "int8"],
+            "checkpoint-dir": ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "1"],
+            "draft-head": ["--draft-head", "--checkpoint-dir", str(tmp_path)]}[flag]
+    stats = ttrain.main(["--device", "cpu", "--config", "test", "--seq", "32", "--steps", "2",
+                         *argv])
+    assert stats["compile_s"] > 0 and stats["tokens_per_sec"] > 0
+    if flag != "quant":
+        manifest = json.loads((tmp_path / "step-00000002" / "manifest.json").read_text())
+        keys = [leaf["key"] for leaf in manifest["leaves"]]
+        assert keys[-1] == ".step" and (".draft['w_fuse']" in keys) == (flag == "draft-head")
+
+
+def test_checkpoint_every_without_a_dir_exits():
+    with pytest.raises(SystemExit, match="--checkpoint-every requires --checkpoint-dir"):
+        ttrain.main(["--device", "cpu", "--checkpoint-every", "2", "--steps", "1"])
