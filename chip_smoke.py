@@ -125,7 +125,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              straight-through gradients against the fp32 ones; the fp8,
              int8 and bf16 products' times. Then, each in a child process,
              train.main with the training example's flags and --quant fp8
-             --checkpoint-every 2 --checkpoint-dir D --resume --steps 4:
+             --checkpoint-every 2 --checkpoint-dir D --resume --steps 4, on
+             a seeded token file (--data, whose windows every mesh reads
+             alike):
              crashed at step 3 (DSTACK_TPU_TRAIN_CRASH_AT_STEP), resumed at
              step 2, and its losses at steps 3 and 4 bit-equal to the same
              run without checkpoints (and the crashed run's 1-3), exact
@@ -140,7 +142,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              --checkpoint-dir D --spec-model D on phase 4's two-wave traffic,
              the chunk kernel launched exactly layers x (chunk-prefill +
              verify steps) times and the decode kernel never, beside the
-             head without its fallback and the n-gram proposer.
+             head without its fallback and the n-gram proposer;
+13. mesh   - the training mesh on llama3_1b at full width and depth:
+             phase 12's command line through train.main in child processes
+             under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+             MASTER_ADDR/PORT; NCCL, one card a rank), each with a timeout,
+             so a hung collective fails the phase. (a) Up to two cards as
+             ranks (--tp 1, no rings: JAX refuses them on one device; the
+             batch of 8 in 4 microbatches has 2 rows a microbatch), 2 steps,
+             a checkpoint at step 2: on one rank the losses bit-equal to phase
+             12's meshless run (on two within 3e-3, the CPU tests' fp8
+             limit), the manifest's mesh and process count, the telemetry's
+             run_start mesh and proc, collective_wait_s on step points only
+             with several ranks, exact splash launches, step 2's time and
+             the peak against the meshless run's; (b) the mesh's step-2
+             checkpoint resumed meshless and that run's step-3 checkpoint
+             resumed on the mesh, bit-equal to the meshless run on one
+             rank; (c) with two cards or more, --tp 2 --tp-overlap
+             (--fsdp-overlap too on four) against (a), and each ring against
+             its plain collective at llama3_1b's shapes (outputs of the fp
+             products within 2^-7 of the largest, times with fp8 partials);
+             on one card it logs "mesh multi-rank: not run".
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -2395,6 +2417,18 @@ HANDOFF_TRAIN_ARGV = SPLASH_MAIN_ARGV[:-2] + ["--quant", "fp8", "--steps", "4"]
 # What the handoff writes at most: two llama3_1b TrainStates with a bf16
 # first moment (8.7 GB each) and a DraftTrainState (3.5 GB), with room.
 HANDOFF_DISK_BYTES = 30e9
+# The fp8 training runs of phases 12 and 13 read a token file (--data): its
+# windows are global, so every mesh reads the same batches, where the
+# synthetic stream draws one block per data shard. 64 windows of 8193
+# tokens hold 8 global batches of 8.
+TOKEN_WINDOWS = 64
+
+
+def write_token_file(path: str, vocab: int, seq: int) -> str:
+    """A seeded corpus of TOKEN_WINDOWS windows of seq + 1 token ids (uint16)."""
+    rng = np.random.default_rng(13)
+    rng.integers(0, vocab, TOKEN_WINDOWS * (seq + 1), dtype=np.uint16).tofile(path)
+    return path
 
 
 def quantized_projections_on_card(cfg, card: str) -> None:
@@ -2588,6 +2622,11 @@ def check_child_splash(label: str, report: dict, layers: int, microbatches: int,
     return report["splash"]
 
 
+def step_times(points: list) -> dict:
+    """{step: step_time_s} of a run's telemetry step points."""
+    return {p["step"]: p["step_time_s"] for p in points if p.get("kind") == "step"}
+
+
 def dir_bytes(path: str) -> int:
     import os
 
@@ -2673,23 +2712,26 @@ def phase_handoff(card: str) -> dict:
             raise RuntimeError(f"the handoff needs {HANDOFF_DISK_BYTES / 1e9:.0f} GB free under"
                                f" {workdir}; {free / 1e9:.1f} GB are")
         ckpt_dir = os.path.join(workdir, "ckpt")
+        train_argv = HANDOFF_TRAIN_ARGV + [
+            "--data", write_token_file(os.path.join(workdir, "tokens.bin"), cfg.vocab_size, 8192)]
         ckpt_args = ["--checkpoint-every", "2", "--checkpoint-dir", ckpt_dir, "--resume"]
         torch.cuda.empty_cache()
-        crash, _, crash_points = run_child("crash", "train", HANDOFF_TRAIN_ARGV + ckpt_args,
+        crash, _, crash_points = run_child("crash", "train", train_argv + ckpt_args,
                                            workdir, expect_rc=1,
                                            env={"DSTACK_TPU_TRAIN_CRASH_AT_STEP": "3"})
         manager = checkpoint.CheckpointManager(ckpt_dir)
         if sorted(crash["losses"]) != [1, 2, 3] or manager.complete_steps() != [2]:
             raise AssertionError(f"crash run: losses {crash['losses']},"
                                  f" checkpoints {manager.complete_steps()}")
-        resumed, _, resumed_points = run_child("resume", "train",
-                                               HANDOFF_TRAIN_ARGV + ckpt_args, workdir)
+        resumed, _, resumed_points = run_child("resume", "train", train_argv + ckpt_args,
+                                               workdir)
         restart = marks(resumed_points, "restart")
         if sorted(resumed["losses"]) != [3, 4] or manager.complete_steps() != [2, 4] or [
                 r.get("step") for r in restart] != [2]:
             raise AssertionError(f"resumed run: losses {resumed['losses']}, checkpoints"
                                  f" {manager.complete_steps()}, restart marks {restart}")
-        reference, _, _ = run_child("reference", "train", HANDOFF_TRAIN_ARGV, workdir)
+        reference, _, reference_points = run_child("reference", "train", train_argv, workdir)
+        MEASURED["fp8_reference"] = dict(reference, step_s=step_times(reference_points))
         ref = reference["losses"]
         for label, run in (("crashed", crash), ("resumed", resumed)):
             for step, loss in run["losses"].items():
@@ -2706,7 +2748,7 @@ def phase_handoff(card: str) -> dict:
         bytes_4 = dir_bytes(os.path.join(ckpt_dir, "step-00000004"))
         p50 = reference["stats"]["p50_s"]
         bf16_p50 = MEASURED.get("splash_main_p50_s", float("nan"))
-        log(f"handoff train ({' '.join(HANDOFF_TRAIN_ARGV)} + checkpoints every 2): crashed at"
+        log(f"handoff train ({' '.join(train_argv)} + checkpoints every 2): crashed at"
             f" step 3 and resumed at step 2; losses {[ref[s] for s in sorted(ref)]}, steps 3 and 4"
             f" bit-equal across the resumed and the uninterrupted run (and steps 1-3 of the"
             f" crashed one); fp8 step p50 {p50 * 1e3:.1f} ms against {bf16_p50 * 1e3:.1f} ms"
@@ -2809,6 +2851,328 @@ def phase_handoff(card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 13: the training mesh ----------------------------------------------
+
+# The training example's mesh flags at llama3_1b (--tp 2 --tp-overlap
+# --fsdp-overlap); JAX's validation refuses the rings on one device, so one
+# card runs --tp 1 without them.
+MESH_FLAGS = ["--tp", "2", "--tp-overlap", "--fsdp-overlap"]
+# Runs on several ranks against one rank's: the CPU tests' limit for fp8
+# steps whose sums round differently (tests/test_torch_train_mesh.py).
+MESH_QUANT_RTOL = 3e-3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(label: str, code: str, args: list, world: int, workdir: str, timeout: float,
+              ) -> list:
+    """``python -c code *args <report>`` on ``world`` ranks under torchrun's
+    environment (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR=127.0.0.1 and a
+    free MASTER_PORT; one card a rank, NCCL), each with its own report and
+    telemetry file. Returns [(report, stdout, telemetry points)] by rank.
+    Every rank must exit 0 within ``timeout`` seconds; past it (a hung
+    collective) all are killed and the phase fails."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, files = [], []
+    for rank in range(world):
+        report = os.path.join(workdir, f"{label}.rank{rank}.json")
+        telemetry = os.path.join(workdir, f"{label}.rank{rank}.telemetry.jsonl")
+        env = {k: v for k, v in os.environ.items() if k != "DSTACK_TPU_TRAIN_CRASH_AT_STEP"}
+        env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   DSTACK_TPU_TELEMETRY_PATH=telemetry)
+        procs.append(subprocess.Popen([sys.executable, "-c", code, *args, report], cwd=root,
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+        files.append((report, telemetry))
+    t0 = time.monotonic()
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=max(1.0, timeout - (time.monotonic() - t0))))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: the {world} ranks did not finish in {timeout:.0f} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.monotonic() - t0
+    for line in outs[0][0].splitlines():
+        log(f"  [{label} rank 0] {line}")
+    failed = [(rank, proc.returncode, err) for rank, (proc, (_, err)) in
+              enumerate(zip(procs, outs)) if proc.returncode != 0]
+    if failed:
+        raise AssertionError(f"{label}: exit codes {[p.returncode for p in procs]}:\n" + "\n".join(
+            f"rank {rank} (exit {rc}): {err[-3000:]}" for rank, rc, err in failed))
+    results = []
+    for stdout_err, (report, telemetry) in zip(outs, files):
+        stdout = stdout_err[0]
+        with open(report, encoding="utf-8") as f:
+            out = json.load(f)
+        if "losses" in out:
+            out["losses"] = {int(s): loss for s, loss in out["losses"].items()}
+        out["wall_s"] = wall
+        points = []
+        if os.path.exists(telemetry):
+            with open(telemetry, encoding="utf-8") as f:
+                points = [json.loads(line) for line in f if line.strip()]
+        results.append((out, stdout, points))
+    return results
+
+
+def run_train_ranks(label: str, argv: list, world: int, workdir: str, timeout: float) -> list:
+    code = "import sys, chip_smoke; chip_smoke.handoff_child(*sys.argv[1:])"
+    return run_ranks(label, code, ["train", json.dumps(argv)], world, workdir, timeout)
+
+
+def mesh_rings_child(report: str) -> None:
+    """Run on each rank of a tp 2 mesh (torchrun's environment): each ring
+    of the training example's flags at llama3_1b's shapes (one microbatch of
+    batch 8, grad_accum 4, seq 8192; w_down through the reduce-scatter ring,
+    and with two data ranks or more w_gate through the all-gather ring)
+    against its plain collective (gather on use, the product, the tp
+    all-reduce): the outputs of the fp products compared, then CUDA-event
+    medians of forward and backward with fp8 partials, as the example runs
+    them."""
+    import torch
+
+    from dstack_tpu_torch.workloads import quantize, sharding
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import collective
+
+    dev = sharding.init_distributed(torch.device("cuda"))
+    try:
+        mesh = sharding.make_mesh(tp=2).connect(dev)
+        cfg = get_config("llama3_1b")
+        data, tp = mesh.axis_size(sharding.DATA_AXES), mesh.shape["tp"]
+        rows, bf16 = 2 // data, torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(13 + mesh.index(sharding.DATA_AXES))
+
+        def randn(*shape, dtype=bf16, scale=1.0):
+            t = torch.randn(shape, generator=gen, device=dev) * scale
+            return t.to(dtype).requires_grad_(True)
+
+        hidden = randn(rows, 8192, cfg.d_ff // tp)
+        w_down = randn(cfg.d_ff // tp, cfg.d_model // data, dtype=torch.float32,
+                       scale=cfg.d_ff ** -0.5)
+        x = randn(rows, 8192, cfg.d_model)
+        w_gate = randn(cfg.d_model // data, cfg.d_ff // tp, dtype=torch.float32,
+                       scale=cfg.d_model ** -0.5)
+        reduce = collective.max_over(mesh, "tp")
+
+        def down(ring, fp8):
+            whole = collective.gather_on_use(w_down, 1, mesh, sharding.DATA_AXES,
+                                             None if fp8 else bf16)
+            if ring:
+                return collective.collective_matmul(hidden, whole, mesh,
+                                                    matmul=quantize.FP8_DOT if fp8 else None)
+            y = quantize.fp8_matmul_ste(hidden, whole, reduce) if fp8 else hidden @ whole
+            return collective.reduce_forward(y.float(), mesh, "tp")
+
+        def up(ring, fp8):
+            xin = collective.reduce_backward(x, mesh, "tp")
+            if ring:
+                return collective.allgather_matmul(xin, w_gate, mesh,
+                                                   matmul=quantize.FP8_DOT if fp8 else None,
+                                                   dtype=None if fp8 else bf16)
+            whole = collective.gather_on_use(w_gate, 0, mesh, sharding.DATA_AXES,
+                                             None if fp8 else bf16)
+            return (quantize.fp8_matmul_ste(xin, whole) if fp8 else xin @ whole).float()
+
+        def fwd_bwd(fn, ring):
+            def run():
+                y = fn(ring, True)
+                y.backward(torch.ones_like(y))
+            return run
+
+        out = {}
+        for name, fn in [("collective_matmul", down)] + ([("allgather_matmul", up)]
+                                                         if data > 1 else []):
+            with torch.no_grad():
+                plain = fn(False, False)
+                gap = (fn(True, False) - plain).abs().max().item()
+                scale = plain.abs().max().item()
+            out[name] = dict(ms=time_ms(fwd_bwd(fn, True), iters=5, warmup=2),
+                             plain_ms=time_ms(fwd_bwd(fn, False), iters=5, warmup=2),
+                             max_gap=gap, scale=scale)
+        with open(report, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_mesh(card: str) -> dict:
+    """The training mesh on llama3_1b at full width and depth, through
+    train.main under torchrun's environment with the training example's
+    flags and --quant fp8 (phase 12's command line) on phase 12's token
+    file: (a) up to two cards as one rank each (--tp 1, no rings), 2
+    steps and a checkpoint, against phase 12's meshless run; (b) its
+    step-2 checkpoint resumed meshless, and that run's step-3 checkpoint
+    resumed on the mesh, on one rank each step bit-equal to the meshless
+    run; (c) on two cards, --tp 2 --tp-overlap, on four or more, 4 of them
+    with --tp 2 --tp-overlap --fsdp-overlap, against (a), and each ring
+    timed against its plain collective. Returns the kernels' launches of
+    the runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dstack_tpu_torch.workloads import checkpoint
+    from dstack_tpu_torch.workloads.config import get_config
+
+    cfg = get_config("llama3_1b")
+    reference = MEASURED["fp8_reference"]
+    ref = reference["losses"]
+    cards = torch.cuda.device_count()
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        free = shutil.disk_usage(workdir).free
+        if free < HANDOFF_DISK_BYTES:
+            raise RuntimeError(f"the mesh phase needs {HANDOFF_DISK_BYTES / 1e9:.0f} GB free under"
+                               f" {workdir}; {free / 1e9:.1f} GB are")
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        base = HANDOFF_TRAIN_ARGV[:-2] + [
+            "--batch", "8", "--data",
+            write_token_file(os.path.join(workdir, "tokens.bin"), cfg.vocab_size, 8192)]
+        torch.cuda.empty_cache()
+        launches = {}
+
+        def count(label, report, microbatches, steps):
+            for name, n in check_child_splash(label, report, cfg.n_layers, microbatches,
+                                              steps).items():
+                launches[name] = launches.get(name, 0) + n
+
+        # (a) the mesh of the cards, a checkpoint at its last step, 2. The
+        # example's batch of 8 in 4 microbatches has 2 rows a microbatch: at
+        # most 2 data ranks.
+        ranks = min(cards, 2)
+        argv_a = base + ["--steps", "2", "--tp", "1", "--checkpoint-every", "2",
+                         "--checkpoint-dir", ckpt_dir]
+        ranks_a = run_train_ranks("mesh", argv_a, ranks, workdir, timeout=420)
+        mesh_run, stdout, points = ranks_a[0]
+        manager = checkpoint.CheckpointManager(ckpt_dir)
+        manifest = manager.read_manifest(2)
+        want_mesh = {"dp": 1, "fsdp": ranks, "tp": 1, "sp": 1}
+        if (f"mesh={want_mesh}" not in stdout or manifest["mesh"] != want_mesh
+                or manifest["process_count"] != ranks or manager.complete_steps() != [2]):
+            raise AssertionError(f"mesh run: manifest {manifest['mesh']},"
+                                 f" {manifest['process_count']} processes, checkpoints"
+                                 f" {manager.complete_steps()}")
+        start = marks(points, "run_start")
+        if not start or start[0].get("mesh") != want_mesh or {p.get("proc") for p in points} != {0}:
+            raise AssertionError(f"mesh run telemetry: run_start {start}")
+        waits = [p for p in points if p.get("kind") == "step" and "collective_wait_s" in p]
+        if bool(waits) != (ranks > 1):
+            raise AssertionError(f"mesh run: collective_wait_s on {len(waits)} step points"
+                                 f" with {ranks} ranks")
+        gaps = {s: abs(mesh_run["losses"][s] - ref[s]) / abs(ref[s]) for s in (1, 2)}
+        bit_equal = all(mesh_run["losses"][s] == ref[s] for s in (1, 2))
+        # One rank runs the meshless arithmetic; on two, the gradient sums
+        # over ranks round otherwise, and fp8 turns that into grid flips.
+        if max(gaps.values()) > (1e-5 if ranks == 1 else MESH_QUANT_RTOL):
+            raise AssertionError(f"mesh run's losses {mesh_run['losses']} against the meshless"
+                                 f" run's {ref}: relative gaps {gaps}")
+        for rank, (report, _, _) in enumerate(ranks_a):
+            count(f"mesh rank {rank}", report, 4, 2)
+        # Step 2, the first after compilation, runs with no checkpoint write
+        # in flight in either run.
+        step2, ref_step2 = step_times(points)[2], reference["step_s"][2]
+        ref_p50 = reference["stats"]["p50_s"]
+        log(f"mesh (a) train.main {' '.join(argv_a)} on {ranks} rank(s), NCCL, mesh {want_mesh}:"
+            f" losses {[mesh_run['losses'][s] for s in (1, 2)]}, "
+            + ("bit-equal to" if bit_equal else f"relative gaps {gaps} from")
+            + f" the meshless run's (phase 12); step 2 {step2 * 1e3:.1f} ms against"
+            f" {ref_step2 * 1e3:.1f} ms meshless ({(step2 / ref_step2 - 1) * 100:+.2f}%; the"
+            f" meshless step p50 {ref_p50 * 1e3:.1f} ms), peak memory"
+            f" {mesh_run['peak_gb']:.2f} GB against {reference['peak_gb']:.2f} GB; checkpoints"
+            f" {checkpoint_marks(points, 'mesh')}; splash launches {mesh_run['splash']} a rank"
+            f" [{card}]")
+
+        # (b) the mesh's step-2 checkpoint resumed meshless, and back.
+        to_meshless, _, points = run_child(
+            "mesh-to-meshless", "train",
+            base + ["--steps", "3", "--checkpoint-every", "2", "--checkpoint-dir", ckpt_dir,
+                    "--resume"], workdir)
+        restart = marks(points, "restart")
+        if (sorted(to_meshless["losses"]) != [3] or [r.get("from_mesh") for r in restart]
+                != [want_mesh] or manager.complete_steps() != [2, 3]):
+            raise AssertionError(f"meshless resume: losses {to_meshless['losses']}, restart"
+                                 f" {restart}, checkpoints {manager.complete_steps()}")
+        count("mesh-to-meshless", to_meshless, 4, 1)
+        ranks_b = run_train_ranks(
+            "meshless-to-mesh", base + ["--steps", "4", "--tp", "1", "--checkpoint-dir",
+                                        ckpt_dir, "--resume"], ranks, workdir, timeout=300)
+        to_mesh, _, points = ranks_b[0]
+        restart = marks(points, "restart")
+        if sorted(to_mesh["losses"]) != [4] or [r.get("from_mesh") for r in restart] != [None]:
+            raise AssertionError(f"mesh resume: losses {to_mesh['losses']}, restart {restart}")
+        for rank, (report, _, _) in enumerate(ranks_b):
+            count(f"meshless-to-mesh rank {rank}", report, 4, 1)
+        resumed = {3: to_meshless["losses"][3], 4: to_mesh["losses"][4]}
+        # On one rank the resumed runs must be bit-equal to the uninterrupted
+        # one; on two, each resumed step rounds as its own layout does.
+        gaps = {s: abs(resumed[s] - ref[s]) / abs(ref[s]) for s in (3, 4)}
+        if (ranks == 1 and resumed != {3: ref[3], 4: ref[4]}) or max(
+                gaps.values()) > MESH_QUANT_RTOL:
+            raise AssertionError(f"resumed losses {resumed} against the uninterrupted run's"
+                                 f" {ref[3]!r}, {ref[4]!r}")
+        log(f"mesh (b): the mesh's step-2 checkpoint resumed meshless (step 3 loss"
+            f" {resumed[3]!r}) and that run's step-3 checkpoint resumed on the mesh (step 4 loss"
+            f" {resumed[4]!r}), "
+            + ("both bit-equal to" if ranks == 1 else f"relative gaps {gaps} from")
+            + f" the uninterrupted meshless run; process walls {to_meshless['wall_s']:.1f} /"
+            f" {to_mesh['wall_s']:.1f} s [{card}]")
+
+        # (c) the rings, on the cards there are.
+        if cards < 2:
+            log(f"mesh multi-rank: not run ({cards} card visible) [{card}]")
+            return launches
+        # tp 2 takes two ranks; the all-gather ring needs two data ranks
+        # more (JAX's validation refuses it over one).
+        world = 4 if cards >= 4 else 2
+        argv_c = base + ["--steps", "2"] + (MESH_FLAGS if world == 4 else MESH_FLAGS[:3])
+        ranks_c = run_train_ranks("mesh-rings", argv_c, world, workdir, timeout=420)
+        rings = ranks_c[0][0]
+        gaps = {s: abs(rings["losses"][s] - mesh_run["losses"][s]) / abs(mesh_run["losses"][s])
+                for s in (1, 2)}
+        if max(gaps.values()) > MESH_QUANT_RTOL or any(
+                r["losses"] != rings["losses"] for r, _, _ in ranks_c):
+            raise AssertionError(f"rings on {world} ranks: losses {rings['losses']} against"
+                                 f" {mesh_run['losses']} (gaps {gaps})")
+        for rank, (report, _, _) in enumerate(ranks_c):
+            count(f"mesh-rings rank {rank}", report, 4, 2)
+        waits = [p["collective_wait_s"] for p in ranks_c[0][2] if "collective_wait_s" in p]
+        log(f"mesh (c) train.main {' '.join(argv_c)} on {world} ranks: losses"
+            f" {[rings['losses'][s] for s in (1, 2)]}, relative gaps {gaps} from (a); step 2"
+            f" {step_times(ranks_c[0][2])[2] * 1e3:.1f} ms, peak {rings['peak_gb']:.2f} GB a rank,"
+            f" collective_wait_s {waits} (rank 0) [{card}]")
+        code = "import sys, chip_smoke; chip_smoke.mesh_rings_child(*sys.argv[1:])"
+        timed = run_ranks("rings-timing", code, [], world, workdir, timeout=300)[0][0]
+        for name in ("collective_matmul", "allgather_matmul")[:len(timed) - 1]:
+            t = timed[name]
+            # The plain products round to bf16 (2^-8), the rings sum in fp32.
+            if not t["max_gap"] <= 2 ** -7 * t["scale"]:
+                raise AssertionError(f"{name}: ring and plain outputs differ by {t}")
+            log(f"mesh ring {name} on {world} ranks: with fp8 partials, forward and backward"
+                f" {t['ms']:.3f} ms against {t['plain_ms']:.3f} ms plain; fp products"
+                f" {t['max_gap']:.3e} apart (largest {t['scale']:.3e}) [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2844,6 +3208,8 @@ def main() -> int:
     launches.update(phase_train_splash(card))
     phase_splash_identity()
     for name, n in phase_handoff(card).items():
+        launches[name] += n
+    for name, n in phase_mesh(card).items():
         launches[name] += n
 
     replaces = {

@@ -3,8 +3,8 @@ forward's dispatch, and the gather references of paged attention.
 
 Ports ``dstack_tpu/workloads/attention.py``: ``blockwise_attention`` and its
 online-softmax helpers, ``plain_attention``, ``flash_attention_tpu`` (on the
-port's flash kernels) and a meshless ``attention_core`` (which also routes
-to the splash kernels), and
+port's flash kernels) and ``attention_core`` (which also routes to the
+splash kernels, meshless or on a rank's local heads), and
 ``paged_decode_attention`` / ``paged_chunk_attention``, the gather references
 that the serving engine's ``decode_impl="plain"`` runs. Layouts are the JAX
 package's: q [B, T, H, D],
@@ -191,7 +191,7 @@ def attention_core(
     window: int = 0,
     doc_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The one attention dispatch of the training forward, without a mesh.
+    """The one attention dispatch of the training forward.
 
     - ``auto``: ``flash_tpu`` on a CUDA device, blockwise on the CPU;
     - ``flash``: the flash kernels (``kernels/flash.py``) at every length on
@@ -205,17 +205,22 @@ def attention_core(
     - ``flash_tpu``: the public kernel's contract on the same kernels
       (CUDA only; blockwise elsewhere, as the reference off a TPU);
     - ``plain``: materialized scores; ``xla``/``blockwise``: the online-softmax
-      walk;
-    - any mesh (sequence parallelism included) is not ported yet and raises.
+      walk.
+
+    Under a ``mesh`` q/k/v are this rank's rows and its H/tp query and Kh/tp
+    KV heads (whole GQA groups), which the same kernels take as they are;
+    ``auto`` and ``flash_tpu`` run blockwise there, as the reference's (the
+    public kernel runs meshless only). Sequence parallelism (sp > 1, ring
+    attention) is not ported yet and raises.
     """
-    if mesh is not None:
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
         raise NotImplementedError(
-            "attention under a device mesh (ring attention, sharded flash) is not"
-            " yet ported to PyTorch (ROADMAP item 6)"
+            "ring attention (sequence parallelism, sp > 1) is not yet ported to"
+            " PyTorch (ROADMAP item 6)"
         )
     impl = attn_impl
     if impl == "auto":
-        impl = "flash_tpu" if flash_available(q.device) else "blockwise"
+        impl = "flash_tpu" if (mesh is None and flash_available(q.device)) else "blockwise"
     off_menu = q.device.type == "cpu" and (
         pick_flash_block(q.shape[1]) is None or pick_flash_block(k.shape[1]) is None
     )
@@ -228,7 +233,7 @@ def attention_core(
             return blockwise_attention(q, k, v, causal=causal)
         return flash_attention(q, k, v, causal=causal)
     if impl == "flash_tpu":
-        if flash_available(q.device):
+        if mesh is None and flash_available(q.device):
             return flash_attention_tpu(q, k, v, causal=causal)
         return blockwise_attention(q, k, v, causal=causal)
     if impl == "plain":

@@ -18,11 +18,17 @@ tuples by field (``.name``) and other tuples and lists by position
 (``[i]``), as JAX flattens dicts, optax's states and tuples. The training
 state's layout in those terms is ``train.state_tree``.
 
-The port runs without a mesh, so it writes one whole-array piece per leaf,
-keyed ``0:n,...`` (``""`` for a 0-d leaf), exactly as a meshless
-``jax.Array``'s one addressable shard is keyed. Reading merges every shard
-file of a step by global index, so a checkpoint JAX wrote from several
-processes or on a mesh restores here too, and incomplete coverage raises.
+Meshless, the port writes one whole-array piece per leaf, keyed ``0:n,...``
+(``""`` for a 0-d leaf), exactly as a meshless ``jax.Array``'s one
+addressable shard is keyed. Under a training mesh (``sharding.Mesh``) each
+rank writes ``shard-<rank>.npz`` with its local pieces keyed by global index
+(a leaf's layout follows its key: ``sharding.spec_of_key``); a piece that
+several ranks hold is written by the first of them only. Rank 0 writes the
+manifest (``process_count`` is the world, ``mesh`` its shape) and every rank
+its own commit marker. Reading takes from every shard file of a step the
+pieces that meet the template's local slice, by global index, so a
+checkpoint restores onto any mesh or none, whichever package or mesh wrote
+it, one leaf at a time; incomplete coverage raises.
 
 ``save()`` blocks only for the device-to-host copy (and the previous
 write), writes on a background thread and never raises: a failed save is
@@ -42,6 +48,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
 from dstack_tpu_torch.workloads.convert import storage_dtype, tensor_from_host
 
@@ -109,9 +116,13 @@ def _dtype_name(leaf) -> str:
     return str(leaf.dtype).removeprefix("torch.")
 
 
-def _index_key(shape) -> str:
-    """The ``a:b,c:d`` key of a whole-array piece (``""`` when 0-d)."""
-    return ",".join(f"0:{int(d)}" for d in shape)
+def _index_key(index: Tuple[slice, ...]) -> str:
+    """The ``a:b,c:d`` key of a piece's global index (``""`` when 0-d)."""
+    return ",".join(f"{int(sl.start)}:{int(sl.stop)}" for sl in index)
+
+
+def _whole(shape) -> Tuple[slice, ...]:
+    return tuple(slice(0, int(d)) for d in shape)
 
 
 def _parse_index(key: str) -> Tuple[slice, ...]:
@@ -143,7 +154,8 @@ def _host_copy(leaf) -> np.ndarray:
 class CheckpointManager:
     """Async checkpointing of a tree of tensors (the JAX manager's
     contract). ``save()`` is called from the train loop, ``restore()`` at
-    startup. One manager per process."""
+    startup. One manager per process; under a connected ``mesh`` the
+    process is its rank and the tree holds that rank's local pieces."""
 
     def __init__(
         self,
@@ -152,9 +164,13 @@ class CheckpointManager:
         telemetry: Optional[Any] = None,
         process_index: int = 0,
         process_count: int = 1,
+        mesh: Optional[sharding.Mesh] = None,
     ) -> None:
         self.directory = directory
         self.keep = max(1, keep)
+        self.mesh = mesh
+        if mesh is not None:
+            process_index, process_count = mesh.rank, mesh.size
         self.process_index = process_index
         self.process_count = process_count
         self._telemetry = telemetry if telemetry is not None else telemetry_lib.get_emitter()
@@ -164,6 +180,16 @@ class CheckpointManager:
         self._pending: Optional[threading.Event] = None
         self._closed = False
         os.makedirs(directory, exist_ok=True)
+
+    def _place(self, key: str, shape) -> Tuple[Tuple[int, ...], Tuple[slice, ...], bool]:
+        """(global shape, global index of this process's piece, whether this
+        process writes it) of a leaf of local ``shape``."""
+        if self.mesh is None:
+            return tuple(int(d) for d in shape), _whole(shape), True
+        spec = sharding.spec_of_key(key)
+        full = sharding.global_shape(spec, shape, self.mesh)
+        return (full, sharding.local_slices(spec, full, self.mesh),
+                sharding.holds_first_copy(spec, self.mesh))
 
     # -- writing -----------------------------------------------------------
 
@@ -190,9 +216,10 @@ class CheckpointManager:
             payload: Dict[str, np.ndarray] = {}
             leaves: List[dict] = []
             for i, (key, leaf) in enumerate(leaf_entries(state)):
-                shape = list(leaf.shape)
-                leaves.append({"key": key, "shape": shape, "dtype": _dtype_name(leaf)})
-                payload[f"{i}@{_index_key(shape)}"] = _host_copy(leaf)
+                shape, index, writes = self._place(key, leaf.shape)
+                leaves.append({"key": key, "shape": list(shape), "dtype": _dtype_name(leaf)})
+                if writes:
+                    payload[f"{i}@{_index_key(index)}"] = _host_copy(leaf)
             manifest = {
                 "step": int(step),
                 "process_count": self.process_count,
@@ -338,16 +365,18 @@ class CheckpointManager:
                 f"checkpoint structure mismatch: saved {[leaf['key'] for leaf in leaves]}"
                 f" vs template {[k for k, _ in entries]}"
             )
+        regions = []
         for (key, leaf), meta in zip(entries, leaves):
-            if list(leaf.shape) != list(meta["shape"]):
+            shape, index, _ = self._place(key, leaf.shape)
+            if list(shape) != list(meta["shape"]):
                 raise ValueError(
-                    f"{key}: checkpoint shape {meta['shape']} != template {list(leaf.shape)}"
+                    f"{key}: checkpoint shape {meta['shape']} != template {list(shape)}"
                     f" - the model/optimizer config changed under the checkpoint"
                 )
+            regions.append(index)
         path = os.path.join(self.directory, _step_dir(step))
-        host = self._load_host_arrays(path, leaves, set(range(len(leaves))))
         restored = [
-            _materialize(leaf, host.pop(i), leaves[i]["dtype"])
+            _materialize(leaf, self._load_region(path, leaves, i, regions[i]), leaves[i]["dtype"])
             for i, (_, leaf) in enumerate(entries)
         ]
         return _rebuild(template, iter(restored)), manifest
@@ -368,6 +397,7 @@ class CheckpointManager:
         by_key = {k: i for i, k in enumerate(saved_keys)}
         entries = leaf_entries(template)
         picked: List[int] = []
+        regions = []
         for key, leaf in entries:
             i = by_key.get(prefix + key)
             if i is None:
@@ -384,33 +414,34 @@ class CheckpointManager:
                         f" {prefixes} - pass prefix= to pick one"
                     )
                 i = matches[0]
-            if list(leaf.shape) != list(leaves[i]["shape"]):
+            shape, index, _ = self._place(key, leaf.shape)
+            if list(shape) != list(leaves[i]["shape"]):
                 raise ValueError(
                     f"{key}: checkpoint shape {leaves[i]['shape']} != template"
-                    f" {list(leaf.shape)} - the model config changed under the checkpoint"
+                    f" {list(shape)} - the model config changed under the checkpoint"
                 )
             picked.append(i)
+            regions.append(index)
         path = os.path.join(self.directory, _step_dir(step))
-        host = self._load_host_arrays(path, leaves, set(picked))
         restored = [
-            _materialize(leaf, host[i], leaves[i]["dtype"])
-            for (_, leaf), i in zip(entries, picked)
+            _materialize(leaf, self._load_region(path, leaves, i, region), leaves[i]["dtype"])
+            for (_, leaf), i, region in zip(entries, picked, regions)
         ]
         return _rebuild(template, iter(restored)), manifest
 
     @staticmethod
-    def _load_host_arrays(path: str, leaves: List[dict], wanted) -> Dict[int, np.ndarray]:
-        """The global host array of every leaf index in ``wanted``, merged
-        from the step's shard files by global index, in its storage dtype
-        (extension dtypes as unsigned views). Unwanted leaves' bytes are not
-        read. Raises on incomplete coverage."""
-        host: Dict[int, np.ndarray] = {}
-        store = {}
-        for i in wanted:
-            meta = leaves[i]
-            store[i] = storage_dtype(meta["dtype"]) or np.dtype(meta["dtype"])
-        covered = {i: 0 for i in wanted}
-        seen: Dict[int, set] = {i: set() for i in wanted}
+    def _load_region(path: str, leaves: List[dict], i: int,
+                     region: Tuple[slice, ...]) -> np.ndarray:
+        """The ``region`` (a global index) of leaf ``i`` as a host array in
+        its storage dtype (extension dtypes as unsigned views), from the
+        pieces of the step's shard files that meet it; the other pieces'
+        bytes are not read. Raises on incomplete coverage."""
+        meta = leaves[i]
+        store = storage_dtype(meta["dtype"]) or np.dtype(meta["dtype"])
+        want = tuple(sl.stop - sl.start for sl in region)
+        out = None
+        covered = 0
+        seen = set()
         shard_files = sorted(
             os.path.join(path, n) for n in os.listdir(path)
             if n.startswith("shard-") and n.endswith(".npz")
@@ -419,41 +450,41 @@ class CheckpointManager:
             with np.load(fname) as z:
                 for zkey in z.files:
                     leaf_s, _, idx_key = zkey.partition("@")
-                    i = int(leaf_s)
-                    if i not in covered or idx_key in seen[i]:
-                        continue  # unwanted, or replicated across processes
-                    seen[i].add(idx_key)
-                    shape = tuple(leaves[i]["shape"])
-                    piece = z[zkey]
-                    if piece.dtype != store[i]:
-                        if piece.dtype.itemsize != store[i].itemsize:
-                            raise ValueError(
-                                f"{leaves[i]['key']}: shard dtype {piece.dtype}"
-                                f" incompatible with manifest {leaves[i]['dtype']}"
-                            )
-                        piece = piece.view(store[i])
+                    if int(leaf_s) != i or idx_key in seen:
+                        continue  # another leaf, or replicated across processes
+                    seen.add(idx_key)
                     index = _parse_index(idx_key)
-                    whole = not index or all(
-                        sl.start == 0 and sl.stop == d for sl, d in zip(index, shape)
-                    )
-                    if whole:
-                        # The whole leaf in one piece (a meshless save): keep
-                        # the loaded array rather than copy it into zeros.
-                        host[i] = piece.reshape(shape)
+                    meet = tuple(slice(max(a.start, b.start), min(a.stop, b.stop))
+                                 for a, b in zip(index, region))
+                    if any(sl.start >= sl.stop for sl in meet):
+                        continue
+                    piece = z[zkey]
+                    if piece.dtype != store:
+                        if piece.dtype.itemsize != store.itemsize:
+                            raise ValueError(
+                                f"{meta['key']}: shard dtype {piece.dtype}"
+                                f" incompatible with manifest {meta['dtype']}"
+                            )
+                        piece = piece.view(store)
+                    if index == region:
+                        # The region in one piece (a save on the same layout):
+                        # keep the loaded array rather than copy it.
+                        out = piece.reshape(want)
                     else:
-                        if i not in host:
-                            host[i] = np.zeros(shape, store[i])
-                        host[i][index] = piece
-                    covered[i] += int(piece.size)
-        for i in wanted:
-            meta = leaves[i]
-            want = int(np.prod(meta["shape"])) if meta["shape"] else 1
-            if covered[i] < want:
-                raise ValueError(
-                    f"{meta['key']}: shard files cover {covered[i]}/{want}"
-                    f" elements - a process's shard file is missing"
-                )
-        return host
+                        if out is None:
+                            out = np.zeros(want, store)
+                        out[tuple(slice(m.start - r.start, m.stop - r.start)
+                                  for m, r in zip(meet, region))] = piece[
+                            tuple(slice(m.start - p.start, m.stop - p.start)
+                                  for m, p in zip(meet, index))]
+                    covered += int(np.prod([sl.stop - sl.start for sl in meet]))
+        need = int(np.prod(want)) if want else 1
+        if covered < need:
+            raise ValueError(
+                f"{meta['key']}: shard files cover {covered}/{need}"
+                f" elements - a process's shard file is missing"
+            )
+        return out
 
 
 def _materialize(leaf, arr: np.ndarray, dtype_name: str):

@@ -1,9 +1,9 @@
 """Model configurations for the Llama-style workload.
 
 The port's own copy of ``dstack_tpu/workloads/config.py``'s ``LlamaConfig``,
-``PRESETS``, ``get_config``, ``ATTN_IMPLS`` and a meshless
-``validate_config``: the same fields, defaults and presets, so a preset name
-means the same model in both packages.
+``PRESETS``, ``get_config``, ``ATTN_IMPLS`` and ``validate_config`` (with
+the reference's mesh checks): the same fields, defaults and presets, so a
+preset name means the same model in both packages.
 """
 
 from __future__ import annotations
@@ -103,16 +103,20 @@ ATTN_IMPLS = ("auto", "xla", "blockwise", "plain", "flash", "flash_tpu",
               "splash")
 
 
-def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None) -> None:
-    """Loud CLI-time validation of the perf-dispatch flags, without a mesh.
+def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, mesh=None,
+                    batch: Optional[int] = None) -> None:
+    """Loud CLI-time validation of the perf-dispatch flags.
 
     The model-side dispatch falls back silently where a combination merely
     degrades (flash on a ragged length runs blockwise); an explicitly
     requested invalid combination is a config error and fails here, before
     the first step. ``quant="fp8"`` needs fp8 tensor cores on a card
     (compute capability 8.9 or higher; the CPU runs the exact products
-    upcast, as the reference allows off-TPU). Features the port does not
-    have yet raise ``NotImplementedError`` naming their ROADMAP item."""
+    upcast, as the reference allows off-TPU). ``mesh`` (a
+    ``sharding.Mesh``) adds the reference's mesh checks and the port's own
+    (``sharding.validate_mesh``); ``batch`` is the microbatch the
+    tp_overlap ring splits. Features the port does not have yet raise
+    ``NotImplementedError`` naming their ROADMAP item."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}"
@@ -132,10 +136,6 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None) ->
                 f" higher); {torch.cuda.get_device_name(device)} is"
                 f" sm_{cap[0]}{cap[1]} - use quant=int8 or none"
             )
-    if cfg.tp_overlap or cfg.fsdp_overlap:
-        raise NotImplementedError(
-            "tp_overlap/fsdp_overlap are not yet ported to PyTorch (ROADMAP item 6)"
-        )
     if cfg.attn_window:
         if cfg.attn_window < 0:
             raise ValueError(f"attn_window must be >= 0, got {cfg.attn_window}")
@@ -146,17 +146,66 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None) ->
                 f"blocks); attn_impl={cfg.attn_impl!r} would silently ignore "
                 f"the window"
             )
-    if cfg.attn_impl in ("flash", "flash_tpu", "splash") and seq:
-        # Each impl has its own block menu: the public kernel's contract
-        # takes 512/256/128 only, the in-repo kernels' go down to 8.
-        if cfg.attn_impl == "flash_tpu":
-            from dstack_tpu_torch.workloads.attention import _flash_block as _pick
-        else:
-            from dstack_tpu_torch.workloads.kernels.flash import pick_flash_block as _pick
-
-        if _pick(seq) is None:
+    sp = mesh.shape.get("sp", 1) if mesh is not None else 1
+    tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+    if cfg.attn_impl == "flash_tpu" and mesh is not None:
+        raise ValueError(
+            "attn_impl=flash_tpu only runs meshless (the public kernel has "
+            "no sharding rule) and would silently fall back to blockwise "
+            "under a device mesh; use attn_impl=flash (the in-repo sharded "
+            "kernel) or attn_impl=auto"
+        )
+    if cfg.attn_impl in ("flash", "flash_tpu", "splash"):
+        if sp > 1:
             raise ValueError(
-                f"attn_impl={cfg.attn_impl!r} needs a block-divisible "
-                f"sequence length; seq={seq} has no power-of-two block "
-                f"(pad the sequence or use attn_impl=xla)"
+                f"attn_impl={cfg.attn_impl!r} does not compose with sequence "
+                f"parallelism (sp={sp} runs ring attention, whose rotating KV "
+                f"chunks don't meet the kernel's block-divisibility contract);"
+                f" use attn_impl=xla or sp=1"
             )
+        if seq:
+            # Each impl has its own block menu: the public kernel's contract
+            # takes 512/256/128 only, the in-repo kernels' go down to 8.
+            if cfg.attn_impl == "flash_tpu":
+                from dstack_tpu_torch.workloads.attention import _flash_block as _pick
+            else:
+                from dstack_tpu_torch.workloads.kernels.flash import pick_flash_block as _pick
+
+            if _pick(seq // sp) is None:
+                raise ValueError(
+                    f"attn_impl={cfg.attn_impl!r} needs a block-divisible "
+                    f"sequence length; seq={seq} has no power-of-two block "
+                    f"(pad the sequence or use attn_impl=xla)"
+                )
+        if cfg.attn_impl in ("flash", "splash") and tp > 1 and cfg.n_kv_heads % tp:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl} shards heads over tp={tp}, which "
+                f"must divide n_kv_heads={cfg.n_kv_heads} (whole GQA groups "
+                f"per shard); adjust the mesh or use attn_impl=xla"
+            )
+    if mesh is None:
+        return
+    from dstack_tpu_torch.workloads.kernels.collective import can_fsdp_overlap, can_overlap
+    from dstack_tpu_torch.workloads.sharding import validate_mesh
+
+    if cfg.fsdp_overlap and not can_fsdp_overlap(mesh, cfg.d_model):
+        data = mesh.shape.get("dp", 1) * mesh.shape.get("fsdp", 1)
+        raise ValueError(
+            f"fsdp_overlap rotates weight shards around the dp*fsdp="
+            f"{data} ring, which needs dp*fsdp > 1 and d_model="
+            f"{cfg.d_model} divisible by it; adjust the mesh or drop "
+            f"--fsdp-overlap"
+        )
+    if cfg.tp_overlap and tp > 1 and batch and seq and not can_overlap(mesh, batch, seq):
+        raise ValueError(
+            f"tp_overlap needs the per-device row count (batch x seq "
+            f"after dp/fsdp/sp sharding) to split into tp={tp} ring "
+            f"chunks; batch={batch} seq={seq} mesh={dict(mesh.shape)} "
+            f"doesn't — grow the batch or drop --tp-overlap"
+        )
+    if sp > 1:
+        raise NotImplementedError(
+            "sequence parallelism (sp > 1, ring attention) is not yet ported to"
+            " PyTorch (ROADMAP item 6)"
+        )
+    validate_mesh(cfg, mesh)

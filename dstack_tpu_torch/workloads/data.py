@@ -7,6 +7,10 @@ plain numpy and give identical arrays for the same arguments:
   synthetic (seeded per batch index, so seekable) or token-file-backed (a flat
   binary of token ids, the packed-corpus format). A single process is host 0
   of 1 unless told otherwise.
+- **The per-rank feed** (``rank_rows``): under a mesh each rank reads the
+  rows of its (dp, fsdp) coordinate, microbatch by microbatch, as the
+  reference's ``make_global_array`` / ``sharded_batches`` place a global
+  batch; ranks that differ only in tp or sp read the same rows.
 - **Prefetcher**: a depth-bounded background thread that pulls batches ahead
   of the consumer. ``device_batches`` stages each batch into pinned host
   memory and copies it to the card with ``non_blocking=True``, so the pull
@@ -36,6 +40,22 @@ def host_shard(global_batch: int, process_index: int, process_count: int) -> Tup
     return process_index * rows, rows
 
 
+def rank_rows(global_batch: int, grad_accum: int, data_index: int,
+              data_shards: int) -> np.ndarray:
+    """The global rows a data shard holds, in its local order: for each of
+    the ``grad_accum`` microbatches (global rows [i*mb, (i+1)*mb)) its
+    ``data_index``-th block of mb/data_shards rows, as the reference lays a
+    batch out as [A, B/A, T] with dim 1 split over the data axes. With one
+    shard: every row, in order."""
+    if global_batch % grad_accum or (global_batch // grad_accum) % data_shards:
+        raise ValueError(f"global batch {global_batch} does not split into {grad_accum}"
+                         f" microbatches of {data_shards} data shards")
+    mb = global_batch // grad_accum
+    per = mb // data_shards
+    micro = np.arange(grad_accum)[:, None] * mb
+    return (micro + data_index * per + np.arange(per)[None, :]).ravel()
+
+
 def synthetic_batches(
     vocab_size: int,
     global_batch: int,
@@ -44,15 +64,27 @@ def synthetic_batches(
     process_index: int = 0,
     process_count: int = 1,
     start_batch: int = 0,
+    rows: Optional[np.ndarray] = None,
 ) -> Iterator[Batch]:
     """Endless stream of random-token batches; each host draws only its own
     rows. Batch b comes from its own (seed, process_index, b)-seeded
-    generator, so ``start_batch`` seeks in O(1)."""
-    _, rows = host_shard(global_batch, process_index, process_count)
+    generator, so ``start_batch`` seeks in O(1). With ``rows`` (global row
+    indices) the global batch is the ``process_count`` hosts' draws one
+    after another, and the stream yields those rows of it, drawing only the
+    hosts' blocks they fall in."""
+    _, per_host = host_shard(global_batch, process_index, process_count)
     b = start_batch
     while True:
-        rng = np.random.default_rng((seed, process_index, b))
-        tokens = rng.integers(0, vocab_size, (rows, seq), dtype=np.int32)
+        if rows is None:
+            rng = np.random.default_rng((seed, process_index, b))
+            tokens = rng.integers(0, vocab_size, (per_host, seq), dtype=np.int32)
+        else:
+            tokens = np.empty((len(rows), seq), dtype=np.int32)
+            for host in np.unique(rows // per_host):
+                rng = np.random.default_rng((seed, int(host), b))
+                block = rng.integers(0, vocab_size, (per_host, seq), dtype=np.int32)
+                mine = rows // per_host == host
+                tokens[mine] = block[rows[mine] % per_host]
         yield tokens, tokens
         b += 1
 
@@ -66,12 +98,17 @@ def token_file_batches(
     process_index: int = 0,
     process_count: int = 1,
     start_batch: int = 0,
+    rows: Optional[np.ndarray] = None,
 ) -> Iterator[Batch]:
     """Batches from a flat binary file of token ids (np.memmap: never loaded
     whole). Windows of seq+1 tokens give (tokens, next-token targets). Batch
     b maps to the windows ((b mod batches_per_pass) * global_batch + this
-    host's offset), so ``start_batch`` neither replays nor skips data."""
-    _, rows = host_shard(global_batch, process_index, process_count)
+    host's offset), so ``start_batch`` neither replays nor skips data. With
+    ``rows`` (global row indices, for a rank's feed) batch b reads windows
+    (b mod batches_per_pass) * global_batch + rows instead."""
+    offset, n_rows = host_shard(global_batch, process_index, process_count)
+    if rows is None:
+        rows = offset + np.arange(n_rows)
     data = np.memmap(path, dtype=np.dtype(dtype), mode="r")
     window = seq + 1
     n_windows = len(data) // window
@@ -85,8 +122,7 @@ def token_file_batches(
     while True:
         if not loop and b >= per_pass:
             return
-        start = (b % per_pass) * global_batch + process_index * rows
-        idx = np.arange(start, start + rows) * window
+        idx = ((b % per_pass) * global_batch + rows) * window
         chunk = np.stack([data[i : i + window] for i in idx]).astype(np.int32)
         yield chunk[:, :-1], chunk[:, 1:]
         b += 1
@@ -188,14 +224,22 @@ def input_pipeline(
     prefetch: int = 2,
     start_batch: int = 0,
     device: torch.device = torch.device("cuda"),
+    data_index: int = 0,
+    data_shards: int = 1,
+    grad_accum: int = 1,
 ) -> Prefetcher:
     """The train entrypoint's one-call feed on one device: the source (token
     file or synthetic), staged onto ``device``, behind the prefetcher.
-    ``start_batch`` seeks (one global batch per optimizer step)."""
+    ``start_batch`` seeks (one global batch per optimizer step). Under a
+    mesh the feed holds this rank's ``rank_rows``; the synthetic global
+    batch is then ``data_shards`` draws, as the reference's is one draw per
+    host, so it depends on the data-shard count."""
+    rows = rank_rows(global_batch, grad_accum, data_index, data_shards)
     if data_path:
         source: Iterator[Batch] = token_file_batches(
-            data_path, global_batch, seq, start_batch=start_batch
+            data_path, global_batch, seq, start_batch=start_batch, rows=rows
         )
     else:
-        source = synthetic_batches(vocab_size, global_batch, seq, start_batch=start_batch)
+        source = synthetic_batches(vocab_size, global_batch, seq, start_batch=start_batch,
+                                   process_count=data_shards, rows=rows)
     return Prefetcher(device_batches(source, torch.device(device)), depth=prefetch)

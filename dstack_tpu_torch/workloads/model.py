@@ -1,12 +1,22 @@
 """Llama-style decoder in plain PyTorch: parameter init, the dense forward,
 the training loss and the speculative-decode draft head.
 
-Ports ``dstack_tpu/workloads/model.py`` without a mesh: the parameter dict
-keeps the JAX package's names and stacked-layer layout (``wq`` is
-[L, d_model, H*hd], used as ``x @ w``), so a tree made by the JAX
-``init_params`` loads as it is (``convert.params_from_numpy``). The layer
-loop is a Python loop in place of ``lax.scan``; ``torch.utils.checkpoint``
-takes the place of ``jax.checkpoint``.
+Ports ``dstack_tpu/workloads/model.py``: the parameter dict keeps the JAX
+package's names and stacked-layer layout (``wq`` is [L, d_model, H*hd],
+used as ``x @ w``), so a tree made by the JAX ``init_params`` loads as it is
+(``convert.params_from_numpy``). The layer loop is a Python loop in place of
+``lax.scan``; ``torch.utils.checkpoint`` takes the place of
+``jax.checkpoint``.
+
+Under a ``sharding.Mesh`` every rank holds its local pieces of the tree
+(``sharding.PARAM_SPECS``) and its rows of the batch, and the forward runs
+the collectives GSPMD would insert for the JAX package, written out in
+``kernels/collective.py``: each weight gathered over the data ranks on use
+(or, with ``cfg.fsdp_overlap``, the all-gather ring), the Megatron tp split
+(column-parallel q/k/v and gate/up on the local heads and hidden, row-
+parallel wo and w_down all-reduced, or the reduce-scatter ring with
+``cfg.tp_overlap``), a vocab-sharded embedding lookup and a vocab-parallel
+cross-entropy. The attention kernels run unchanged on the local heads.
 """
 
 from __future__ import annotations
@@ -16,11 +26,24 @@ import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from dstack_tpu_torch.workloads import quantize as quant_lib
+from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads.attention import attention_core
 from dstack_tpu_torch.workloads.config import LlamaConfig
+from dstack_tpu_torch.workloads.kernels.collective import (
+    allgather_matmul,
+    can_fsdp_overlap,
+    can_overlap,
+    collective_matmul,
+    gather_on_use,
+    max_over,
+    reduce_backward,
+    reduce_forward,
+)
+from dstack_tpu_torch.workloads.sharding import DATA_AXES
 
 Params = Dict[str, torch.Tensor]
 
@@ -34,40 +57,34 @@ def init_params(
     generator: torch.Generator,
     device: torch.device,
     dtype: Optional[torch.dtype] = None,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> Params:
     """Synthetic weights from ``generator``: normal / sqrt(fan_in) drawn in
     fp32, norms at one, stored in ``dtype`` (default cfg.param_dtype). Drawn
     one layer at a time, so the fp32 draw never holds more than one layer's
-    slice. The JAX package draws other numbers from the same seed."""
+    slice. Under ``mesh`` each rank draws the same numbers and keeps its
+    local piece of every leaf, so the pieces of all ranks form exactly the
+    meshless tree of the same generator. The JAX package draws other numbers
+    from the same seed."""
     dtype = dtype or dtype_of(cfg.param_dtype)
-    d, v, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
-    h, kh, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
-
-    def dense(*shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0] if len(shape) == 3 else 1):
-            dst = out[i] if len(shape) == 3 else out
-            draw = torch.randn(dst.shape, generator=generator, dtype=torch.float32, device=device)
-            dst.copy_(draw / fan_in ** 0.5)
-        return out
-
-    def norm(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
-
-    return {
-        "embed": dense(v, d, fan_in=d),
-        "wq": dense(L, d, h * hd, fan_in=d),
-        "wk": dense(L, d, kh * hd, fan_in=d),
-        "wv": dense(L, d, kh * hd, fan_in=d),
-        "wo": dense(L, h * hd, d, fan_in=h * hd),
-        "w_gate": dense(L, d, f, fan_in=d),
-        "w_up": dense(L, d, f, fan_in=d),
-        "w_down": dense(L, f, d, fan_in=f),
-        "attn_norm": norm(L, d),
-        "mlp_norm": norm(L, d),
-        "final_norm": norm(d),
-        "lm_head": dense(d, v, fan_in=d),
-    }
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        where = (sharding.local_slices(sharding.PARAM_SPECS[name], shape, mesh)
+                 if mesh is not None else tuple(slice(0, n) for n in shape))
+        local = tuple(sl.stop - sl.start for sl in where)
+        if name.endswith("norm"):
+            out[name] = torch.ones(local, dtype=dtype, device=device)
+            continue
+        fan_in = cfg.d_model if name == "embed" else shape[-2]
+        leaf = torch.empty(local, dtype=dtype, device=device)
+        stacked = len(shape) == 3
+        for i in range(shape[0] if stacked else 1):
+            draw = torch.randn(shape[1:] if stacked else shape, generator=generator,
+                               dtype=torch.float32, device=device)
+            (leaf[i] if stacked else leaf).copy_((draw / fan_in ** 0.5)[where[1:] if stacked
+                                                                         else where])
+        out[name] = leaf
+    return out
 
 
 def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
@@ -116,32 +133,104 @@ def dense_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tens
     return quant_lib.matmul(x, w, cfg.quant, adt=x.dtype)
 
 
+def _quant_partial_mm(cfg: LlamaConfig) -> Optional[quant_lib.Dot]:
+    """The chunk product of a collective ring under cfg.quant (None = the
+    fp product): straight-through dots, each chunk quantized with its own
+    scales."""
+    return {"int8": quant_lib.INT8_DOT, "fp8": quant_lib.FP8_DOT}.get(cfg.quant)
+
+
+def _gather_dtype(cfg: LlamaConfig, adt: torch.dtype) -> Optional[torch.dtype]:
+    """The dtype a weight is gathered in: the quantized products quantize
+    the master weight itself, the fp product its cast to the activation
+    dtype (gathered after the cast, half the bytes of fp32)."""
+    return None if cfg.quant in ("int8", "fp8") else adt
+
+
+def _tp(mesh: Optional[sharding.Mesh]) -> int:
+    return mesh.shape["tp"] if mesh is not None else 1
+
+
+def _norm_weight(params: Params, name: str, layer: Optional[int],
+                 mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+    """A norm's weight, whole on every rank: its gradient is summed over the
+    data ranks (the tp ranks already agree on it)."""
+    w = params[name] if layer is None else params[name][layer]
+    return w if mesh is None else reduce_backward(w, mesh, DATA_AXES)
+
+
+def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
+            mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+    """The column-parallel projections (wq/wk/wv/w_gate/w_up): ``x`` [B, T, D]
+    this rank's rows, ``w`` its [D/data, N/tp] piece. The weight is gathered
+    over the data ranks on use, or with cfg.fsdp_overlap its shards ride the
+    all-gather ring (kernels/collective.py) when d_model splits over them;
+    the result is this rank's N/tp columns."""
+    if mesh is None:
+        return dense_proj(x, w, cfg)
+    if cfg.fsdp_overlap and can_fsdp_overlap(mesh, x.shape[-1]):
+        return allgather_matmul(x, w, mesh, matmul=_quant_partial_mm(cfg),
+                                dtype=_gather_dtype(cfg, x.dtype)).to(x.dtype)
+    w = gather_on_use(w, 0, mesh, DATA_AXES, _gather_dtype(cfg, x.dtype))
+    return dense_proj(x, w, cfg)
+
+
+def down_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
+              mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+    """The row-parallel projections (wo/w_down): ``x`` [B, T, K/tp] this
+    rank's heads or hidden, ``w`` its [K/tp, D/data] piece, gathered over the
+    data ranks on use. Under tp the partial products are summed over tp: by
+    an all-reduce, or with cfg.tp_overlap by the reduce-scatter ring
+    (kernels/collective.py) when the local rows split into tp chunks. The
+    quantized plain path joins its scales over tp, so they span the whole
+    contraction as GSPMD's do."""
+    if mesh is None:
+        return dense_proj(x, w, cfg)
+    w = gather_on_use(w, 1, mesh, DATA_AXES, _gather_dtype(cfg, x.dtype))
+    if _tp(mesh) == 1:
+        return dense_proj(x, w, cfg)
+    rows = x.shape[0] * mesh.axis_size(DATA_AXES)
+    if cfg.tp_overlap and can_overlap(mesh, rows, x.shape[1]):
+        return collective_matmul(x, w, mesh, matmul=_quant_partial_mm(cfg)).to(x.dtype)
+    reduce = max_over(mesh, "tp") if cfg.quant in ("int8", "fp8") else None
+    return reduce_forward(quant_lib.matmul(x, w, cfg.quant, x.dtype, reduce), mesh, "tp")
+
+
 def attention_sublayer(
-    x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor
+    x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> torch.Tensor:
-    """Pre-norm attention + residual on ``attention_core(cfg.attn_impl)``."""
+    """Pre-norm attention + residual on ``attention_core(cfg.attn_impl)``;
+    under tp on this rank's H/tp query and Kh/tp KV heads (whole GQA
+    groups)."""
     b, t = x.shape[0], x.shape[1]
-    h_in = _rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-    q = dense_proj(h_in, params["wq"][layer], cfg).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = dense_proj(h_in, params["wk"][layer], cfg).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = dense_proj(h_in, params["wv"][layer], cfg).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    heads, kv_heads = cfg.n_heads // _tp(mesh), cfg.n_kv_heads // _tp(mesh)
+    h_in = _rms_norm(x, _norm_weight(params, "attn_norm", layer, mesh), cfg.norm_eps)
+    if _tp(mesh) > 1:
+        h_in = reduce_backward(h_in, mesh, "tp")
+    q = up_proj(h_in, params["wq"][layer], cfg, mesh).reshape(b, t, heads, cfg.head_dim)
+    k = up_proj(h_in, params["wk"][layer], cfg, mesh).reshape(b, t, kv_heads, cfg.head_dim)
+    v = up_proj(h_in, params["wv"][layer], cfg, mesh).reshape(b, t, kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = attention_core(q, k, v, cfg.attn_impl, window=cfg.attn_window)
-    o = o.to(x.dtype).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return x + dense_proj(o, params["wo"][layer], cfg)
+    o = attention_core(q, k, v, cfg.attn_impl, mesh, window=cfg.attn_window)
+    o = o.to(x.dtype).reshape(b, t, heads * cfg.head_dim)
+    return x + down_proj(o, params["wo"][layer], cfg, mesh)
 
 
 def transformer_block(
-    x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor
+    x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> torch.Tensor:
     """One dense decoder block (attention + SwiGLU MLP, both pre-norm residual)."""
-    x = attention_sublayer(x, params, layer, cfg, positions)
-    h2 = _rms_norm(x, params["mlp_norm"][layer], cfg.norm_eps)
-    gate = dense_proj(h2, params["w_gate"][layer], cfg)
-    up = dense_proj(h2, params["w_up"][layer], cfg)
+    x = attention_sublayer(x, params, layer, cfg, positions, mesh)
+    h2 = _rms_norm(x, _norm_weight(params, "mlp_norm", layer, mesh), cfg.norm_eps)
+    if _tp(mesh) > 1:
+        h2 = reduce_backward(h2, mesh, "tp")
+    gate = up_proj(h2, params["w_gate"][layer], cfg, mesh)
+    up = up_proj(h2, params["w_up"][layer], cfg, mesh)
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + dense_proj(hidden, params["w_down"][layer], cfg)
+    return x + down_proj(hidden, params["w_down"][layer], cfg, mesh)
 
 
 def remat_policy_of(cfg: LlamaConfig) -> Callable:
@@ -163,64 +252,120 @@ def remat_policy_of(cfg: LlamaConfig) -> Callable:
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
+def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh: Optional[sharding.Mesh],
+                  adt: torch.dtype) -> torch.Tensor:
+    """Token embedding lookup. Under a mesh the table's d_model is gathered
+    over the data ranks on use; under tp its vocab is sharded, so each rank
+    gathers the rows it owns, zeros the rest, and the partial rows are
+    summed over tp (the reference's shard_map'd lookup)."""
+    if mesh is None:
+        return embed.to(adt)[tokens]
+    table = gather_on_use(embed, 1, mesh, DATA_AXES, adt)  # [V/tp, D]
+    if _tp(mesh) == 1:
+        return table[tokens]
+    v_loc = table.shape[0]
+    local = tokens - mesh.index("tp") * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    rows = table[local.clamp(0, v_loc - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_forward(rows, mesh, "tp")
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
     cfg: LlamaConfig,
     return_hidden: bool = False,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> torch.Tensor:
     """tokens [B, T] -> logits [B, T, V] fp32, or the final hidden state
     [B, T, D] (post final_norm, pre lm_head) when ``return_hidden``, which the
     chunked cross-entropy uses. Every weight is cast to cfg.dtype on use, so
     fp32 masters and weights stored in cfg.dtype give the same result. Under
     cfg.remat each block is recomputed in the backward pass (when gradients
-    are recorded)."""
+    are recorded). Under ``mesh``: this rank's rows, and under tp its V/tp
+    vocab columns of the logits."""
     adt = dtype_of(cfg.dtype)
-    tokens = tokens.to(params["embed"].device)
-    x = params["embed"].to(adt)[tokens.long()]
+    tokens = tokens.to(params["embed"].device).long()
+    x = _embed_lookup(params["embed"], tokens, mesh, adt)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = remat_policy_of(cfg) if remat else None
     for layer in range(cfg.n_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                transformer_block, x, params, layer, cfg, positions,
+                transformer_block, x, params, layer, cfg, positions, mesh,
                 use_reentrant=False, context_fn=context_fn,
             )
         else:
-            x = transformer_block(x, params, layer, cfg, positions)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = transformer_block(x, params, layer, cfg, positions, mesh)
+    x = _rms_norm(x, _norm_weight(params, "final_norm", None, mesh), cfg.norm_eps)
     if return_hidden:
         return x
-    if cfg.quant == "int8":
-        return quant_lib.int8_matmul_ste(x, params["lm_head"])
+    lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt)
+    return _logits(_tp_input(x, mesh), lm_head, cfg.quant)
+
+
+def _lm_head(params: Params, cfg: LlamaConfig, mesh: Optional[sharding.Mesh],
+             dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The lm_head in ``dtype`` (None: its own), [D, V/tp] under a mesh:
+    gathered over the data ranks on use."""
+    if mesh is None:
+        return params["lm_head"] if dtype is None else params["lm_head"].to(dtype)
+    return gather_on_use(params["lm_head"], 0, mesh, DATA_AXES, dtype)
+
+
+def _tp_input(x: torch.Tensor, mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+    """The final hidden state entering the vocab-parallel lm_head: its
+    gradient is summed over tp."""
+    return reduce_backward(x, mesh, "tp") if _tp(mesh) > 1 else x
+
+
+def _logits(x: torch.Tensor, lm_head: torch.Tensor, quant: str) -> torch.Tensor:
+    if quant == "int8":
+        return quant_lib.int8_matmul_ste(x, lm_head)
     # bf16 x bf16 products are exact in fp32: an fp32 product of the rounded
     # operands is the reference's dot with fp32 accumulation. Under fp8 the
     # lm_head stays this fp product, as the reference's does.
-    return x.float() @ params["lm_head"].to(adt).float()
+    return x.float() @ lm_head.float()
 
 
-def _nll_sum(logits: torch.Tensor, targets: torch.Tensor):
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+             tp_mesh: Optional[sharding.Mesh] = None):
     """(sum of -log p(target) over targets >= 0, their count); logits fp32,
-    targets -1 = ignore."""
+    targets -1 = ignore. With ``tp_mesh`` (a mesh with tp > 1) the logits
+    are this rank's block of the vocab: the max and the sum of exponentials
+    are reduced over tp, and the target's logit comes from the rank that
+    owns it (the max is a constant of the gradient, which it cancels from)."""
     mask = targets >= 0
     safe = torch.where(mask, targets, 0).long()
-    nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    if tp_mesh is None:
+        nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+        return (nll * mask).sum(), mask.sum()
+    v_loc = logits.shape[-1]
+    m = logits.detach().amax(-1, keepdim=True)
+    max_over(tp_mesh, "tp")(m)
+    sum_exp = reduce_forward(torch.exp(logits - m).sum(-1), tp_mesh, "tp")
+    local = safe - tp_mesh.index("tp") * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    picked = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    picked = reduce_forward(torch.where(ok, picked, 0.0), tp_mesh, "tp")
+    nll = torch.log(sum_exp) + m[..., 0] - picked
     return (nll * mask).sum(), mask.sum()
 
 
-def _chunk_nll(x_blk: torch.Tensor, t_blk: torch.Tensor, lm_head: torch.Tensor, quant: str):
-    if quant == "int8":
-        return _nll_sum(quant_lib.int8_matmul_ste(x_blk, lm_head), t_blk)
-    return _nll_sum(x_blk.float() @ lm_head.float(), t_blk)
+def _chunk_nll(x_blk: torch.Tensor, t_blk: torch.Tensor, lm_head: torch.Tensor, quant: str,
+               tp_mesh: Optional[sharding.Mesh] = None):
+    return _nll_sum(_logits(x_blk, lm_head, quant), t_blk, tp_mesh)
 
 
 def _chunked_nll(
     x: torch.Tensor,        # [B, T, D] final hidden (post final_norm)
-    lm_head: torch.Tensor,  # [D, V] in the activation dtype
+    lm_head: torch.Tensor,  # [D, V] in the activation dtype ([D, V/tp] under tp)
     targets: torch.Tensor,  # [B, T]; -1 = ignore
     chunk: int,
     quant: str = "none",
+    tp_mesh: Optional[sharding.Mesh] = None,
 ):
     """Cross-entropy without materializing [B,T,V] fp32 logits: the sequence
     goes in chunks, each chunk's logits and log-softmax are recomputed in the
@@ -230,7 +375,7 @@ def _chunked_nll(
     for c0 in range(0, x.shape[1], chunk):
         nll, cnt = torch.utils.checkpoint.checkpoint(
             _chunk_nll, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], lm_head, quant,
-            use_reentrant=False,
+            tp_mesh, use_reentrant=False,
         )
         total_nll = total_nll + nll
         total_cnt = total_cnt + cnt
@@ -267,15 +412,34 @@ def loss_fn(
     tokens: torch.Tensor,   # [B, T]
     targets: torch.Tensor,  # [B, T]; -1 = ignore
     cfg: LlamaConfig,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> torch.Tensor:
+    """Mean cross-entropy over the targets >= 0. Under ``mesh`` each rank
+    passes its own rows: the sum and the count are reduced over the data
+    ranks, so every rank returns the loss of the global batch, and its
+    gradient reaches this rank's rows only (the data ranks' weight
+    gradients are summed by the gathers' backward)."""
     targets = targets.to(params["embed"].device)
     chunk = pick_loss_chunk(cfg, tokens.shape[1])
+    if mesh is None:
+        if chunk:
+            hidden = forward(params, tokens, cfg, return_hidden=True)
+            lm_head = params["lm_head"].to(dtype_of(cfg.dtype))
+            total_nll, total_cnt = _chunked_nll(hidden, lm_head, targets, chunk, quant=cfg.quant)
+            return total_nll / torch.clamp(total_cnt, min=1)
+        return masked_ce(forward(params, tokens, cfg), targets)
+    adt = dtype_of(cfg.dtype)
+    tp_mesh = mesh if _tp(mesh) > 1 else None
+    hidden = _tp_input(forward(params, tokens, cfg, return_hidden=True, mesh=mesh), mesh)
     if chunk:
-        hidden = forward(params, tokens, cfg, return_hidden=True)
-        lm_head = params["lm_head"].to(dtype_of(cfg.dtype))
-        total_nll, total_cnt = _chunked_nll(hidden, lm_head, targets, chunk, quant=cfg.quant)
-        return total_nll / torch.clamp(total_cnt, min=1)
-    return masked_ce(forward(params, tokens, cfg), targets)
+        lm_head = _lm_head(params, cfg, mesh, adt)
+        total, count = _chunked_nll(hidden, lm_head, targets, chunk, cfg.quant, tp_mesh)
+    else:
+        lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt)
+        total, count = _nll_sum(_logits(hidden, lm_head, cfg.quant), targets, tp_mesh)
+    count = count.clone()
+    dist.all_reduce(count, group=mesh.group(DATA_AXES))
+    return reduce_forward(total, mesh, DATA_AXES) / torch.clamp(count, min=1)
 
 
 # ---------------------------------------------------------------------------

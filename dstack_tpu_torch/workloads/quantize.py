@@ -33,7 +33,7 @@ values, which are exact too, summed in fp32).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,12 +54,20 @@ class QuantizedWeight(NamedTuple):
     scales: torch.Tensor  # float32
 
 
-def _absmax(x: torch.Tensor, axis: int, max_val: float) -> torch.Tensor:
+# An in-place max over the ranks that hold the rest of a contraction
+# (collective.max_over): a row-parallel product's scales then span the whole
+# contraction, as GSPMD computes them on the sharded operands.
+Reduce = Optional[Callable[[torch.Tensor], None]]
+
+
+def _absmax(x: torch.Tensor, axis: int, max_val: float, reduce: Reduce = None) -> torch.Tensor:
     # |x| and its max are exact in any float dtype, so they run before the
     # upcast: one fp32 channel row instead of an fp32 copy of the weight.
     # The divisor is a tensor: CUDA multiplies by the reciprocal of a Python
     # scalar divisor, which is one rounding away from JAX's scales.
     a = x.abs().amax(dim=axis, keepdim=True).float()
+    if reduce is not None:
+        reduce(a)
     s = a / torch.full_like(a, max_val)
     return torch.where(s == 0.0, torch.ones_like(s), s)
 
@@ -75,9 +83,10 @@ def absmax_scales(x: torch.Tensor, axis: int) -> torch.Tensor:
     return _absmax(x, axis, INT8_MAX)
 
 
-def quantize_int8(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, axis: int,
+                  reduce: Reduce = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, fp32 keepdim scales); round-to-nearest-even, clipped."""
-    scales = absmax_scales(x, axis)
+    scales = _absmax(x, axis, INT8_MAX, reduce)
     q = _scaled(x, scales).round_().clamp_(-INT8_MAX, INT8_MAX)
     return q.to(torch.int8), scales
 
@@ -87,10 +96,10 @@ def dequantize(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_fp8(
-    x: torch.Tensor, axis: int, fmt: str = FP8_DEFAULT_FORMAT
+    x: torch.Tensor, axis: int, fmt: str = FP8_DEFAULT_FORMAT, reduce: Reduce = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fp8 values, fp32 keepdim scales). The cast is the rounding."""
-    scales = _absmax(x, axis, FP8_MAX[fmt])
+    scales = _absmax(x, axis, FP8_MAX[fmt], reduce)
     return _scaled(x, scales).to(FP8_DTYPES[fmt]), scales
 
 
@@ -136,26 +145,30 @@ def _fp8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _quantized_matmul(x: torch.Tensor, w: torch.Tensor, quantize, dot) -> torch.Tensor:
+def _quantized_matmul(x: torch.Tensor, w: torch.Tensor, quantize, dot,
+                      reduce: Reduce = None) -> torch.Tensor:
     """``x[..., K] @ w[K, N]`` through ``quantize`` (activations per row,
     weights per output channel) and ``dot``: the fp32 sum times the
     activation scales times the weight scales, in that order."""
-    xq, xs = quantize(x, -1)   # xs [..., 1]
-    wq, ws = quantize(w, 0)    # ws [1, N]
+    xq, xs = quantize(x, -1, reduce=reduce)   # xs [..., 1]
+    wq, ws = quantize(w, 0, reduce=reduce)    # ws [1, N]
     acc = dot(xq.reshape(-1, x.shape[-1]), wq).reshape(*x.shape[:-1], w.shape[-1])
     return acc.float() * xs * ws
 
 
-def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, reduce: Reduce = None) -> torch.Tensor:
     """Dynamically quantized ``x[..., K] @ w[K, N]`` -> fp32: int8 operands,
-    exact int32 sums; the only error is the rounding of the operands."""
-    return _quantized_matmul(x, w, quantize_int8, _int8_dot)
+    exact int32 sums; the only error is the rounding of the operands.
+    ``reduce`` joins the scales of a contraction split over ranks."""
+    return _quantized_matmul(x, w, quantize_int8, _int8_dot, reduce)
 
 
-def fp8_matmul(x: torch.Tensor, w: torch.Tensor, fmt: str = FP8_DEFAULT_FORMAT) -> torch.Tensor:
+def fp8_matmul(x: torch.Tensor, w: torch.Tensor, fmt: str = FP8_DEFAULT_FORMAT,
+               reduce: Reduce = None) -> torch.Tensor:
     """Dynamically quantized fp8 ``x[..., K] @ w[K, N]`` -> fp32: the same
     scale algebra as ``int8_matmul`` on fp8 operands, fp32 sums."""
-    return _quantized_matmul(x, w, lambda a, axis: quantize_fp8(a, axis, fmt), _fp8_dot)
+    return _quantized_matmul(
+        x, w, lambda a, axis, reduce: quantize_fp8(a, axis, fmt, reduce), _fp8_dot, reduce)
 
 
 def _ste_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
@@ -169,48 +182,76 @@ def _ste_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
 
 class _Int8MatmulSTE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, reduce=None):
         ctx.save_for_backward(x, w)
-        return int8_matmul(x, w)
+        return int8_matmul(x, w, reduce)
 
     @staticmethod
     def backward(ctx, g):
-        return _ste_grads(*ctx.saved_tensors, g.float())
+        return (*_ste_grads(*ctx.saved_tensors, g.float()), None)
 
 
 class _Fp8MatmulSTE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, reduce=None):
         ctx.save_for_backward(x, w)
-        return fp8_matmul(x, w)
+        return fp8_matmul(x, w, reduce=reduce)
 
     @staticmethod
     def backward(ctx, g):
-        return _ste_grads(*ctx.saved_tensors, g.float())
+        return (*_ste_grads(*ctx.saved_tensors, g.float()), None)
 
 
-def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor, reduce: Reduce = None) -> torch.Tensor:
     """int8_matmul with straight-through gradients (the train path)."""
-    return _Int8MatmulSTE.apply(x, w)
+    return _Int8MatmulSTE.apply(x, w, reduce)
 
 
-def fp8_matmul_ste(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def fp8_matmul_ste(x: torch.Tensor, w: torch.Tensor, reduce: Reduce = None) -> torch.Tensor:
     """fp8_matmul with straight-through gradients: forward in e4m3, the
     backward the exact fp gradients, as int8_matmul_ste's."""
-    return _Fp8MatmulSTE.apply(x, w)
+    return _Fp8MatmulSTE.apply(x, w, reduce)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, quant: str, adt=None) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, quant: str, adt=None,
+           reduce: Reduce = None) -> torch.Tensor:
     """The model-side dispatch: ``x[..., K] @ w[K, N]`` under the config's
     ``quant`` mode, returned in ``adt`` (default x.dtype). ``w`` is the fp
     master weight. The quantized products are cast to ``adt`` only after
-    their scales; the fp product casts the weight to ``adt`` on use."""
+    their scales; the fp product casts the weight to ``adt`` on use.
+    ``reduce`` joins the quantized products' scales over a contraction that
+    ranks split (the fp product needs nothing)."""
     adt = adt or x.dtype
     if quant == "int8":
-        return int8_matmul_ste(x, w).to(adt)
+        return int8_matmul_ste(x, w, reduce).to(adt)
     if quant == "fp8":
-        return fp8_matmul_ste(x, w).to(adt)
+        return fp8_matmul_ste(x, w, reduce).to(adt)
     return (x @ w.to(adt)).to(adt)
+
+
+class Dot(NamedTuple):
+    """A chunk product for the collective rings (``kernels/collective.py``)
+    with its gradients written out: ``forward(x2d, w2d)`` -> fp32,
+    ``dx(g, w, dtype)`` and ``dw(x2d, g)`` (fp32) for the fp32 gradient
+    ``g`` of the product."""
+
+    forward: Callable
+    dx: Callable
+    dw: Callable
+
+
+def _ste_dx(g: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (g @ w.float().t()).to(dtype)
+
+
+def _ste_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return x.float().t() @ g
+
+
+# The rings' quantized partials: each chunk quantized with its own scales
+# (per row and per output channel of the chunk), straight-through gradients.
+INT8_DOT = Dot(int8_matmul, _ste_dx, _ste_dw)
+FP8_DOT = Dot(fp8_matmul, _ste_dx, _ste_dw)
 
 
 def supports_fp8(device: torch.device) -> bool:

@@ -58,8 +58,9 @@ def _iso_now() -> str:
 def _host_identity() -> Dict[str, Any]:
     """Per-host identity stamped on every point so a gang's N streams stay
     attributable after they merge server-side (services/gang_health.py):
-    ``host`` (hostname), ``proc`` (TPU worker / node rank when the agent's
-    cluster env is present), ``slice`` (MegaScale slice id on multislice).
+    ``host`` (hostname), ``proc`` (torchrun's global ``RANK``, else the TPU
+    worker / node rank when the agent's cluster env is present), ``slice``
+    (MegaScale slice id on multislice).
     Env-only + stdlib, so the first marks need no framework."""
     ident: Dict[str, Any] = {}
     try:
@@ -67,7 +68,7 @@ def _host_identity() -> Dict[str, Any]:
     except Exception:
         pass
     for field, names in (
-        ("proc", ("TPU_WORKER_ID", "DSTACK_NODE_RANK")),
+        ("proc", ("RANK", "TPU_WORKER_ID", "DSTACK_NODE_RANK")),
         ("slice", ("MEGASCALE_SLICE_ID",)),
     ):
         for name in names:

@@ -1,13 +1,20 @@
-"""Training on one device: AdamW with global-norm clipping, gradient
-accumulation, checkpoints with resume, the draft head's distillation, the
-timed loop and the CLI.
+"""Training: AdamW with global-norm clipping, gradient accumulation,
+checkpoints with resume, the draft head's distillation, the timed loop and
+the CLI, on one device or on a training mesh.
 
-The port of ``dstack_tpu/workloads/train.py`` without a mesh. One call of
-the step function is one optimizer update, as the JAX package's jitted step;
-the port updates the parameters and the optimizer's moments in place instead
-of returning new ones. Parameters are fp32 masters (cfg.param_dtype) and the
-forward runs in cfg.dtype (``model.forward`` casts each weight on use), so
-gradients reach the masters through those casts as ``jax.grad`` does.
+The port of ``dstack_tpu/workloads/train.py``. One call of the step function
+is one optimizer update, as the JAX package's jitted step; the port updates
+the parameters and the optimizer's moments in place instead of returning new
+ones. Parameters are fp32 masters (cfg.param_dtype) and the forward runs in
+cfg.dtype (``model.forward`` casts each weight on use), so gradients reach
+the masters through those casts as ``jax.grad`` does.
+
+Under ``torchrun`` (one process per card) ``main`` builds the reference's
+(dp, fsdp, tp, sp) mesh (``sharding.py``): every rank holds the local pieces
+of the parameters and of the optimizer's moments, and reads the rows of its
+data coordinate; the backward pass leaves each rank the gradient of its own
+pieces, already summed over the data ranks (``kernels/collective.py``), so
+clipping and AdamW run on the local pieces with the global norm.
 
 Checkpoints are the JAX package's (``checkpoint.py``): ``state_tree`` lays
 a state out as JAX's ``TrainState`` (or ``DraftTrainState``) flattens, with
@@ -23,13 +30,16 @@ import time
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from dstack_tpu_torch.workloads import checkpoint as checkpoint_lib
 from dstack_tpu_torch.workloads import data as data_lib
 from dstack_tpu_torch.workloads import model as model_lib
+from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
 from dstack_tpu_torch.workloads.config import LlamaConfig
 from dstack_tpu_torch.workloads.kernels import platform
+from dstack_tpu_torch.workloads.sharding import DATA_AXES, MESH_AXES
 
 Params = Dict[str, torch.Tensor]
 
@@ -168,12 +178,18 @@ def init_train_state(
     optimizer: OptimizerConfig,
     device: Optional[torch.device] = None,
     params: Optional[Params] = None,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> TrainState:
     """Synthetic parameters from seed 0 on ``device`` (or the given
-    ``params``, used as they are), made trainable, and their optimizer."""
+    ``params``, used as they are), made trainable, and their optimizer.
+    Under ``mesh`` each rank keeps its local pieces of the meshless tree:
+    every leaf is drawn on ``device`` one layer at a time from the same
+    generator as meshless, and only the local piece is kept, so the device
+    holds one layer's draw beyond the rank's pieces and the host nothing."""
     if params is None:
         device = torch.device(device)
-        params = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+        params = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device,
+                                       mesh=mesh)
     for p in params.values():
         p.requires_grad_(True)
     return TrainState(params=params, opt=optimizer.build(params))
@@ -222,13 +238,23 @@ def accumulate_grads(loss_fn, params: Params, tokens, targets, grad_accum: int,
     return loss_sum / grad_accum, grads
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Iterable[torch.Tensor], mesh: Optional[sharding.Mesh] = None,
+                specs=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm). Each
     leaf's sum of squares is a BLAS dot of the leaf with itself: no
     temporary of the leaf's size, and on the CPU a blocked sum, where
     ``torch.linalg.vector_norm`` accumulates serially and lands 1e-5 off
-    for a leaf of 10^6 entries."""
-    return torch.sqrt(sum(torch.dot(v, v) for v in (g.float().flatten() for g in grads)))
+    for a leaf of 10^6 entries. Under ``mesh`` the leaves are this rank's
+    pieces, laid out by ``specs``: each leaf's sums are added over the
+    ranks, a piece that several ranks hold counted on the first of them
+    only, so every element of the global gradient counts once."""
+    sq = [torch.dot(v, v) for v in (g.float().flatten() for g in grads)]
+    if mesh is not None:
+        sq = torch.stack([s if sharding.holds_first_copy(spec, mesh) else torch.zeros_like(s)
+                          for s, spec in zip(sq, specs)])
+        dist.all_reduce(sq, group=mesh.group(MESH_AXES))
+        sq = list(sq)
+    return torch.sqrt(sum(sq))
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
@@ -242,22 +268,28 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
         g.div_(div).mul_(mul)
 
 
-def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig, grad_accum: int = 1):
+def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig,
+                    mesh: Optional[sharding.Mesh] = None, grad_accum: int = 1):
     """Returns (state, tokens, targets) -> (state, metrics): one optimizer
     update, over ``grad_accum`` microbatches. metrics holds 0-dim tensors
-    (``loss``, the unclipped ``grad_norm``) and the new ``step``."""
+    (``loss``, the unclipped ``grad_norm``) and the new ``step``. Under
+    ``mesh`` the state holds this rank's pieces and tokens/targets its rows
+    (``data.rank_rows``: microbatch by microbatch); the loss and the norm
+    are the global batch's."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    data_shards = mesh.axis_size(DATA_AXES) if mesh is not None else 1
 
     def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
-        check_microbatch(tokens.shape[0], grad_accum, 1)
+        check_microbatch(tokens.shape[0] * data_shards, grad_accum, data_shards)
         if grad_accum == 1:
-            loss, grads = value_and_grad(model_lib.loss_fn, state.params, tokens, targets, cfg=cfg)
+            loss, grads = value_and_grad(model_lib.loss_fn, state.params, tokens, targets,
+                                         cfg=cfg, mesh=mesh)
         else:
             loss, grads = accumulate_grads(
-                model_lib.loss_fn, state.params, tokens, targets, grad_accum, cfg=cfg
+                model_lib.loss_fn, state.params, tokens, targets, grad_accum, cfg=cfg, mesh=mesh
             )
-        grad_norm = _apply_update(state.opt, state.params, grads, optimizer.grad_clip)
+        grad_norm = _apply_update(state.opt, state.params, grads, optimizer.grad_clip, mesh)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
 
@@ -265,10 +297,11 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig, grad_accum: in
 
 
 def _apply_update(opt: torch.optim.Optimizer, trained: Params, grads: Params,
-                  grad_clip: float) -> torch.Tensor:
+                  grad_clip: float, mesh: Optional[sharding.Mesh] = None) -> torch.Tensor:
     """clip_by_global_norm then the AdamW update of ``trained`` in place;
     returns the unclipped global norm."""
-    grad_norm = global_norm(grads.values())
+    specs = [sharding.PARAM_SPECS[k] for k in grads] if mesh is not None else None
+    grad_norm = global_norm(grads.values(), mesh, specs)
     clip_by_global_norm_(grads.values(), grad_clip, grad_norm)
     for name, p in trained.items():
         p.grad = grads[name]
@@ -411,10 +444,34 @@ def _device_peak_flops(device: torch.device) -> float:
     return _H100_BF16_FLOPS if "h100" in torch.cuda.get_device_name(device).lower() else 0.0
 
 
+def make_collective_fence(mesh: Optional[sharding.Mesh]):
+    """A timed one-element all-reduce over the whole mesh, for per-step
+    collective-wait attribution (the gang-health signal). Run right after a
+    step has synchronized, it measures how long this rank waits for the
+    rest: the bare collective latency on a healthy gang, stretched by the
+    lag on every rank but a straggler. None without a mesh or on one rank.
+    Its first all-reduce runs here, outside the timed loop."""
+    if mesh is None or mesh.size <= 1:
+        return None
+    x = torch.ones(1, device=mesh.device)
+    group = mesh.group(MESH_AXES)
+
+    def fence() -> float:
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return time.perf_counter() - t0
+
+    fence()
+    return fence
+
+
 def _timed_loop(steps: int, batch: int, seq: int, do_step,
                 flops_per_step: float = 0.0, telemetry=None,
                 step_extras=None, start_step: int = 0, on_step=None,
-                device: Optional[torch.device] = None) -> Dict[str, float]:
+                device: Optional[torch.device] = None, fence=None,
+                devices: int = 1) -> Dict[str, float]:
     """Shared throughput loop: ``do_step()`` advances the state and returns
     the loss as a 0-dim tensor; reading it as a float waits for the device
     each step, as the reference blocks on each step.
@@ -427,14 +484,17 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     iteration, then run_end. ``start_step`` resumes the numbering after a
     checkpoint restore: the loop runs ``steps - start_step`` steps numbered
     ``start_step + 1 .. steps``. ``on_step(step, loss)`` fires after every
-    step; its exceptions propagate (an injected crash must end the run)."""
+    step; its exceptions propagate (an injected crash must end the run).
+    ``fence`` (make_collective_fence) runs after each step and its wall time
+    lands on the step point as ``collective_wait_s``; MFU counts the peak
+    of ``devices`` cards."""
     if telemetry is None:
         telemetry = telemetry_lib.get_emitter()
     if steps - start_step <= 0:
         print(f"training done (0 steps remaining of {steps})", flush=True)
         return {}
     device = torch.device("cpu") if device is None else torch.device(device)
-    peak_flops = _device_peak_flops(device) if flops_per_step else 0.0
+    peak_flops = _device_peak_flops(device) * devices if flops_per_step else 0.0
 
     telemetry.mark("compile_start", steps=steps, batch=batch, seq=seq)
     t0 = time.perf_counter()
@@ -466,6 +526,8 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
                 point.update(step_extras())
             except Exception:
                 pass  # extras are advisory; never let them kill the loop
+        if fence is not None:
+            point["collective_wait_s"] = round(fence(), 6)
         telemetry.step(i + 1, round(dt, 6), **point)
         if on_step is not None:
             on_step(i + 1, loss)
@@ -505,12 +567,12 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     return stats
 
 
-def make_checkpoint_manager(args, telemetry):
+def make_checkpoint_manager(args, telemetry, mesh: Optional[sharding.Mesh] = None):
     """--checkpoint-dir -> a CheckpointManager (None when checkpointing is
-    off)."""
+    off); under ``mesh`` one a rank, writing its own pieces."""
     if not getattr(args, "checkpoint_dir", ""):
         return None
-    return checkpoint_lib.CheckpointManager(args.checkpoint_dir, telemetry=telemetry)
+    return checkpoint_lib.CheckpointManager(args.checkpoint_dir, telemetry=telemetry, mesh=mesh)
 
 
 def maybe_resume(manager, resume: bool, state, telemetry):
@@ -566,9 +628,9 @@ def _chain(*hooks):
 
 
 def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
-    """--attn-impl / --quant / --attn-window -> config fields (empty flag =
-    keep the config default). The reference's other perf flags are not
-    ported yet and are refused before this (``_unported``)."""
+    """--attn-impl / --quant / --attn-window / --tp-overlap / --fsdp-overlap
+    -> config fields (empty flag = keep the config default). --autotune is
+    not ported yet and is refused before this (``_unported``)."""
     reps = {}
     if args.attn_impl:
         reps["attn_impl"] = args.attn_impl
@@ -576,6 +638,10 @@ def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
         reps["quant"] = args.quant
     if args.attn_window:
         reps["attn_window"] = args.attn_window
+    if getattr(args, "tp_overlap", False):
+        reps["tp_overlap"] = True
+    if getattr(args, "fsdp_overlap", False):
+        reps["fsdp_overlap"] = True
     return dataclasses.replace(cfg, **reps) if reps else cfg
 
 
@@ -595,9 +661,12 @@ def train(
     ckpt: Optional[checkpoint_lib.CheckpointManager] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> Dict[str, float]:
     """Train ``cfg`` for ``steps`` updates on ``device`` from synthetic
     parameters and the input pipeline; returns the timed loop's stats.
+    Under a connected ``mesh`` this process is one rank of it: its pieces of
+    the state, its rows of each global ``batch``, its checkpoint shard.
 
     With ``ckpt``: ``resume`` restores the latest complete checkpoint and
     the feed seeks past the batches it consumed; a save every
@@ -609,13 +678,17 @@ def train(
         telemetry = telemetry_lib.get_emitter()
     try:
         optimizer = make_optimizer(mu_dtype=mu_dtype)
-        state = init_train_state(cfg, optimizer, device)
+        state = init_train_state(cfg, optimizer, device, mesh=mesh)
         state, start_step = maybe_resume(ckpt, resume, state, telemetry)
-        step_fn = make_train_step(cfg, optimizer, grad_accum=grad_accum)
+        step_fn = make_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
+        shards = {} if mesh is None else dict(
+            data_index=mesh.index(DATA_AXES), data_shards=mesh.axis_size(DATA_AXES),
+            grad_accum=grad_accum)
         feed = data_lib.input_pipeline(
             batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
-            start_batch=start_step,
+            start_batch=start_step, **shards,
         )
+        mesh_shape = dict(mesh.shape) if mesh is not None else None
         flops_per_step = cfg.flops_per_token(seq) * batch * seq
         box = {"state": state}
         feed_wait = {"s": 0.0}
@@ -628,16 +701,19 @@ def train(
             return metrics["loss"]
 
         hook = make_checkpoint_hook(ckpt, checkpoint_every, steps,
-                                    lambda: state_tree(box["state"]), resumed=start_step > 0)
+                                    lambda: state_tree(box["state"]), mesh_shape=mesh_shape,
+                                    resumed=start_step > 0)
         try:
             stats = _timed_loop(steps, batch, seq, do_step, flops_per_step,
                                 telemetry=telemetry,
                                 step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
                                 start_step=start_step, on_step=_chain(on_step, hook),
-                                device=device)
+                                device=device, fence=make_collective_fence(mesh),
+                                devices=mesh.size if mesh is not None else 1)
             if ckpt is not None and checkpoint_every:
                 # The final state: a completed run's last step restores too.
-                ckpt.save(steps, state_tree(box["state"]), data_offset=steps, block=True)
+                ckpt.save(steps, state_tree(box["state"]), data_offset=steps,
+                          mesh_shape=mesh_shape, block=True)
             return stats
         finally:
             feed.close()
@@ -758,9 +834,9 @@ def _unported(args) -> Optional[str]:
     """The first flag of the JAX entry point that the port does not have
     yet, with its ROADMAP item."""
     checks = (
-        (args.config in MOE_PRESET_NAMES, f"MoE config {args.config}", 9),
-        (args.tp > 1 or args.tp_overlap or args.fsdp_overlap or args.multislice or args.ep,
-         "--tp/--tp-overlap/--fsdp-overlap/--multislice/--ep (meshes)", 6),
+        (args.config in MOE_PRESET_NAMES or args.ep, f"MoE config {args.config} / --ep", 9),
+        (args.draft_head and (args.tp > 1 or args.tp_overlap or args.fsdp_overlap),
+         "--draft-head on a mesh (--tp/--tp-overlap/--fsdp-overlap)", 6),
         (args.autotune, "--autotune", 10),
     )
     for hit, what, item in checks:
@@ -769,11 +845,37 @@ def _unported(args) -> Optional[str]:
     return None
 
 
+def build_mesh(args, device: torch.device) -> Tuple[sharding.Mesh, Optional[sharding.Mesh]]:
+    """The reference's training mesh for this command line: (its layout,
+    the connected mesh or None). Under torchrun (``WORLD_SIZE`` set) this
+    process joins the group (NCCL on a card, gloo on the CPU) and the mesh
+    spans its ranks, fsdp absorbing what --tp leaves; with --multislice and
+    MEGASCALE_NUM_SLICES > 1, dp leads over the slices. A lone process is
+    the reference's one-device mesh: its layout is checked, and the step
+    runs meshless."""
+    rank_device = sharding.init_distributed(device)
+    world = dist.get_world_size() if rank_device is not None else 1
+    num_slices = int(os.environ.get("MEGASCALE_NUM_SLICES", "1"))
+    if args.multislice and num_slices > 1 and rank_device is not None:
+        layout = sharding.make_multislice_mesh(num_slices, sharding.gather_slice_ids(),
+                                               tp=args.tp)
+    else:
+        layout = sharding.make_mesh(tp=args.tp, world=world)
+    if args.tp_overlap and layout.shape["tp"] <= 1:
+        raise ValueError(
+            "--tp-overlap needs a tensor-parallel mesh axis (pass --tp > 1);"
+            " with tp=1 there is no all-reduce to hide and the ring is a"
+            " silent no-op"
+        )
+    return layout, (layout.connect(rank_device) if rank_device is not None else None)
+
+
 def main(argv=None) -> Dict[str, float]:
     """``python -m dstack_tpu_torch.workloads.train``: the runnable training
-    entry point, on the CUDA card unless ``--device cpu``. Synthetic data by
-    default (``--data tokens.bin`` feeds a packed corpus); prints per-step
-    throughput and, on a known card, MFU."""
+    entry point, on the CUDA card unless ``--device cpu``; launched by
+    ``torchrun`` (one process per card) it trains on the (dp, fsdp, tp, sp)
+    mesh. Synthetic data by default (``--data tokens.bin`` feeds a packed
+    corpus); prints per-step throughput and, on a known card, MFU."""
     import argparse
 
     from dstack_tpu_torch.workloads.config import ATTN_IMPLS, PRESETS, get_config, validate_config
@@ -783,8 +885,10 @@ def main(argv=None) -> Dict[str, float]:
                         choices=sorted(PRESETS) + sorted(MOE_PRESET_NAMES))
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=0,
-                        help="global batch (0 = 2 per microbatch)")
+                        help="global batch (0 = 2 per data shard per microbatch)")
     parser.add_argument("--seq", type=int, default=0, help="sequence length (0 = config max)")
+    parser.add_argument("--multislice", action="store_true",
+                        help="leading dp axis over the MEGASCALE slice count")
     parser.add_argument("--grad-accum", type=int, default=1, dest="grad_accum",
                         help="microbatches per optimizer update (fp32 grad"
                              " accumulators; batch must divide evenly)")
@@ -839,12 +943,20 @@ def main(argv=None) -> Dict[str, float]:
     parser.add_argument("--draft-rollout", type=int, default=2, dest="draft_rollout",
                         help="distillation rollout depth: steps >= 2 train the head"
                              " on its own continuations")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel axis size (fsdp absorbs the rest of"
+                             " the ranks)")
+    parser.add_argument("--tp-overlap", action="store_true", dest="tp_overlap",
+                        help="collective-matmul ring for the TP down-projections:"
+                             " the partial sums' transfers hide under the chunk"
+                             " products (requires --tp > 1)")
+    parser.add_argument("--fsdp-overlap", action="store_true", dest="fsdp_overlap",
+                        help="all-gather ring for the FSDP up-projections: weight"
+                             " shards rotate around dp*fsdp, each hop hiding under"
+                             " the previous chunk's product (requires dp*fsdp > 1"
+                             " and d_model divisible by it)")
     # Flags of the JAX entry point that the port does not have yet: they
     # parse, then raise naming their ROADMAP item.
-    parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--tp-overlap", action="store_true", dest="tp_overlap")
-    parser.add_argument("--fsdp-overlap", action="store_true", dest="fsdp_overlap")
-    parser.add_argument("--multislice", action="store_true")
     parser.add_argument("--ep", type=int, default=0)
     parser.add_argument("--autotune", action="store_true")
     args = parser.parse_args(argv)
@@ -857,9 +969,26 @@ def main(argv=None) -> Dict[str, float]:
     device = platform.resolve_device(args.device)
     if device.type == "cuda":
         platform.set_reference_matmul_precision()
+    owns_group = not dist.is_initialized()
+    layout, mesh = build_mesh(args, device)
+    try:
+        return _main(args, layout, mesh, mesh.device if mesh is not None else device)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, layout: sharding.Mesh, mesh: Optional[sharding.Mesh],
+          device: torch.device) -> Dict[str, float]:
+    from dstack_tpu_torch.workloads.config import get_config, validate_config
+
     telemetry = telemetry_lib.get_emitter()
-    telemetry.set_identity(proc=0)
+    telemetry.set_identity(proc=dist.get_rank() if mesh is not None else 0)
     if args.draft_head:
+        if layout.size > 1:
+            raise NotImplementedError(
+                "--draft-head on a mesh (more than one rank) is not yet ported to PyTorch"
+                " (ROADMAP item 6: the draft head waits for the serve mesh)")
         cfg = apply_perf_overrides(get_config(args.config), args)
         batch = args.batch or 2
         seq = args.seq or cfg.max_seq_len
@@ -885,25 +1014,31 @@ def main(argv=None) -> Dict[str, float]:
         cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
     cfg = apply_perf_overrides(cfg, args)
     model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
-    batch = args.batch or 2 * args.grad_accum
+    data_shards = layout.axis_size(DATA_AXES)
+    # Each MICROBATCH keeps 2 rows per data shard by default (an explicit
+    # --batch must divide accordingly).
+    batch = args.batch or 2 * data_shards * args.grad_accum
     seq = args.seq or cfg.max_seq_len
-    validate_config(cfg, seq=seq, device=device)
+    validate_config(cfg, seq=seq, device=device, mesh=layout,
+                    batch=batch // max(args.grad_accum, 1))
 
-    print(f"config={args.config} device={device} batch={batch} seq={seq} "
+    print(f"config={args.config} device={device} devices={layout.size}"
+          f" mesh={layout.shape} batch={batch} seq={seq} "
           f"grad_accum={args.grad_accum} attn_impl={cfg.attn_impl} "
           f"attn_window={cfg.attn_window} quant={cfg.quant} "
           f"mu_dtype={args.mu_dtype or 'float32'} "
           f"remat={cfg.remat_policy if cfg.remat else 'off'} prefetch={args.prefetch} "
+          f"tp_overlap={cfg.tp_overlap} fsdp_overlap={cfg.fsdp_overlap} "
           f"params={cfg.num_params() / 1e9:.3f}B", flush=True)
-    telemetry.mark("run_start", workload="train", config=args.config, devices=1,
-                   batch=batch, seq=seq, grad_accum=args.grad_accum)
+    telemetry.mark("run_start", workload="train", config=args.config, devices=layout.size,
+                   mesh=layout.shape, batch=batch, seq=seq, grad_accum=args.grad_accum)
     try:
         return train(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
                      grad_accum=args.grad_accum, prefetch=args.prefetch,
                      data_path=args.data or None, telemetry=telemetry,
                      mu_dtype=args.mu_dtype or None,
-                     ckpt=make_checkpoint_manager(args, telemetry),
-                     checkpoint_every=args.checkpoint_every, resume=args.resume)
+                     ckpt=make_checkpoint_manager(args, telemetry, mesh),
+                     checkpoint_every=args.checkpoint_every, resume=args.resume, mesh=mesh)
     finally:
         telemetry.close()
 

@@ -170,10 +170,14 @@ class TestDispatch:
                 call()
 
     def test_splash_and_meshes_are_not_ported(self):
-        """Splash is ported (tests/test_torch_splash.py); a mesh is not."""
+        """Splash is ported (tests/test_torch_splash.py), and so is the
+        training mesh (tests/test_torch_train_mesh.py); a sequence-parallel
+        mesh (ring attention) is not."""
+        from dstack_tpu_torch.workloads.sharding import make_mesh
+
         q, k, v = (t(x) for x in qkv(8))
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            tattn.attention_core(q, k, v, "flash", mesh=object())
+            tattn.attention_core(q, k, v, "flash", mesh=make_mesh(sp=2, world=2))
 
     def test_validate_config_checks_each_impls_block_menu(self):
         """576 takes the in-repo kernel's block of 64 but none of the public

@@ -355,7 +355,10 @@ def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize(
     "argv",
-    [["--tp", "2"], ["--config", "moe_test"], ["--autotune"], ["--remat-policy", "save_proj"]],
+    # --tp runs since the training mesh was ported; --ep beside it (MoE)
+    # still raises.
+    [["--tp", "2", "--ep", "2"], ["--config", "moe_test"], ["--autotune"],
+     ["--remat-policy", "save_proj"], ["--draft-head", "--tp", "2"]],
     ids=lambda a: a[-1] if len(a) == 1 else a[0].lstrip("-"),
 )
 def test_unported_flags_raise_naming_their_item(argv):

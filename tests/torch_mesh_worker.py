@@ -1,0 +1,218 @@
+"""One rank of a gloo world on the CPU, for the port's mesh tests.
+
+    python -m tests.torch_mesh_worker <jobs.pt> <rank> <world> <init file> <out dir>
+
+``start_world`` starts ``world`` of these from the repository root, each
+joining the process group through ``file://<init file>`` (no port to clash
+on between test workers) with a gloo timeout, and waits for them under a
+timeout of its own, so a hung collective fails the test. A rank runs every
+``(task, kwargs)`` of the jobs file in order and saves the list of results
+to ``<out dir>/rank<r>.pt``. It imports torch and the port only, never JAX:
+the tests compute the JAX references in their own process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
+GLOO_TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def start_world(jobs: list, world: int, workdir: Path, timeout: float = 240.0):
+    """Start ``jobs`` on ``world`` ranks; returns a function that waits for
+    them and gives each rank's results. It fails (after killing the rest)
+    if a rank exits non-zero or the world outlives ``timeout`` seconds from
+    its start. The caller may compute meanwhile."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    job_file, init = workdir / "jobs.pt", workdir / "init"
+    torch.save(jobs, job_file)
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update(OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.torch_mesh_worker", str(job_file), str(r), str(world),
+         str(init), str(workdir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+
+    def results() -> List[list]:
+        outputs = []
+        try:
+            for proc in procs:
+                outputs.append(proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r, (proc, out) in enumerate(zip(procs, outputs)):
+            if proc.returncode != 0:
+                raise AssertionError(f"rank {r} exited {proc.returncode}:\n{out[-6000:]}")
+        return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+    return results
+
+
+# -- tasks -------------------------------------------------------------------
+
+TASKS = {}
+
+
+def task(fn):
+    TASKS[fn.__name__] = fn
+    return fn
+
+
+def _mesh(shape: Dict[str, int]):
+    """The mesh of ``shape`` (its axes, and optionally ``ranks``: the global
+    ranks in mesh order), connected."""
+    from dstack_tpu_torch.workloads import sharding
+
+    return sharding.make_mesh(**shape).connect(CPU)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits as numpy (bf16 through a uint16 view)."""
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+@task
+def ring(shape, kind, quant, x, w, r):
+    """One ring on global x [B, T, K], w [K, N] and the loss sum(y * r):
+    this rank's y and the gradients of its pieces of x and w, with the
+    global index of each piece."""
+    from dstack_tpu_torch.workloads import quantize
+    from dstack_tpu_torch.workloads.kernels import collective
+    from dstack_tpu_torch.workloads.sharding import DATA_AXES
+
+    mesh = _mesh(shape)
+    dot = {"none": None, "int8": quantize.INT8_DOT, "fp8": quantize.FP8_DOT}[quant]
+    data, tp = mesh.axis_size(DATA_AXES), mesh.shape["tp"]
+    di, ti = mesh.index(DATA_AXES), mesh.index("tp")
+    b, _, k = x.shape
+    n = w.shape[1]
+    rows = slice(di * b // data, (di + 1) * b // data)
+    if kind == "collective":
+        # w [K/tp, N/data] gathered over the data ranks on use, as the
+        # model's down-projections take it.
+        k_sl, n_sl = slice(ti * k // tp, (ti + 1) * k // tp), slice(0, n)
+        nd_sl = slice(di * n // data, (di + 1) * n // data)
+        xs = torch.from_numpy(x[rows, :, k_sl]).requires_grad_(True)
+        ws = torch.from_numpy(w[k_sl, nd_sl]).requires_grad_(True)
+        whole = collective.gather_on_use(ws, 1, mesh, DATA_AXES)
+        y = collective.collective_matmul(xs, whole, mesh, matmul=dot)
+        w_index = (k_sl, nd_sl)
+        x_index = (rows, slice(None), k_sl)
+    else:
+        kd_sl, n_sl = slice(di * k // data, (di + 1) * k // data), slice(ti * n // tp,
+                                                                         (ti + 1) * n // tp)
+        xs = torch.from_numpy(x[rows]).requires_grad_(True)
+        ws = torch.from_numpy(w[kd_sl, n_sl]).requires_grad_(True)
+        xin = collective.reduce_backward(xs, mesh, "tp") if tp > 1 else xs
+        y = collective.allgather_matmul(xin, ws, mesh, matmul=dot)
+        w_index = (kd_sl, n_sl)
+        x_index = (rows, slice(None), slice(None))
+    y_index = (rows, slice(None), n_sl)
+    (y * torch.from_numpy(r[y_index])).sum().backward()
+    return dict(y=_host(y), dx=_host(xs.grad), dw=_host(ws.grad), x_index=x_index,
+                w_index=w_index, y_index=y_index)
+
+
+def _state(shape, cfg_kw, params, mu_dtype):
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.config import get_config
+
+    mesh = _mesh(shape)
+    cfg = get_config("test", **cfg_kw)
+    local = sharding.shard_params({k: torch.from_numpy(v) for k, v in params.items()}, mesh)
+    optimizer = train.make_optimizer(mu_dtype=mu_dtype)
+    state = train.init_train_state(cfg, optimizer, params={k: v.clone() for k, v in local.items()})
+    return mesh, cfg, optimizer, state
+
+
+def _tree(state) -> dict:
+    from dstack_tpu_torch.workloads import checkpoint, train
+
+    return {key: _host(leaf) for key, leaf in checkpoint.leaf_entries(train.state_tree(state))}
+
+
+@task
+def train_steps(shape, cfg_kw, params, batches, grad_accum=1, mu_dtype=None, ckpt_dir=None):
+    """Steps of the port's sharded train step from the global ``params`` on
+    the global ``batches``: each step's loss and grad norm, and this rank's
+    state after the last (saved to ``ckpt_dir`` at the last step if given)."""
+    from dstack_tpu_torch.workloads import checkpoint, data, train
+    from dstack_tpu_torch.workloads.sharding import DATA_AXES
+
+    mesh, cfg, optimizer, state = _state(shape, cfg_kw, params, mu_dtype)
+    step = train.make_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
+    losses, norms = [], []
+    for tokens, targets in batches:
+        rows = data.rank_rows(tokens.shape[0], grad_accum, mesh.index(DATA_AXES),
+                              mesh.axis_size(DATA_AXES))
+        state, metrics = step(state, torch.from_numpy(tokens[rows]),
+                              torch.from_numpy(targets[rows]))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    if ckpt_dir is not None:
+        manager = checkpoint.CheckpointManager(ckpt_dir, mesh=mesh)
+        manager.save(state.step, train.state_tree(state), data_offset=state.step,
+                     mesh_shape=dict(mesh.shape), block=True)
+        manager.close()
+    return dict(losses=losses, norms=norms, coords=mesh.coords(), tree=_tree(state))
+
+
+@task
+def restore(shape, cfg_kw, params, ckpt_dir, mu_dtype=None):
+    """This rank's pieces of the latest checkpoint in ``ckpt_dir``, restored
+    onto the mesh into a state made from ``params``."""
+    from dstack_tpu_torch.workloads import checkpoint, train
+
+    mesh, _, _, state = _state(shape, cfg_kw, params, mu_dtype)
+    tree, manifest = checkpoint.CheckpointManager(ckpt_dir, mesh=mesh).restore(
+        train.state_tree(state))
+    train.load_state_tree(state, tree)
+    return dict(coords=mesh.coords(), tree=_tree(state), mesh=manifest["mesh"])
+
+
+@task
+def main(argv):
+    """``train.main(argv)`` on this rank (the group is already up)."""
+    from dstack_tpu_torch.workloads import train
+
+    stats = train.main(argv)
+    return dict(stats=stats)
+
+
+def _run() -> None:
+    import torch.distributed as dist
+
+    jobs_file, rank, world, init, out = sys.argv[1:]
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=int(rank),
+                            world_size=int(world), timeout=GLOO_TIMEOUT)
+    try:
+        results = [TASKS[name](**kwargs) for name, kwargs in
+                   torch.load(jobs_file, weights_only=False)]
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _run()
