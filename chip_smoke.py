@@ -162,7 +162,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              (--fsdp-overlap too on four) against (a), and each ring against
              its plain collective at llama3_1b's shapes (outputs of the fp
              products within 2^-7 of the largest, times with fp8 partials);
-             on one card it logs "mesh multi-rank: not run".
+             on one card it logs "mesh multi-rank: not run";
+14. serve mesh - the serving example's command line on the serve mesh:
+             serve.main in child processes under torchrun's environment,
+             each with a timeout, against meshless serve.main servers on the
+             same HTTP traffic (phase 4's two-wave burst at llama3_8b,
+             phase 12's at llama3_1b, each request sent once the one before
+             has its first token). (a) --mesh tp1 on one NCCL rank,
+             llama3_8b with the example's engine flags: streams
+             token-identical to meshless, /stats "mesh" dd1xtp1, the chunk
+             kernel launched exactly layers x (chunk-prefill + verify
+             steps), the decode kernel never, TTFT/ITL beside meshless.
+             (b) four ranks sharing the card over gloo (each joins its
+             group itself, LOCAL_RANK 0; gloo's all-reduce and broadcast of
+             CUDA tensors and the card's compute mode probed first; an
+             exclusive compute mode logs "serve mesh tp4 on one card: not
+             run"): fp32 llama3_8b width with 2 layers at tp4 on the
+             kernels token-identical to the meshless kernel engine,
+             whole-prompt, chunked, with the prefix cache and spec_tokens=4,
+             and int8; then in bf16 phase 12's checkpoint with the whole
+             command line (--config llama3_1b --checkpoint-dir D
+             --spec-model D --mesh tp4: each rank's restored pieces carry
+             the fp64 sums of the checkpoint's slices) and llama3_8b's
+             synthetic weights at --mesh tp4: exact chunk launches on every
+             rank, KV pools a quarter a rank, the share of streams equal to
+             meshless; rows 4 and 5 at a rank's heads (llama3_8b tp4 and
+             tp2, llama3_1b tp4) against their plain versions at phase 2's
+             limits, with times and bounds at llama3_8b tp4. (c) with four
+             cards, llama3_8b --mesh tp4 over NCCL: TTFT, ITL, tokens/s and
+             peak memory a rank beside meshless; on one card it logs "serve
+             mesh multi-card: not run".
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -319,16 +348,16 @@ def device_ms(fn, iters: int = 20) -> float:
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS, h: int = H):
+def kernel_inputs(dtype, seed: int = 0, lens=KV_LENS, h: int = H, kh: int = KH):
     """Pages from a shuffled pool (non-contiguous page ids), tables zero past
     each slot's pages (slot s holds lens[s] positions), and the chunk
-    geometry's starts; q of ``h`` heads."""
+    geometry's starts; q of ``h`` heads, pages of ``kh``."""
     import torch
 
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    k_pages = torch.randn((POOL, PAGE, KH, D), generator=gen, device="cuda").to(dtype)
-    v_pages = torch.randn((POOL, PAGE, KH, D), generator=gen, device="cuda").to(dtype)
+    k_pages = torch.randn((POOL, PAGE, kh, D), generator=gen, device="cuda").to(dtype)
+    v_pages = torch.randn((POOL, PAGE, kh, D), generator=gen, device="cuda").to(dtype)
     perm = rng.permutation(POOL)
     table = np.zeros((SLOTS, TABLE), np.int32)
     used = 0
@@ -352,11 +381,12 @@ def dense_kv(x, lens=KV_LENS):
     """Gathered dense K and V [S, H, T, D] over the longest slot, for the
     library yardstick only."""
     t = max(lens)
+    h, kh = x["q1"].shape[1], x["k_pages"].shape[2]
     idx = x["table"][:, : -(-t // PAGE)].long()
     out = []
     for pages in (x["k_pages"], x["v_pages"]):
-        dense = pages[idx].reshape(SLOTS, -1, KH, D)[:, :t]
-        out.append(dense.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous())
+        dense = pages[idx].reshape(SLOTS, -1, kh, D)[:, :t]
+        out.append(dense.repeat_interleave(h // kh, dim=2).transpose(1, 2).contiguous())
     return out
 
 
@@ -365,18 +395,19 @@ def kernel_bounds(x):
     positions each needs read once, q read once, fp32 out written once; the
     score and PV operations each row needs, at the bf16 tensor-core rate."""
     item = x["k_pages"].element_size()
-    kv_token = 2 * KH * D * item
+    h, kh = x["q1"].shape[1], x["k_pages"].shape[2]
+    kv_token = 2 * kh * D * item
     lens = np.asarray(KV_LENS, np.int64)
     starts = lens - np.asarray(VALID, np.int64)
     rows = np.arange(CHUNK)
     visible = np.clip(np.minimum(lens[:, None], starts[:, None] + rows[None, :] + 1), 0, None)
     out = {}
     for name, q_elems, tokens, attended in (
-        ("paged_decode_attention", SLOTS * H * D, lens.sum(), lens.sum()),
-        ("paged_chunk_attention", SLOTS * CHUNK * H * D, visible.max(1).sum(), visible.sum()),
+        ("paged_decode_attention", SLOTS * h * D, lens.sum(), lens.sum()),
+        ("paged_chunk_attention", SLOTS * CHUNK * h * D, visible.max(1).sum(), visible.sum()),
     ):
         nbytes = q_elems * item + tokens * kv_token + q_elems * 4 + SLOTS * 4 * 2
-        flops = 4.0 * attended * H * D
+        flops = 4.0 * attended * h * D
         peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         out[name] = (
@@ -557,7 +588,7 @@ def paged_shapes() -> dict:
     return worst
 
 
-def verify_bound(starts, lens, c: int, item: int):
+def verify_bound(starts, lens, c: int, item: int, h: int = H, kh: int = KH):
     """(bound_ms, bound_by) of a chunk call of c rows a slot: q read once,
     each slot's K/V positions read once, fp32 out written once; the score and
     PV operations of every row (rows past valid attend kv_len positions, as
@@ -565,10 +596,10 @@ def verify_bound(starts, lens, c: int, item: int):
     starts, lens = np.asarray(starts, np.int64), np.asarray(lens, np.int64)
     rows = np.arange(c)
     attended = np.minimum(lens[:, None], starts[:, None] + rows[None, :] + 1).sum()
-    q_elems = len(lens) * c * H * D
-    nbytes = q_elems * item + lens.sum() * 2 * KH * D * item + q_elems * 4 + len(lens) * 4 * 2
+    q_elems = len(lens) * c * h * D
+    nbytes = q_elems * item + lens.sum() * 2 * kh * D * item + q_elems * 4 + len(lens) * 4 * 2
     peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4.0 * attended * H * D / peak
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4.0 * attended * h * D / peak
     return float(max(t_bytes, t_ops) * 1e3), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2706,6 +2737,7 @@ def phase_handoff(card: str) -> dict:
     cfg = get_config("llama3_1b")
     quantized_projections_on_card(cfg, card)
     workdir = tempfile.mkdtemp(prefix="chip-smoke-handoff-")
+    MEASURED["handoff_dir"] = workdir
     try:
         free = shutil.disk_usage(workdir).free
         if free < HANDOFF_DISK_BYTES:
@@ -2846,9 +2878,13 @@ def phase_handoff(card: str) -> dict:
             f" {runs['draft']['stats']['spec_accept_rate']} ({runs['draft']['stats']['spec_fallbacks']}"
             f" fallbacks), of the n-gram proposer {runs['ngram']['stats']['spec_accept_rate']}, on"
             f" the same traffic (a head distilled 8 steps against random weights) [{card}]")
-        return launches
-    finally:
+    except BaseException:
         shutil.rmtree(workdir, ignore_errors=True)
+        raise
+    # Phase 14 serves step 12 again; main removes the directory at the end.
+    shutil.rmtree(os.path.join(ckpt_dir, "step-00000004"), ignore_errors=True)
+    MEASURED["handoff_ckpt"] = ckpt_dir
+    return launches
 
 
 # -- phase 13: the training mesh ----------------------------------------------
@@ -3172,6 +3208,620 @@ def phase_mesh(card: str) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+# -- phase 14: the serve mesh ---------------------------------------------------
+
+# The serving example's engine flags (examples/serve-llama.dstack.yml:53-58)
+# but for --checkpoint-dir, --spec-model and --mesh, and its pool.
+SERVE_EXAMPLE_ARGV = ["--max-batch", "16", "--pages", "4096", "--page-size", "16", "--quant",
+                      "fp8", "--prefix-cache", "--prefill-chunk", str(CHUNK), "--spec-tokens",
+                      str(SPEC_TOKENS)]
+# A rank's KV heads on the serve meshes the example and the handoff run:
+# (label, query heads, KV heads) of the paged kernels' per-rank shapes.
+RANK_SHAPES = (("llama3_8b tp4", 8, 2), ("llama3_8b tp2", 16, 4), ("llama3_1b tp4", 4, 2))
+
+
+def example_traffic(vocab: int, seed: int):
+    """Phase 4's two-wave burst (``serve_example_flags``): 16 prompts, each a
+    shared 1024-token prefix and a 16..476-token suffix, in two waves of 8."""
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, 1024).tolist()
+    suffixes = [int(n) for n in np.linspace(16, 476, 16).astype(int)]
+    prompts = [prefix + rng.randint(0, vocab, n).tolist() for n in suffixes]
+    return [prompts[:8], prompts[8:]]
+
+
+def gloo_cuda_probe() -> dict:
+    """On every rank of a gloo world: an all-reduce and a broadcast of a
+    CUDA tensor, the two collectives the serve mesh runs on the card's
+    tensors; raises naming what this torch build lacks."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        b = torch.full((4,), float(rank), device="cuda")
+        dist.broadcast(b, src=0)
+        torch.cuda.synchronize()
+    except Exception as e:
+        raise RuntimeError(f"gloo in torch {torch.__version__} cannot all-reduce or broadcast a"
+                           f" CUDA tensor: {e}") from e
+    if t.tolist() != [world * (world + 1) / 2] * 4 or b.tolist() != [0.0] * 4:
+        raise RuntimeError(f"gloo on CUDA tensors: all-reduce {t.tolist()}, broadcast {b.tolist()}")
+    return {"all_reduce": t.tolist(), "broadcast": b.tolist()}
+
+
+def mesh_identity_cases(vocab: int) -> dict:
+    """(engine flags, prompts, waves) of phase 14 (b)'s fp32 identity."""
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in (37, 200, 513, 100)]
+    prefix = rng.randint(0, vocab, 320).tolist()
+    shared = [prefix + rng.randint(0, vocab, n).tolist() for n in (17, 90, 41, 150)]
+    flags = dict(prefix_cache=True, prefill_chunk=256, spec_tokens=SPEC_TOKENS)
+    return {
+        "whole-prompt": ({}, prompts, 1),
+        "chunked": (dict(prefill_chunk=256), prompts, 1),
+        "prefix cache, spec 4": (flags, shared, 2),
+        "int8, prefix cache, spec 4": (dict(flags, quant="int8"), shared, 2),
+    }
+
+
+def mesh_identity_streams(mesh=None) -> dict:
+    """fp32, llama3_8b width with 2 layers, the kernels: the streams of
+    every ``mesh_identity_cases`` case, on ``mesh`` (this rank's pieces of
+    the seeded tree) or meshless; and each case's paged launches."""
+    import torch
+
+    from dstack_tpu_torch.workloads import model, serve
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    cfg = get_config("llama3_8b", n_layers=2, dtype="float32", param_dtype="float32")
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                               torch.device("cuda"), dtype=torch.float32, mesh=mesh)
+    out = {}
+    for name, (flags, prompts, waves) in mesh_identity_cases(cfg.vocab_size).items():
+        engine = serve.ServeEngine(
+            cfg, serve.EngineConfig(max_batch=4, page_size=16, max_seq=2048, num_pages=512,
+                                    decode_impl="cuda", **flags),
+            params=params, device="cuda", mesh=mesh)
+        paged.reset_launches()
+        out[name] = {"streams": run_engine(engine, prompts, 16, waves),
+                     "launches": dict(paged.launches), "mesh": engine.stats()["mesh"]}
+        del engine
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_main_run(argv: list) -> dict:
+    """``serve.main(argv)`` in this process, as one rank of its mesh (or
+    meshless), until the parent stops rank 0: the paged launches and step
+    calls of the engine from its first request on, its stats and latencies,
+    its KV pools' bytes and peak memory, and with --checkpoint-dir the
+    per-leaf fp64 sums of the restored pieces before quantization."""
+    import torch
+
+    from dstack_tpu_torch.workloads import serve
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    seen = {}
+    create, follow, quantize = serve.create_serve_app, serve.follow, serve.quantize_serve_params
+
+    def instrument(engine):
+        seen["engine"] = engine
+        seen["calls"] = {a: count_calls(engine, a) for a in ("_chunk_fn", "_verify_fn",
+                                                              "_decode_fn")}
+        paged.reset_launches()
+
+    def capture(runner):
+        instrument(runner.engine)
+        return create(runner)
+
+    def following(engine, sync):
+        instrument(engine)
+        return follow(engine, sync)
+
+    def quantizing(params, *args, **kwargs):
+        seen.setdefault("restored_sums", param_sums(params))
+        return quantize(params, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    serve.create_serve_app, serve.follow = capture, following
+    if "--checkpoint-dir" in argv:
+        serve.quantize_serve_params = quantizing
+    try:
+        serve.main(argv)
+    finally:
+        serve.create_serve_app, serve.follow = create, follow
+        serve.quantize_serve_params = quantize
+    engine = seen.pop("engine")
+    out = {"launches": dict(paged.launches),
+           "steps": {a: c[0] for a, c in seen.pop("calls").items()},
+           "stats": engine.stats(), "lat": engine.flight.latency_summary(),
+           "pool_bytes": 2 * engine.k_pages.numel() * engine.k_pages.element_size(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **seen}
+    del engine
+    fresh_peak()
+    return out
+
+
+def serve_child(plan_json: str, report: str) -> None:
+    """One process of phase 14 (a rank under torchrun's environment, or a
+    meshless server): with ``plan["gloo"]`` it joins a gloo world itself
+    (LOCAL_RANK 0, so every rank shares cuda:0) and probes gloo on CUDA
+    tensors; with ``plan["identity"]`` it runs the fp32 identity cases on
+    a tp4 serve mesh; then ``serve.main`` for each argv of ``plan["serve"]``
+    in turn. Writes its readings to ``report`` as JSON."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.kernels import platform
+
+    plan = json.loads(plan_json)
+    platform.set_reference_matmul_precision()
+    out = {}
+    if plan.get("gloo"):
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+            rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
+            timeout=sharding.COLLECTIVE_TIMEOUT)
+        out["probe"] = gloo_cuda_probe()
+    if plan.get("identity"):
+        mesh = sharding.make_serve_mesh(int(os.environ["WORLD_SIZE"])).connect(
+            torch.device("cuda", 0))
+        out["identity"] = mesh_identity_streams(mesh)
+    out["runs"] = [serve_main_run(argv) for argv in plan["serve"]]
+    with open(report, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+
+
+def start_serve_ranks(label: str, plan: dict, world: int, workdir: str, torchrun: bool = True,
+                      local_rank_zero: bool = False) -> list:
+    """``serve_child(plan)`` in ``world`` processes under torchrun's
+    environment (one card a rank, or every rank on cuda:0 with
+    ``local_rank_zero``), or one process without it (``torchrun=False``).
+    Returns [(process, report, log)] by rank."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    master = free_port()
+    code = "import sys, chip_smoke; chip_smoke.serve_child(*sys.argv[1:])"
+    out = []
+    for rank in range(world):
+        report = os.path.join(workdir, f"{label}.rank{rank}.json")
+        log_path = os.path.join(workdir, f"{label}.rank{rank}.log")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                            "MASTER_PORT", "DSTACK_TPU_TELEMETRY_PATH")}
+        if torchrun:
+            env.update(RANK=str(rank), LOCAL_RANK="0" if local_rank_zero else str(rank),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master))
+        with open(log_path, "w", encoding="utf-8") as logf:
+            proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(plan), report],
+                                    cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        out.append((proc, report, log_path))
+    return out
+
+
+def _tail(path: str, n: int = 4000) -> str:
+    with open(path, encoding="utf-8", errors="replace") as f:
+        return f.read()[-n:]
+
+
+def finish_ranks(label: str, ranks: list, timeout: float) -> list:
+    """Wait for every rank (killing all past ``timeout``); fails unless
+    each exited 0. Returns each rank's report."""
+    t0 = time.monotonic()
+    try:
+        for proc, _, _ in ranks:
+            proc.wait(timeout=max(1.0, timeout - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: the ranks did not finish in {timeout:.0f} s:\n"
+                             + _tail(ranks[0][2]))
+    finally:
+        for proc, _, _ in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [(r, proc.returncode) for r, (proc, _, _) in enumerate(ranks) if proc.returncode]
+    if failed:
+        raise AssertionError(f"{label}: exit codes {[p.returncode for p, _, _ in ranks]}:\n"
+                             + "\n".join(f"rank {r}: {_tail(ranks[r][2])}" for r, _ in failed))
+    for line in _tail(ranks[0][2], 3000).splitlines():
+        log(f"  [{label} rank 0] {line}")
+    reports = []
+    for _, report, _ in ranks:
+        with open(report, encoding="utf-8") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def http_json(url: str, body=None, timeout: float = 60.0):
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"} if data else {})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def wait_healthy(url: str, ranks: list, timeout: float = 600.0) -> None:
+    """Until rank 0 answers /health; fails if a rank exits first."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        dead = [(r, p.returncode) for r, (p, _, _) in enumerate(ranks) if p.poll() is not None]
+        if dead:
+            raise AssertionError(f"rank(s) {dead} exited before serving:\n"
+                                 + "\n".join(_tail(ranks[r][2]) for r, _ in dead))
+        try:
+            http_json(url + "/health", timeout=2.0)
+            return
+        except OSError:
+            time.sleep(0.5)
+    raise AssertionError(f"{url} did not come up in {timeout:.0f} s")
+
+
+def http_waves(url: str, waves, max_new: int, timeout: float = 900.0) -> dict:
+    """The waves through POST /generate (SSE), each request sent once the
+    one before has its first token: every chunk step then prefills one
+    request and every verify step runs the same [slots, C] shape, so two
+    servers given the same traffic step alike whatever the timing. Returns
+    the token streams and the wall."""
+    import urllib.request
+
+    prompts = [p for wave in waves for p in wave]
+    tokens = [[] for _ in prompts]
+    firsts = [threading.Event() for _ in prompts]
+    errors = []
+
+    def stream(i):
+        try:
+            body = json.dumps({"prompt_tokens": prompts[i], "max_tokens": max_new}).encode()
+            req = urllib.request.Request(url + "/generate", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                for line in resp:
+                    if not line.startswith(b"data: "):
+                        continue
+                    data = line[6:].strip()
+                    if data == b"[DONE]":
+                        break
+                    tokens[i].append(json.loads(data)["token"])
+                    firsts[i].set()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {e!r}")
+        finally:
+            firsts[i].set()
+
+    t0 = time.monotonic()
+    threads = []
+    for i in range(len(prompts)):
+        threads.append(threading.Thread(target=stream, args=(i,), daemon=True))
+        threads[-1].start()
+        if not firsts[i].wait(timeout):
+            raise TimeoutError(f"request {i} had no first token in {timeout:.0f} s")
+    for t in threads:
+        t.join(timeout)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP traffic failed: {errors}")
+    return {"tokens": tokens, "wall_s": time.monotonic() - t0}
+
+
+def drive_serve_runs(label: str, ranks: list, runs: list) -> list:
+    """For each (port, waves, max_new) of ``runs``, in turn: the traffic to
+    rank 0's server, its /stats, and SIGTERM to rank 0, which stops that
+    serve.main on every rank. Returns each run's streams, wall and stats."""
+    import signal
+
+    out = []
+    for port, waves, max_new in runs:
+        url = f"http://127.0.0.1:{port}"
+        wait_healthy(url, ranks)
+        got = http_waves(url, waves, max_new)
+        got["http_stats"] = http_json(url + "/stats")
+        ranks[0][0].send_signal(signal.SIGTERM)
+        out.append(got)
+    return out
+
+
+def check_mesh_run(label: str, run: dict, layers: int, spec: bool = True) -> None:
+    """A rank's serve.main run: the chunk kernel launched exactly layers x
+    (chunk-prefill + verify steps) times, and with speculative decode the
+    decode kernel never."""
+    steps, got = run["steps"], run["launches"]
+    if (got["paged_chunk_attention"] != layers * (steps["_chunk_fn"] + steps["_verify_fn"])
+            or (spec and (got["paged_decode_attention"] or steps["_decode_fn"]))
+            or not steps["_verify_fn"]):
+        raise AssertionError(f"{label}: launches {got}, steps {steps}")
+
+
+def share_equal(a: list, b: list) -> float:
+    return sum(x == y for x, y in zip(a, b)) / len(a)
+
+
+def agreement(a: list, b: list) -> str:
+    """How far two servers' streams of the same requests agree: whole
+    streams, first tokens (the prefill's), and the tokens before each
+    stream's first difference."""
+    before = [next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), len(x))
+              for x, y in zip(a, b)]
+    return (f"{sum(x == y for x, y in zip(a, b))}/{len(a)} streams equal, first tokens"
+            f" {sum(x[:1] == y[:1] for x, y in zip(a, b))}/{len(a)}, {np.mean(before):.2f} of"
+            f" {len(a[0])} tokens before the first difference on average")
+
+
+def per_rank_kernels(card: str) -> dict:
+    """Rows 4 and 5 at the heads a rank holds on the serve meshes
+    (``RANK_SHAPES``): the decode kernel (16 slots at KV_LENS) and the chunk
+    kernel (C = 512 at VALID, and verify's C = 5 at the burst's lengths)
+    against their plain versions at phase 2's limits (bf16 atol 1e-4 / rtol
+    1e-3, fp32 1e-5); at llama3_8b tp4 (8 heads, 2 KV heads: the decode
+    grid a quarter of the meshless one) the bf16 times beside the plain
+    versions', SDPA's and the bounds. Returns the kernels line's rank_*
+    entries."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import paged
+
+    out = {name: {"rank_max_abs_err": 0.0} for name in paged.launches}
+    for label, h, kh in RANK_SHAPES:
+        for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 1e-3)):
+            x = kernel_inputs(dtype, seed=20, h=h, kh=kh)
+            args = {
+                "paged_decode_attention": (x["q1"], x["k_pages"], x["v_pages"], x["table"],
+                                           x["kv_lens"]),
+                "paged_chunk_attention": (x["qc"], x["k_pages"], x["v_pages"], x["table"],
+                                          x["starts"], x["kv_lens"]),
+            }
+            fns = {"paged_decode_attention": (paged.paged_decode_attention_cuda,
+                                              paged.paged_decode_attention_plain),
+                   "paged_chunk_attention": (paged.paged_chunk_attention_cuda,
+                                             paged.paged_chunk_attention_plain)}
+            for name, (kernel, plain) in fns.items():
+                got, ref = kernel(*args[name]), plain(*args[name])
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+                err = float((got - ref).abs().max())
+                out[name]["rank_max_abs_err"] = max(out[name]["rank_max_abs_err"], err)
+                log(f"kernel {name} {str(dtype)[6:]} at {label}'s rank shape (H {h}, Kh {kh}):"
+                    f" max_abs_err {err:.3e} (atol {atol:g}, rtol {rtol:g}) ok")
+            c = SPEC_TOKENS + 1
+            lens = [n + v for n, v in zip(BURST_LENGTHS, VERIFY_VALID)]
+            y = kernel_inputs(dtype, seed=21, lens=lens, h=h, kh=kh)
+            starts = torch.tensor(BURST_LENGTHS, dtype=torch.int32, device="cuda")
+            vargs = (y["qc"][:, :c].contiguous(), y["k_pages"], y["v_pages"], y["table"], starts,
+                     y["kv_lens"])
+            got, ref = paged.paged_chunk_attention_cuda(*vargs), paged.paged_chunk_attention_plain(
+                *vargs)
+            rows = (torch.arange(c, device="cuda")[None, :]
+                    < torch.tensor(VERIFY_VALID, device="cuda")[:, None])
+            torch.testing.assert_close(got[rows], ref[rows], atol=atol, rtol=rtol)
+            err = float((got[rows] - ref[rows]).abs().max())
+            out["paged_chunk_attention"]["rank_max_abs_err"] = max(
+                out["paged_chunk_attention"]["rank_max_abs_err"], err)
+            log(f"kernel paged_chunk_attention {str(dtype)[6:]} verify C={c} at {label}'s rank"
+                f" shape: max_abs_err {err:.3e} on rows i < valid ok")
+            del y
+            if dtype == torch.bfloat16 and label == RANK_SHAPES[0][0]:
+                bounds = kernel_bounds(x)
+                k_dense, v_dense = dense_kv(x)
+                pos = torch.arange(k_dense.shape[2], device="cuda")
+                kv = x["kv_lens"].long()
+                limit = torch.minimum(kv[:, None], x["starts"].long()[:, None]
+                                      + torch.arange(CHUNK, device="cuda")[None, :] + 1)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                library = {
+                    "paged_decode_attention": lambda: sdpa(
+                        x["q1"][:, :, None, :], k_dense, v_dense,
+                        attn_mask=(pos[None, :] < kv[:, None])[:, None, None, :]),
+                    "paged_chunk_attention": lambda: sdpa(
+                        x["qc"].transpose(1, 2), k_dense, v_dense,
+                        attn_mask=(pos[None, None, :] < limit[:, :, None])[:, None]),
+                }
+                for name, (kernel, plain) in fns.items():
+                    e = out[name]
+                    e["rank_ms"] = time_ms(lambda: kernel(*args[name]))
+                    e["rank_plain_ms"] = time_ms(lambda: plain(*args[name]))
+                    e["rank_library_ms"] = time_ms(library[name])
+                    e["rank_bound_ms"], e["rank_bound_by"] = bounds[name]
+                    extra = ""
+                    if name == "paged_decode_attention":
+                        e["rank_device_ms"] = device_ms(lambda: kernel(*args[name]))
+                        extra = (f", device time {e['rank_device_ms']:.4f} ms"
+                                 f" ({e['rank_device_ms'] / e['rank_bound_ms']:.1f}x the bound)")
+                    log(f"kernel {name} bf16 at {label}'s rank shape (H {h}, Kh {kh}) timing:"
+                        f" CUDA events {e['rank_ms']:.4f} ms, plain {e['rank_plain_ms']:.4f} ms,"
+                        f" sdpa {e['rank_library_ms']:.4f} ms, bound {e['rank_bound_ms']:.4f} ms"
+                        f" ({e['rank_bound_by']}){extra} [{card}]")
+                del k_dense, v_dense
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_mesh(card: str) -> dict:
+    """The serving example's command line on the serve mesh, serve.main in
+    child processes under torchrun's environment, against meshless servers
+    on the same HTTP traffic: (a) --mesh tp1 on one rank (NCCL) on
+    llama3_8b, token for token; (b) four ranks sharing the card over gloo,
+    in fp32 token for token, then the handoff checkpoint (llama3_1b, the
+    whole command line) and llama3_8b at --mesh tp4 in bf16, and rows 4 and
+    5 at a rank's heads; (c) with four cards, NCCL, llama3_8b --mesh tp4.
+    Returns the kernels' launches of the mesh runs and the rank_* entries of
+    the kernels line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dstack_tpu_torch.workloads import serve, sharding
+    from dstack_tpu_torch.workloads.config import get_config
+
+    cfg8, cfg1 = get_config("llama3_8b"), get_config("llama3_1b")
+    ckpt_dir = MEASURED["handoff_ckpt"]
+    waves8, waves1 = example_traffic(cfg8.vocab_size, 4), example_traffic(cfg1.vocab_size, 6)
+    max_new = 32
+    argv8 = ["--config", "llama3_8b"] + SERVE_EXAMPLE_ARGV
+    argv1 = (["--config", "llama3_1b"] + SERVE_EXAMPLE_ARGV
+             + ["--spec-model", ckpt_dir, "--checkpoint-dir", ckpt_dir])
+    cards = torch.cuda.device_count()
+    launches = {"paged_chunk_attention": 0, "paged_decode_attention": 0}
+
+    def count(run):
+        for name in launches:
+            launches[name] += run["launches"][name]
+
+    def latency(run):
+        lat = run["lat"]
+        return (f"TTFT p50 {lat['ttft_p50_ms']} ms p99 {lat['ttft_p99_ms']} ms, ITL p50"
+                f" {lat['itl_p50_ms']} ms")
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-serve-mesh-")
+    try:
+        # The meshless servers on the same traffic: the reference of every
+        # comparison below.
+        ports = [free_port(), free_port()]
+        ranks = start_serve_ranks("meshless", {"serve": [argv8 + ["--port", str(ports[0])],
+                                                         argv1 + ["--port", str(ports[1])]]},
+                                  1, workdir, torchrun=False)
+        traffic = drive_serve_runs("meshless", ranks, [(ports[0], waves8, max_new),
+                                                       (ports[1], waves1, max_new)])
+        ref8, ref1 = finish_ranks("meshless", ranks, 300)[0]["runs"]
+        ref8.update(traffic[0])
+        ref1.update(traffic[1])
+        for label, run, layers in (("meshless llama3_8b", ref8, cfg8.n_layers),
+                                   ("meshless llama3_1b", ref1, cfg1.n_layers)):
+            check_mesh_run(label, run, layers)
+            n_tok = sum(len(t) for t in run["tokens"])
+            log(f"serve mesh reference ({label}, serve.main {' '.join(argv8 if '8b' in label else argv1)}):"
+                f" 16 requests x {max_new} tokens in {run['wall_s']:.2f} s,"
+                f" {n_tok / run['wall_s']:.1f} tokens/s, {latency(run)}; KV pools"
+                f" {run['pool_bytes'] / 1e9:.3f} GB, peak {run['peak_gb']:.2f} GB [{card}]")
+
+        # (a) one rank, NCCL: every collective acts on one rank.
+        port = free_port()
+        ranks = start_serve_ranks("mesh-tp1", {"serve": [argv8 + ["--mesh", "tp1", "--port",
+                                                                  str(port)]]}, 1, workdir)
+        traffic = drive_serve_runs("mesh-tp1", ranks, [(port, waves8, max_new)])
+        run_a = finish_ranks("mesh-tp1", ranks, 300)[0]["runs"][0]
+        run_a.update(traffic[0])
+        check_mesh_run("mesh tp1", run_a, cfg8.n_layers)
+        if run_a["http_stats"]["mesh"] != "dd1xtp1" or run_a["tokens"] != ref8["tokens"]:
+            raise AssertionError(f"mesh tp1: /stats mesh {run_a['http_stats']['mesh']!r}, streams"
+                                 f" equal to meshless {share_equal(run_a['tokens'], ref8['tokens'])}")
+        count(run_a)
+        log(f"serve mesh (a) serve.main {' '.join(argv8)} --mesh tp1, NCCL, one rank: streams"
+            f" token-identical to the meshless server's; /stats mesh dd1xtp1; {latency(run_a)}"
+            f" against meshless {latency(ref8)}; chunk-prefill steps"
+            f" {run_a['steps']['_chunk_fn']}, verify steps {run_a['steps']['_verify_fn']},"
+            f" launches {run_a['launches']} [{card}]")
+
+        # (b) four ranks on the one card over gloo.
+        mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                              check=True, capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+        report = {}
+        if "Exclusive" in mode or "Prohibited" in mode:
+            log(f"serve mesh tp4 on one card: not run (compute mode {mode}) [{card}]")
+        else:
+            ports = [free_port(), free_port()]
+            plan = {"gloo": True, "identity": True,
+                    "serve": [argv1 + ["--mesh", "tp4", "--port", str(ports[0])],
+                              argv8 + ["--mesh", "tp4", "--port", str(ports[1])]]}
+            ranks = start_serve_ranks("mesh-tp4-gloo", plan, 4, workdir, local_rank_zero=True)
+            # Meanwhile: the meshless fp32 engines and the checkpoint's
+            # slices at each rank's coordinate.
+            ref_identity = mesh_identity_streams()
+            restored, _ = serve.load_serve_params(ckpt_dir, cfg1, device="cuda")
+            mesh = sharding.make_serve_mesh(4, world=4)
+            want_sums = []
+            for rank in range(4):
+                want_sums.append(param_sums({
+                    k: v[sharding.local_slices(sharding.SERVE_PARAM_SPECS[k], v.shape, mesh,
+                                               rank)].contiguous()
+                    for k, v in restored.items()}))
+            del restored
+            torch.cuda.empty_cache()
+            traffic = drive_serve_runs("mesh-tp4-gloo", ranks, [(ports[0], waves1, max_new),
+                                                                (ports[1], waves8, max_new)])
+            reports = finish_ranks("mesh-tp4-gloo", ranks, 900)
+            for rank, rep in enumerate(reports):
+                for name, want in ref_identity.items():
+                    got = rep["identity"][name]
+                    if got["streams"] != want["streams"] or got["mesh"] != "dd1xtp4":
+                        raise AssertionError(f"mesh tp4 fp32 ({name}) rank {rank}: streams"
+                                             f" {share_equal(got['streams'], want['streams'])}"
+                                             f" equal to meshless")
+                    count(got)
+                if rep["runs"][0]["restored_sums"] != want_sums[rank]:
+                    raise AssertionError(f"mesh tp4 rank {rank}: restored pieces differ from the"
+                                         f" checkpoint's slices")
+                for run, layers, label in ((rep["runs"][0], cfg1.n_layers, "llama3_1b"),
+                                           (rep["runs"][1], cfg8.n_layers, "llama3_8b")):
+                    check_mesh_run(f"mesh tp4 {label} rank {rank}", run, layers)
+                    count(run)
+            log(f"serve mesh (b) gloo on CUDA tensors: {reports[0]['probe']}; compute mode {mode};"
+                f" fp32 llama3_8b width, 2 layers, tp4 on the kernels token-identical to the"
+                f" meshless kernel engine on every rank in {list(ref_identity)} (launches a"
+                f" rank {[reports[0]['identity'][n]['launches'] for n in ref_identity]}) [{card}]")
+            for (run_idx, ref, cfg, argv, label) in ((0, ref1, cfg1, argv1, "llama3_1b handoff"),
+                                                      (1, ref8, cfg8, argv8, "llama3_8b")):
+                runs = [rep["runs"][run_idx] for rep in reports]
+                runs[0].update(traffic[run_idx])
+                stats = runs[0]["http_stats"]
+                if stats["mesh"] != "dd1xtp4" or (run_idx == 0 and stats["spec_proposer"]
+                                                  != "draft"):
+                    raise AssertionError(f"mesh tp4 {label}: /stats {stats}")
+                share = share_equal(runs[0]["tokens"], ref["tokens"])
+                ratio = runs[0]["pool_bytes"] / ref["pool_bytes"]
+                log(f"serve mesh (b) serve.main {' '.join(argv)} --mesh tp4 on 4 ranks sharing the"
+                    f" card over gloo (bf16): /stats mesh dd1xtp4; against the meshless server"
+                    f" {agreement(runs[0]['tokens'], ref['tokens'])} (share {share:.4f}); KV pools {runs[0]['pool_bytes'] / 1e9:.3f}"
+                    f" GB a rank against {ref['pool_bytes'] / 1e9:.3f} GB meshless ({ratio:.4f});"
+                    f" chunk-prefill steps {runs[0]['steps']['_chunk_fn']}, verify steps"
+                    f" {runs[0]['steps']['_verify_fn']}, launches a rank"
+                    f" {[r['launches'] for r in runs]}, peak {[round(r['peak_gb'], 2) for r in runs]}"
+                    + (f" GB; each rank's restored pieces carry the fp64 sums of the checkpoint's"
+                       f" slices at its coordinate ({len(want_sums[0])} leaves)" if run_idx == 0
+                       else " GB") + f"; times through gloo's host copies are not serving times"
+                    f" [{card}]")
+                if abs(ratio - 0.25) > 1e-9:
+                    raise AssertionError(f"mesh tp4 {label}: KV pool ratio {ratio}")
+            report = per_rank_kernels(card)
+
+        # (c) four cards, NCCL.
+        if cards < 4:
+            log(f"serve mesh multi-card: not run ({cards} card visible) [{card}]")
+            return {"launches": launches, "report": report}
+        port = free_port()
+        ranks = start_serve_ranks("mesh-tp4-nccl", {"serve": [argv8 + ["--mesh", "tp4", "--port",
+                                                                       str(port)]]}, 4, workdir)
+        traffic = drive_serve_runs("mesh-tp4-nccl", ranks, [(port, waves8, max_new)])
+        runs = [rep["runs"][0] for rep in finish_ranks("mesh-tp4-nccl", ranks, 600)]
+        runs[0].update(traffic[0])
+        for rank, run in enumerate(runs):
+            check_mesh_run(f"mesh tp4 nccl rank {rank}", run, cfg8.n_layers)
+            count(run)
+        n_tok = sum(len(t) for t in runs[0]["tokens"])
+        log(f"serve mesh (c) serve.main {' '.join(argv8)} --mesh tp4 on 4 cards, NCCL: against"
+            f" the meshless server {agreement(runs[0]['tokens'], ref8['tokens'])}; {n_tok / runs[0]['wall_s']:.1f} tokens/s against"
+            f" {sum(len(t) for t in ref8['tokens']) / ref8['wall_s']:.1f}; {latency(runs[0])}"
+            f" against meshless {latency(ref8)}; peak a rank"
+            f" {[round(r['peak_gb'], 2) for r in runs]} GB against {ref8['peak_gb']:.2f} GB [{card}]")
+        return {"launches": launches, "report": report}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
 
 def main() -> int:
     import torch
@@ -3207,10 +3857,20 @@ def main() -> int:
     report.update(phase_splash())
     launches.update(phase_train_splash(card))
     phase_splash_identity()
-    for name, n in phase_handoff(card).items():
+    try:
+        for name, n in phase_handoff(card).items():
+            launches[name] += n
+        for name, n in phase_mesh(card).items():
+            launches[name] += n
+        serve_mesh = phase_serve_mesh(card)
+    finally:
+        import shutil
+
+        shutil.rmtree(MEASURED.get("handoff_dir", ""), ignore_errors=True)
+    for name, n in serve_mesh["launches"].items():
         launches[name] += n
-    for name, n in phase_mesh(card).items():
-        launches[name] += n
+    for name, entry in serve_mesh["report"].items():
+        report[name].update(entry)
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",
@@ -3233,7 +3893,7 @@ def main() -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
             **{key: value for key, value in entry.items()
-               if key in ("device_ms", "library_device_ms") or key.startswith("verify_")
+               if key in ("device_ms", "library_device_ms") or key.startswith(("verify_", "rank_"))
                or key.endswith("_max_abs_err")},
         })
     log(f"total {time.monotonic() - t_start:.1f} s [{card}]")

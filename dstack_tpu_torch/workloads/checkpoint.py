@@ -20,9 +20,10 @@ state's layout in those terms is ``train.state_tree``.
 
 Meshless, the port writes one whole-array piece per leaf, keyed ``0:n,...``
 (``""`` for a 0-d leaf), exactly as a meshless ``jax.Array``'s one
-addressable shard is keyed. Under a training mesh (``sharding.Mesh``) each
-rank writes ``shard-<rank>.npz`` with its local pieces keyed by global index
-(a leaf's layout follows its key: ``sharding.spec_of_key``); a piece that
+addressable shard is keyed. Under a mesh (``sharding.Mesh``) each rank
+writes ``shard-<rank>.npz`` with its local pieces keyed by global index (a
+leaf's layout follows its key and the mesh's kind: ``sharding.spec_of_key``
+of ``sharding.param_specs``, the serve layout on a serve mesh); a piece that
 several ranks hold is written by the first of them only. Rank 0 writes the
 manifest (``process_count`` is the world, ``mesh`` its shape) and every rank
 its own commit marker. Reading takes from every shard file of a step the
@@ -186,7 +187,7 @@ class CheckpointManager:
         process writes it) of a leaf of local ``shape``."""
         if self.mesh is None:
             return tuple(int(d) for d in shape), _whole(shape), True
-        spec = sharding.spec_of_key(key)
+        spec = sharding.spec_of_key(key, sharding.param_specs(self.mesh))
         full = sharding.global_shape(spec, shape, self.mesh)
         return (full, sharding.local_slices(spec, full, self.mesh),
                 sharding.holds_first_copy(spec, self.mesh))

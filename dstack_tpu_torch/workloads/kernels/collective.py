@@ -52,7 +52,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from dstack_tpu_torch.workloads.quantize import Dot
+from dstack_tpu_torch.workloads.quantize import Dot, fp32_product
 from dstack_tpu_torch.workloads.sharding import DATA_AXES
 
 # Newer torch names the single-tensor collectives *_single; the older names
@@ -61,20 +61,10 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
-def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x[M, K] @ w[K, N]`` in x's dtype with fp32 sums and an fp32 result
-    (the JAX module's ``_default_matmul``). On the CPU a bf16 product is
-    upcast: the products of bf16 values are exact in fp32."""
-    w = w.to(x.dtype)
-    if x.dtype == torch.float32:
-        return x @ w
-    if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
-
-
+# The fp chunk product is the JAX module's ``_default_matmul``: x's dtype,
+# fp32 sums and an fp32 result.
 FP_DOT = Dot(
-    _mm_f32,
+    fp32_product,
     lambda g, w, dtype: g.to(dtype) @ w.to(dtype).t(),
     lambda x, g: (x.t() @ g.to(x.dtype)).float(),
 )

@@ -62,14 +62,16 @@ def init_params(
     """Synthetic weights from ``generator``: normal / sqrt(fan_in) drawn in
     fp32, norms at one, stored in ``dtype`` (default cfg.param_dtype). Drawn
     one layer at a time, so the fp32 draw never holds more than one layer's
-    slice. Under ``mesh`` each rank draws the same numbers and keeps its
-    local piece of every leaf, so the pieces of all ranks form exactly the
-    meshless tree of the same generator. The JAX package draws other numbers
-    from the same seed."""
+    slice. Under ``mesh`` (a training or a serve mesh, each cut by its own
+    layout, ``sharding.param_specs``) each rank draws the same numbers and
+    keeps its local piece of every leaf, so the pieces of all ranks form
+    exactly the meshless tree of the same generator. The JAX package draws
+    other numbers from the same seed."""
     dtype = dtype or dtype_of(cfg.param_dtype)
+    specs = sharding.param_specs(mesh)
     out = {}
     for name, shape in param_shapes(cfg).items():
-        where = (sharding.local_slices(sharding.PARAM_SPECS[name], shape, mesh)
+        where = (sharding.local_slices(specs[name], shape, mesh)
                  if mesh is not None else tuple(slice(0, n) for n in shape))
         local = tuple(sl.stop - sl.start for sl in where)
         if name.endswith("norm"):

@@ -103,13 +103,16 @@ def quantize_fp8(
     return _scaled(x, scales).to(FP8_DTYPES[fmt]), scales
 
 
-def quantize_weight(w: torch.Tensor, axis: int = -2, mode: str = "int8") -> QuantizedWeight:
+def quantize_weight(w: torch.Tensor, axis: int = -2, mode: str = "int8",
+                    reduce: Reduce = None) -> QuantizedWeight:
     """Per-output-channel weight quantization; ``axis`` is the contraction
-    dim (default: K of [..., K, N]). ``mode`` is "int8" or "fp8" (e4m3)."""
+    dim (default: K of [..., K, N]). ``mode`` is "int8" or "fp8" (e4m3).
+    ``reduce`` joins the absmax of a contraction split over ranks (a
+    row-parallel shard), so the scales are the whole weight's."""
     if mode == "fp8":
-        values, scales = quantize_fp8(w, axis)
+        values, scales = quantize_fp8(w, axis, reduce=reduce)
     else:
-        values, scales = quantize_int8(w, axis)
+        values, scales = quantize_int8(w, axis, reduce=reduce)
     return QuantizedWeight(values, scales)
 
 
@@ -261,6 +264,23 @@ def supports_fp8(device: torch.device) -> bool:
     return device.type == "cpu" or torch.cuda.get_device_capability(device) >= (8, 9)
 
 
+def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x[..., K] @ w[K, N]`` with ``w`` cast to x's dtype, fp32 sums and
+    an fp32 result, never rounded to x's dtype. On an fp32 ``x`` a plain
+    fp32 matmul. On a bf16 ``x`` on the card ``torch.mm(...,
+    out_dtype=torch.float32)``: bf16 operands, fp32 accumulation and an fp32
+    output. On the CPU, where that overload does not exist, both operands
+    are upcast to fp32, which gives the same exact products and an fp32
+    sum."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        acc = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return acc.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
 def weight_only_matmul(
     x: torch.Tensor,        # [..., K] activation dtype
     values: torch.Tensor,   # [K, N] int8 or fp8
@@ -268,23 +288,11 @@ def weight_only_matmul(
 ) -> torch.Tensor:
     """Serve path: dequantize on use, fp32 accumulation; returns fp32.
 
-    The rounding order is the JAX package's: the product stays fp32 and is
-    scaled before any cast, so a bf16 caller rounds once, after the scale.
-    ``values.to(x.dtype)`` is exact for int8 and fp8 (both fit bf16). On an
-    fp32 ``x`` the product is a plain fp32 matmul. On a bf16 ``x`` on the
-    card it is ``torch.mm(..., out_dtype=torch.float32)``: bf16 operands,
-    fp32 accumulation and an fp32 output, never rounded to bf16. On the CPU,
-    where that overload does not exist, both operands are upcast to fp32,
-    which gives the same exact products and an fp32 sum."""
-    w = values.to(x.dtype)
-    if x.dtype == torch.float32:
-        acc = x @ w
-    elif x.is_cuda:
-        acc = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        acc = acc.reshape(*x.shape[:-1], w.shape[-1])
-    else:
-        acc = x.float() @ w.float()
-    return acc * scales
+    The rounding order is the JAX package's: the product stays fp32
+    (``fp32_product``) and is scaled before any cast, so a bf16 caller
+    rounds once, after the scale. ``values.to(x.dtype)`` is exact for int8
+    and fp8 (both fit bf16)."""
+    return fp32_product(x, values) * scales
 
 
 QUANT_MODES = ("none", "int8", "fp8")

@@ -32,6 +32,16 @@ prefill, on a CUDA card:
 - **Weight-only int8/fp8** (``quant``): projection weights are quantized
   once at engine build (``quantize_serve_params``) and dequantized on use
   (``quantize.weight_only_matmul``).
+- **Serve mesh** (``mesh``, ``--mesh tpN | ddMxtpN`` under torchrun): one
+  process a rank, each holding its Megatron piece of the weights
+  (``sharding.SERVE_PARAM_SPECS``) and of the KV pages (its ``n_kv_heads /
+  tp`` heads), so the same ``--pages`` takes 1/tp of the bytes a rank. The
+  step functions run on the rank's heads and all-reduce the row-parallel
+  products (wo, w_down) and the lm_head logits over the tp group in fp32,
+  rounding once, as the meshless path does. Every rank runs the same
+  engine; rank 0 alone serves HTTP and broadcasts each step's new requests
+  (``StepSync``), and the ranks check after each step that they emitted the
+  same tokens.
 - **Kernels**: ``decode_impl="cuda"`` (the default on a CUDA device) runs the
   hand-written paged decode and paged chunk kernels
   (``kernels/paged.py``); ``"plain"`` runs the gather references of
@@ -43,8 +53,8 @@ prefill, on a CUDA card:
 
 The step functions are plain eager functions; the host-side scheduling is
 the JAX engine's, line for line. Decoding is greedy (argmax), and in fp32 the
-engine is token-identical to the JAX engine on the same weights. Not yet
-ported: serve meshes (ROADMAP item 6); asking for one raises.
+engine is token-identical to the JAX engine on the same weights, meshless or
+on a serve mesh.
 """
 
 from __future__ import annotations
@@ -54,18 +64,22 @@ import dataclasses
 import json
 import logging
 import os
+import re
+import signal
 import threading
 import time
 from typing import Callable, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dstack_tpu_torch.core import tracing
 from dstack_tpu_torch.workloads import checkpoint as checkpoint_lib
 from dstack_tpu_torch.workloads import convert as convert_lib
 from dstack_tpu_torch.workloads import model as model_lib
 from dstack_tpu_torch.workloads import quantize as quant_lib
+from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
 from dstack_tpu_torch.workloads.attention import (
     blockwise_attention,
@@ -73,6 +87,7 @@ from dstack_tpu_torch.workloads.attention import (
     paged_decode_attention,
 )
 from dstack_tpu_torch.workloads.config import LlamaConfig, get_config
+from dstack_tpu_torch.workloads.kernels.collective import max_over
 from dstack_tpu_torch.workloads.kernels.paged import (
     paged_chunk_attention_cuda,
     paged_decode_attention_cuda,
@@ -105,13 +120,8 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to dstack_tpu_torch (ROADMAP item {item})"
-    )
-
-
-def quantize_serve_params(params: dict, consume: bool = False, mode: str = "int8") -> dict:
+def quantize_serve_params(params: dict, consume: bool = False, mode: str = "int8",
+                          mesh: Optional[sharding.Mesh] = None) -> dict:
     """Weight-only quantization for serving: every projection weight becomes
     quantized values + per-output-channel fp32 scales (``<k>_q`` /
     ``<k>_s``); the embedding and the norms stay as they are. ``mode`` is
@@ -120,57 +130,127 @@ def quantize_serve_params(params: dict, consume: bool = False, mode: str = "int8
     With ``consume=True`` the input dict is drained as it is quantized: each
     fp weight is popped the moment its quantized twin exists, so peak memory
     is the fp tree plus one quantized copy of one weight, never two full
-    trees."""
+    trees.
+
+    Under a serve ``mesh`` the tree is this rank's pieces. A column-parallel
+    piece holds its channels' whole contraction, so its own absmax is the
+    whole weight's; a row-parallel piece (wo, w_down, lm_head) holds a 1/tp
+    slice of the contraction, and its absmax is taken as the max over the tp
+    group. Each piece's values and scales are then the matching piece of
+    the meshless quantization, bit for bit."""
+    tp = mesh is not None and mesh.shape["tp"] > 1
     out = {
         k: params.pop(k) if consume else params[k]
         for k in ("embed", "final_norm", "attn_norm", "mlp_norm")
     }
     for k in _WEIGHT_KEYS + ("lm_head",):
         w = params.pop(k) if consume else params[k]
-        qw = quant_lib.quantize_weight(w, mode=mode)  # contraction = 2nd-to-last
+        split = tp and sharding.SERVE_PARAM_SPECS[k][-2] == "tp"
+        qw = quant_lib.quantize_weight(  # contraction = 2nd-to-last
+            w, mode=mode, reduce=max_over(mesh, "tp") if split else None)
         del w
         out[k + "_q"] = qw.values
         out[k + "_s"] = qw.scales
     return out
 
 
+def parse_mesh_arg(spec: str, world: Optional[int] = None) -> Optional[sharding.Mesh]:
+    """CLI serve-mesh spec -> Mesh over the process group's ranks (``world``
+    of them, by default the group's size, 1 without one): "tp4" (dd absorbs
+    the other ranks), "dd2xtp4" (an explicit replica axis), "" / "none" ->
+    meshless. The JAX package's grammar and errors."""
+    if not spec or spec == "none":
+        return None
+    m = re.fullmatch(r"(?:dd(\d+)x)?tp(\d+)", spec)
+    if m is None:
+        raise ValueError(
+            f"bad mesh spec {spec!r}; expected tpN or ddMxtpN (e.g. tp4,"
+            f" dd2xtp4)"
+        )
+    dd = int(m.group(1)) if m.group(1) else None
+    return sharding.make_serve_mesh(tp=int(m.group(2)), dd=dd, world=world)
+
+
 def load_serve_params(
     checkpoint_dir: str,
     cfg: LlamaConfig,
+    mesh: Optional[sharding.Mesh] = None,
     quant: str = "none",
     step: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Tuple[dict, dict]:
     """Real weights for the engine from a train checkpoint: only the
     ``.params`` subtree's bytes are read (a TrainState's optimizer moments
-    stay on disk; a params-only checkpoint restores too), each leaf at
-    cfg's shape in the param dtype on ``device``. Under a weight-only
+    stay on disk; a params-only checkpoint restores too), each leaf in the
+    param dtype on ``device``. Under a serve ``mesh`` (connected, or at
+    least given this process's ``rank``) each leaf is restored at this
+    rank's piece of ``sharding.SERVE_PARAM_SPECS``, from the checkpoint's
+    pieces that meet it, whatever layout wrote them. Under a weight-only
     ``quant`` the tree is quantized as it is consumed
-    (``quantize_serve_params(consume=True)``): the fp tree plus one
-    quantized leaf at the peak, never two trees. Returns ``(params,
+    (``quantize_serve_params(consume=True, mesh=mesh)``): the fp tree plus
+    one quantized leaf at the peak, never two trees. Returns ``(params,
     manifest)`` in the layout ``ServeEngine`` takes for ``quant``."""
     quant_lib.check_quant(quant)
+    if mesh is not None:
+        sharding.validate_serve_mesh(cfg, mesh)
     device = resolve_device(device)
-    manager = checkpoint_lib.CheckpointManager(checkpoint_dir)
+    manager = checkpoint_lib.CheckpointManager(checkpoint_dir, mesh=mesh)
     dtype = model_lib.dtype_of(cfg.param_dtype)
-    template = {k: checkpoint_lib.LeafSpec(shape, dtype, device)
+    template = {k: checkpoint_lib.LeafSpec(_piece_shape(k, shape, mesh), dtype, device)
                 for k, shape in model_lib.param_shapes(cfg).items()}
     params, manifest = manager.restore_subtree(template, step=step, prefix=".params")
     if quant_lib.is_weight_only(quant):
-        params = quantize_serve_params(params, consume=True, mode=quant)
+        params = quantize_serve_params(params, consume=True, mode=quant, mesh=mesh)
     return params, manifest
+
+
+def _serve_spec(key: str) -> sharding.Spec:
+    """A serve leaf's layout, of the fp tree or the quantized one."""
+    return sharding.serve_param_specs("int8" if key.endswith(("_q", "_s")) else "none")[key]
+
+
+def _piece_shape(key: str, shape, mesh: Optional[sharding.Mesh]) -> tuple:
+    """The shape of this rank's piece of a serve leaf of ``shape``."""
+    if mesh is None:
+        return tuple(shape)
+    return tuple(sl.stop - sl.start
+                 for sl in sharding.local_slices(_serve_spec(key), shape, mesh))
+
+
+def shard_serve_params(params: dict, cfg: LlamaConfig, mesh: sharding.Mesh) -> dict:
+    """This rank's pieces of a serve tree (fp, or the quantized layout):
+    each whole leaf is cut to its piece (a view), and a leaf that already
+    has its piece's shape (``load_serve_params(mesh=...)``,
+    ``init_params(mesh=...)``) is kept as it is."""
+    shapes = model_lib.param_shapes(cfg)
+    out = {}
+    for k, v in params.items():
+        whole = list(shapes[k[:-2] if k.endswith(("_q", "_s")) else k])
+        if k.endswith("_s"):
+            whole[-2] = 1
+        piece = _piece_shape(k, whole, mesh)
+        if tuple(v.shape) == tuple(whole):
+            v = v[sharding.local_slices(_serve_spec(k), whole, mesh)]
+        elif tuple(v.shape) != piece:
+            raise ValueError(f"{k}: shape {tuple(v.shape)} is neither the whole leaf"
+                             f" {tuple(whole)} nor this rank's piece {piece}")
+        out[k] = v
+    return out
 
 
 def load_draft_params(
     checkpoint_dir: str,
     cfg: LlamaConfig,
+    mesh: Optional[sharding.Mesh] = None,
     step: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Tuple[dict, dict]:
     """The draft head for --spec-model: the ``.draft`` subtree a
     ``train --draft-head`` run saved. Its depth and width are what was
     trained, so the template comes from the manifest's ``.draft`` leaves.
-    The head is never quantized. Returns ``(draft_params, manifest)``."""
+    The head is never quantized, and on a serve ``mesh`` every rank
+    restores it whole (JAX replicates it), so the mesh changes nothing
+    here. Returns ``(draft_params, manifest)``."""
     device = resolve_device(device)
     manager = checkpoint_lib.CheckpointManager(checkpoint_dir)
     if step is None:
@@ -209,29 +289,74 @@ def _serve_layer_keys(quant: str):
 def _place(params: dict, device: torch.device, adt: torch.dtype) -> dict:
     """The engine's copy of a tree on its device: quantized values in their
     own dtype, scales in fp32, every other leaf in the activation dtype,
-    cast once here (the JAX engine casts on every use, to the same values)."""
+    cast once here (the JAX engine casts on every use, to the same values),
+    each contiguous (a rank's piece may be a view across the whole leaf)."""
     return {
-        k: v.to(device=device, dtype=quant_lib.leaf_dtype(k, v, adt))
+        k: v.to(device=device, dtype=quant_lib.leaf_dtype(k, v, adt)).contiguous()
         for k, v in params.items()
     }
 
 
-def _proj(x: torch.Tensor, params: dict, key: str, layer: int, quant: str) -> torch.Tensor:
+class _Tp(NamedTuple):
+    """A step function's view of the serve mesh's tp axis: the group of
+    this rank's tp peers, their number and this rank's index among them."""
+
+    group: object
+    size: int
+    index: int
+
+
+def _tp_of(mesh: Optional[sharding.Mesh]) -> Optional[_Tp]:
+    """The tp split of ``mesh``; None meshless and at tp 1, where the step
+    functions run exactly the meshless arithmetic."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return None
+    return _Tp(mesh.group("tp"), mesh.shape["tp"], mesh.index("tp"))
+
+
+def _heads(cfg: LlamaConfig, tp: Optional[_Tp]) -> Tuple[int, int]:
+    """This rank's query and KV heads: whole GQA groups, 1/tp of each."""
+    n = tp.size if tp is not None else 1
+    return cfg.n_heads // n, cfg.n_kv_heads // n
+
+
+def _summed(partial: torch.Tensor, tp: _Tp) -> torch.Tensor:
+    """The sum over the tp group of each rank's fp32 partial product, in
+    place: one all-reduce, the same values on every rank."""
+    dist.all_reduce(partial, group=tp.group)
+    return partial
+
+
+def _proj(x: torch.Tensor, params: dict, key: str, layer: int, quant: str,
+          tp: Optional[_Tp] = None) -> torch.Tensor:
     """x[..., K] @ params[key][layer] in the activation dtype: the fp weight
     (stored in that dtype, so this is the JAX engine's cast-on-use dot), or
-    weight-only int8/fp8, scaled in fp32 and rounded once."""
+    weight-only int8/fp8, scaled in fp32 and rounded once. ``tp`` is given
+    for a row-parallel weight (wo, w_down) on a serve mesh: x and the weight
+    hold this rank's slice of the contraction, and the fp32 partial products
+    are summed over the tp group before the one rounding (in bf16 too: the
+    meshless bf16 product also rounds its fp32 sum once)."""
     if quant_lib.is_weight_only(quant):
-        return quant_lib.weight_only_matmul(
-            x, params[key + "_q"][layer], params[key + "_s"][layer]
-        ).to(x.dtype)
-    return x @ params[key][layer]
+        y = quant_lib.weight_only_matmul(x, params[key + "_q"][layer], params[key + "_s"][layer])
+        return (_summed(y, tp) if tp is not None else y).to(x.dtype)
+    if tp is None:
+        return x @ params[key][layer]
+    return _summed(quant_lib.fp32_product(x, params[key][layer]), tp).to(x.dtype)
 
 
-def _logits(x: torch.Tensor, params: dict, quant: str) -> torch.Tensor:
-    """fp32 logits, as the JAX engine's fp32-accumulating lm_head dot."""
+def _logits(x: torch.Tensor, params: dict, quant: str, tp: Optional[_Tp] = None) -> torch.Tensor:
+    """fp32 logits, as the JAX engine's fp32-accumulating lm_head dot. On a
+    serve mesh lm_head holds this rank's rows of its contraction: the rank
+    multiplies the matching slice of x's D axis, and the all-reduced fp32
+    partials are the whole logits on every rank."""
+    if tp is not None:
+        d = x.shape[-1] // tp.size
+        x = x[..., tp.index * d:(tp.index + 1) * d]
     if quant_lib.is_weight_only(quant):
-        return quant_lib.weight_only_matmul(x, params["lm_head_q"], params["lm_head_s"])
-    return x.float() @ params["lm_head"].float()
+        out = quant_lib.weight_only_matmul(x, params["lm_head_q"], params["lm_head_s"])
+    else:
+        out = x.float() @ params["lm_head"].float()
+    return _summed(out, tp) if tp is not None else out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,20 +476,26 @@ def _scatter_kv(pool: torch.Tensor, index, kv: torch.Tensor) -> None:
     pool.index_put_((page, off), flat[rows].to(pool.dtype))
 
 
-def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float, quant: str) -> torch.Tensor:
+def _mlp(x: torch.Tensor, params: dict, layer: int, eps: float, quant: str,
+         tp: Optional[_Tp] = None) -> torch.Tensor:
     h2 = model_lib._rms_norm(x, params["mlp_norm"][layer], eps)
     gate = _proj(h2, params, "w_gate", layer, quant)
     up = _proj(h2, params, "w_up", layer, quant)
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + _proj(hidden, params, "w_down", layer, quant)
+    return x + _proj(hidden, params, "w_down", layer, quant, tp)
 
 
 # The step functions update the KV pools in place (the JAX engine donates
 # them to its jitted steps for the same effect) and return the greedy next
-# tokens. Host inputs arrive as numpy arrays or CPU tensors.
+# tokens. Host inputs arrive as numpy arrays or CPU tensors. Under a serve
+# ``mesh`` each runs on this rank's pieces: its n_heads/tp query and
+# n_kv_heads/tp KV heads and pages, and the all-reduces of ``_proj`` (wo,
+# w_down) and ``_logits``, the collectives GSPMD inserts for the JAX engine;
+# the embed, the norms and the draft head are whole on every rank. Every
+# rank of the tp group must call the same function on the same host inputs.
 
 
-def make_prefill_fn(cfg: LlamaConfig, quant: str = "none", with_hidden: bool = False):
+def make_prefill_fn(cfg: LlamaConfig, quant: str = "none", mesh=None, with_hidden: bool = False):
     """(params, tokens, k_pages, v_pages, write_page, write_off, lens) ->
     next_tokens [B]. tokens [B, T] right-padded prompts; write_page/write_off
     [B, T] map each position into the pool (pool-sized page = dropped
@@ -374,12 +505,14 @@ def make_prefill_fn(cfg: LlamaConfig, quant: str = "none", with_hidden: bool = F
     layout. ``with_hidden`` (draft-head engines) returns (next_tokens, the
     last valid position's final hidden state [B, D]): the conditioning of
     the first proposal after this prefill."""
+    tp = _tp_of(mesh)
+    h, kh = _heads(cfg, tp)
 
     def prefill(params, tokens, k_pages, v_pages, write_page, write_off, lens):
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens).to(dev).long()
         b, t = tokens.shape
-        hd, h, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim
         index = _write_index(write_page, write_off, k_pages.shape[1], dev)
         x = params["embed"][tokens]  # [B,T,D]
         positions = torch.arange(t, device=dev)
@@ -393,18 +526,19 @@ def make_prefill_fn(cfg: LlamaConfig, quant: str = "none", with_hidden: bool = F
             _scatter_kv(k_pages[layer], index, k)
             _scatter_kv(v_pages[layer], index, v)
             o = blockwise_attention(q, k, v, causal=True)
-            x = x + _proj(o.to(x.dtype).reshape(b, t, h * hd), params, "wo", layer, quant)
-            x = _mlp(x, params, layer, cfg.norm_eps, quant)
+            x = x + _proj(o.to(x.dtype).reshape(b, t, h * hd), params, "wo", layer, quant, tp)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant, tp)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
         last_idx = (torch.as_tensor(lens).to(dev).long() - 1).clamp(0, t - 1)
         last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
-        out = _logits(last, params, quant).argmax(-1).int()
+        out = _logits(last, params, quant, tp).argmax(-1).int()
         return (out, last) if with_hidden else out
 
     return prefill
 
 
-def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain"):
+def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain",
+                   mesh=None):
     """(params, last_tokens, positions, k_pages, v_pages, page_tables,
     write_page, write_off) -> next_tokens [S]. One query per slot: the last
     emitted token's K/V is appended at `positions`, then it attends over the
@@ -412,6 +546,8 @@ def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "pl
     finite outputs the engine ignores. decode_impl="cuda" runs the paged
     decode kernel, "plain" the gather reference."""
     attend = paged_decode_attention_cuda if decode_impl == "cuda" else paged_decode_attention
+    tp = _tp_of(mesh)
+    h, kh = _heads(cfg, tp)
 
     def decode(params, last_tokens, positions, k_pages, v_pages, page_tables,
                write_page, write_off):
@@ -421,7 +557,7 @@ def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "pl
         page_tables = torch.as_tensor(page_tables).to(dev).int()
         kv_lens = positions + 1
         s = last_tokens.shape[0]
-        hd, h, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim
         index = _write_index(write_page, write_off, k_pages.shape[1], dev)
         x = params["embed"][last_tokens]  # [S, D]
         for layer in range(cfg.n_layers):
@@ -434,17 +570,17 @@ def make_decode_fn(cfg: LlamaConfig, quant: str = "none", decode_impl: str = "pl
             _scatter_kv(k_pages[layer], index, k)
             _scatter_kv(v_pages[layer], index, v)
             o = attend(q, k_pages[layer], v_pages[layer], page_tables, kv_lens)
-            x = x + _proj(o.to(x.dtype).reshape(s, h * hd), params, "wo", layer, quant)
-            x = _mlp(x, params, layer, cfg.norm_eps, quant)
+            x = x + _proj(o.to(x.dtype).reshape(s, h * hd), params, "wo", layer, quant, tp)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant, tp)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return _logits(x, params, quant).argmax(-1).int()
+        return _logits(x, params, quant, tp).argmax(-1).int()
 
     return decode
 
 
 def make_chunk_fn(
     cfg: LlamaConfig, quant: str = "none", decode_impl: str = "plain", emit: str = "last",
-    with_hidden: bool = False,
+    mesh=None, with_hidden: bool = False,
 ):
     """(params, tokens, starts, valid, k_pages, v_pages, page_tables,
     write_page, write_off) -> next tokens: the one step behind chunked
@@ -462,6 +598,8 @@ def make_chunk_fn(
     state: [S, D] at the last valid position for emit="last", [S, C, D] for
     emit="all" (the host keeps the accepted position's)."""
     cuda = decode_impl == "cuda"
+    tp = _tp_of(mesh)
+    h, kh = _heads(cfg, tp)
 
     def chunk_step(params, tokens, starts, valid, k_pages, v_pages, page_tables,
                    write_page, write_off):
@@ -471,7 +609,7 @@ def make_chunk_fn(
         valid = torch.as_tensor(valid).to(dev).int()
         page_tables = torch.as_tensor(page_tables).to(dev).int()
         s, c = tokens.shape
-        hd, h, kh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim
         positions = starts[:, None] + torch.arange(c, device=dev)[None, :]  # [S, C]
         kv_lens = starts + valid
         index = _write_index(write_page, write_off, k_pages.shape[1], dev)
@@ -491,19 +629,19 @@ def make_chunk_fn(
                 )
             else:
                 o = paged_chunk_attention(q, k_pages[layer], v_pages[layer], page_tables, starts)
-            x = x + _proj(o.to(x.dtype).reshape(s, c, h * hd), params, "wo", layer, quant)
-            x = _mlp(x, params, layer, cfg.norm_eps, quant)
+            x = x + _proj(o.to(x.dtype).reshape(s, c, h * hd), params, "wo", layer, quant, tp)
+            x = _mlp(x, params, layer, cfg.norm_eps, quant, tp)
         x = model_lib._rms_norm(x, params["final_norm"], cfg.norm_eps)
         if emit == "last":
             last_idx = (valid.long() - 1).clamp(0, c - 1)
             x = x[torch.arange(s, device=dev), last_idx]  # [S, D]
-        out = _logits(x, params, quant).argmax(-1).int()  # [S] or [S, C]
+        out = _logits(x, params, quant, tp).argmax(-1).int()  # [S] or [S, C]
         return (out, x) if with_hidden else out
 
     return chunk_step
 
 
-def make_draft_fn(cfg: LlamaConfig, k: int, quant: str = "none"):
+def make_draft_fn(cfg: LlamaConfig, k: int, quant: str = "none", mesh=None):
     """The draft head's proposer (--spec-model, in place of the n-gram
     index): (params, draft, hidden [S, D], last_tokens [S]) -> drafts [S, k]
     int32. Each of the k steps embeds the previous token through the
@@ -511,7 +649,9 @@ def make_draft_fn(cfg: LlamaConfig, k: int, quant: str = "none"):
     the argmax of the target's quant-aware lm_head, so an int8/fp8 engine
     drafts through the quantized lm_head its verify scores with; the head's
     own output conditions the next step, the rollout the distillation
-    trained."""
+    trained. On a serve mesh the head is whole on every rank and only the
+    lm_head logits are all-reduced."""
+    tp = _tp_of(mesh)
 
     def propose(params, draft, hidden, last_tokens):
         h = hidden.to(params["embed"].dtype)
@@ -519,7 +659,7 @@ def make_draft_fn(cfg: LlamaConfig, k: int, quant: str = "none"):
         out = []
         for _ in range(k):
             h = model_lib.draft_apply(draft, h, params["embed"][t], cfg)
-            t = _logits(h, params, quant).argmax(-1)
+            t = _logits(h, params, quant, tp).argmax(-1)
             out.append(t)
         return torch.stack(out, dim=1).int()
 
@@ -822,6 +962,14 @@ class ServeEngine:
     is not kept). ``draft_params`` (``model.init_draft_params``' tree, or
     ``load_draft_params``') makes the draft head the proposer of
     speculative decode, which then needs ``spec_tokens > 0``.
+
+    ``mesh`` (``sharding.make_serve_mesh``, connected) puts this engine on
+    one rank of a serve mesh: ``params`` may be the
+    whole tree (cut here to the rank's pieces) or already the pieces
+    (``load_serve_params(mesh=...)``); without ``params`` each rank draws the
+    meshless synthetic tree and keeps its pieces. Every rank of the mesh
+    must build the same engine and make the same calls in the same order
+    (``StepSync``).
     """
 
     def __init__(
@@ -836,8 +984,9 @@ class ServeEngine:
     ) -> None:
         self.cfg = cfg
         self.ecfg = engine_cfg or EngineConfig()
+        self.mesh = mesh
         if mesh is not None:
-            raise _not_ported("a serve mesh", 6)
+            sharding.validate_serve_mesh(cfg, mesh)
         if draft_params is not None and self.ecfg.spec_tokens <= 0:
             raise ValueError(
                 "draft_params given but spec_tokens == 0 - the draft head only"
@@ -869,11 +1018,13 @@ class ServeEngine:
         adt = model_lib.dtype_of(cfg.dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = model_lib.init_params(cfg, gen, self.device, dtype=adt)
+            params = model_lib.init_params(cfg, gen, self.device, dtype=adt, mesh=mesh)
+        elif mesh is not None:
+            params = shard_serve_params(params, cfg, mesh)
         # Weight-only int8/fp8: quantize once here, unless the tree is already
         # in that layout (re-quantizing quantized values would be wrong).
         if quant_lib.is_weight_only(quant) and "lm_head_q" not in params:
-            params = quantize_serve_params(params, mode=quant)
+            params = quantize_serve_params(params, mode=quant, mesh=mesh)
         missing = [k for k in _serve_layer_keys(quant) if k not in params]
         if missing:
             raise ValueError(f"params lack {missing} for quant={quant!r}")
@@ -885,24 +1036,25 @@ class ServeEngine:
         self.draft_params = _place(draft_params, self.device, adt) if self._use_draft else None
 
         hidden = self._use_draft
-        self._prefill_fn = make_prefill_fn(cfg, quant, with_hidden=hidden)
-        self._decode_fn = make_decode_fn(cfg, quant, self.decode_impl)
+        self._prefill_fn = make_prefill_fn(cfg, quant, mesh, with_hidden=hidden)
+        self._decode_fn = make_decode_fn(cfg, quant, self.decode_impl, mesh)
         # Tier-2 prefill (chunked and/or cache-hit suffix) replaces the
         # whole-prompt prefill path.
         self._tier2_prefill = self.ecfg.prefill_chunk > 0 or self.ecfg.prefix_cache
         if self._tier2_prefill:
-            self._chunk_fn = make_chunk_fn(cfg, quant, self.decode_impl, "last", hidden)
+            self._chunk_fn = make_chunk_fn(cfg, quant, self.decode_impl, "last", mesh, hidden)
         if self.ecfg.spec_tokens > 0:
-            self._verify_fn = make_chunk_fn(cfg, quant, self.decode_impl, "all", hidden)
+            self._verify_fn = make_chunk_fn(cfg, quant, self.decode_impl, "all", mesh, hidden)
         if self._use_draft:
-            self._draft_fn = make_draft_fn(cfg, self.ecfg.spec_tokens, quant)
+            self._draft_fn = make_draft_fn(cfg, self.ecfg.spec_tokens, quant, mesh)
         self._cache = PrefixCache(self.ecfg.page_size) if self.ecfg.prefix_cache else None
 
         page, pool = self.ecfg.page_size, self.ecfg.num_pages
         max_seq = self.ecfg.max_seq or cfg.max_seq_len
         self.max_seq = max_seq
         self.table_width = -(-max_seq // page)  # pages per sequence, ceil
-        shape = (cfg.n_layers, pool, page, cfg.n_kv_heads, cfg.head_dim)
+        # The pools hold this rank's KV heads (SERVE_PAGE_SPEC).
+        shape = (cfg.n_layers, pool, page, _heads(cfg, _tp_of(mesh))[1], cfg.head_dim)
         self.k_pages = torch.zeros(shape, dtype=adt, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=adt, device=self.device)
 
@@ -949,6 +1101,26 @@ class ServeEngine:
         req_id: Optional[str] = None,
         trace_id: Optional[str] = None,
     ) -> GenRequest:
+        return self.enqueue(self.make_request(prompt_tokens, max_new_tokens, eos_id, req_id,
+                                              trace_id))
+
+    def enqueue(self, req: GenRequest) -> GenRequest:
+        """Queue a request made by ``make_request`` (FIFO)."""
+        with self._lock:
+            self.pending.append(req)
+        return req
+
+    def make_request(
+        self,
+        prompt_tokens: List[int],
+        max_new_tokens: Optional[int] = None,
+        eos_id: Optional[int] = None,
+        req_id: Optional[str] = None,
+        trace_id: Optional[str] = None,
+    ) -> GenRequest:
+        """A checked request, stamped now, not yet queued: ``submit`` without
+        the queueing, which a serve mesh's rank 0 leaves to the next step's
+        message (``EngineRunner``)."""
         if not prompt_tokens:
             raise ValueError("empty prompt")
         max_new = max_new_tokens or self.ecfg.max_new_default
@@ -964,16 +1136,14 @@ class ServeEngine:
             if req_id is None:
                 self._req_counter += 1
                 req_id = f"req-{self._req_counter}"
-            req = GenRequest(
-                req_id=req_id,
-                prompt=list(prompt_tokens),
-                max_new_tokens=max_new,
-                eos_id=eos_id if eos_id is not None else self.ecfg.eos_id,
-                submitted_t=time.monotonic(),
-                trace_id=trace_id or tracing.current_trace_id(),
-            )
-            self.pending.append(req)
-        return req
+        return GenRequest(
+            req_id=req_id,
+            prompt=list(prompt_tokens),
+            max_new_tokens=max_new,
+            eos_id=eos_id if eos_id is not None else self.ecfg.eos_id,
+            submitted_t=time.monotonic(),
+            trace_id=trace_id or tracing.current_trace_id(),
+        )
 
     # -- gauges ------------------------------------------------------------
 
@@ -1000,6 +1170,11 @@ class ServeEngine:
         if self._cache is not None:
             n += self._cache.evictable_count()
         return n
+
+    @property
+    def mesh_desc(self) -> str:
+        """"ddNxtpM" for a sharded engine, "" for the meshless one."""
+        return self.mesh.describe() if self.mesh is not None else ""
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -1036,7 +1211,7 @@ class ServeEngine:
             "policy": self.ecfg.policy,
             "decode_impl": self.decode_impl,
             "quant": self.ecfg.quant,
-            "mesh": "",  # meshless: serve meshes are ROADMAP item 6
+            "mesh": self.mesh_desc,
             "prefill_chunk": self.ecfg.prefill_chunk,
             "prefix_cache": int(self.ecfg.prefix_cache),
             "spec_tokens": self.ecfg.spec_tokens,
@@ -1607,6 +1782,67 @@ def decode_token(token: int) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Agreement between the ranks of a serve mesh.
+
+
+class StepSync:
+    """Keeps the ranks of a serve mesh in step. The JAX engine is one
+    controller driving every device; the port runs one process a rank, each
+    with its own ``ServeEngine`` (page allocator, prefix cache, preemption,
+    proposers), and a collective of one step function hangs unless every
+    rank calls it. So rank 0, which alone serves HTTP, broadcasts at the top
+    of every iteration of its loop a step message: the requests submitted
+    since the last one, in order, or a stop. Every rank queues them in that
+    order and steps exactly when rank 0 does (``has_work`` reads the same
+    state on each). Host time decides nothing in the engine (it only stamps
+    requests), and the greedy tokens come from logits all-reduced to the
+    same values everywhere, so the engines stay identical; ``check`` holds
+    them to it after each step. Messages travel on the mesh's gloo group on
+    the CPU; a mesh of one rank without a process group has nothing to
+    send."""
+
+    def __init__(self, mesh: sharding.Mesh) -> None:
+        self.group = mesh.host_group()
+
+    def exchange(self, message: Optional[dict] = None) -> dict:
+        """Rank 0's ``message`` on every rank (a collective)."""
+        if self.group is None:
+            return message
+        box = [message]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def check(self, events: List[TokenEvent]) -> None:
+        """Raise on every rank unless every rank emitted the same tokens
+        for the same requests this step (a collective)."""
+        if self.group is None:
+            return
+        mine = [(ev.req_id, int(ev.token), ev.done) for ev in events]
+        every = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(every, mine, group=self.group)
+        if any(got != every[0] for got in every):
+            raise RuntimeError(
+                "the ranks of the serve mesh emitted different tokens in one step: "
+                + "; ".join(f"rank {r}: {got}" for r, got in enumerate(every))
+            )
+
+
+def follow(engine: ServeEngine, sync: StepSync) -> None:
+    """The loop of a serve mesh's ranks other than 0: take each step message,
+    queue its requests in order, and step when there is work, until the
+    stop. A failed step or a disagreement raises, and the process exits
+    non-zero."""
+    while True:
+        message = sync.exchange()
+        if message["stop"]:
+            return
+        for req_id, prompt, max_new, eos_id in message["requests"]:
+            engine.submit(prompt, max_new, eos_id=eos_id, req_id=req_id)
+        if engine.has_work():
+            sync.check(engine.step())
+
+
+# ---------------------------------------------------------------------------
 # Engine thread + aiohttp app (the runnable service behind the proxy).
 
 
@@ -1614,12 +1850,26 @@ class EngineRunner(threading.Thread):
     """Owns the step loop on a background thread; bridges token events into
     per-request callbacks (asyncio consumers wrap them with
     ``loop.call_soon_threadsafe``). Device work blocks, so it must not run on
-    the event loop: while the device decodes, the loop streams tokens out."""
+    the event loop: while the device decodes, the loop streams tokens out.
 
-    def __init__(self, engine: ServeEngine, idle_wait: float = 0.05) -> None:
+    With ``sync`` the runner is rank 0 of a serve mesh: a submitted request
+    waits in an inbox until the top of the next iteration, whose step message
+    (``StepSync.exchange``) carries it to every rank; an idle iteration
+    sends an empty message each ``idle_wait``, so the other ranks never sit
+    in a collective long enough to time out; and a failed step is not
+    swallowed, as it is meshless: the runner records it in ``error`` and
+    sends this process SIGTERM, which ends the server (and ``main`` then
+    exits non-zero), so the other ranks' collectives fail too instead of
+    waiting for a step that will not come."""
+
+    def __init__(self, engine: ServeEngine, idle_wait: float = 0.05,
+                 sync: Optional[StepSync] = None) -> None:
         super().__init__(name="serve-engine", daemon=True)
         self.engine = engine
         self.idle_wait = idle_wait
+        self.sync = sync
+        self.error: Optional[BaseException] = None
+        self._inbox: List[GenRequest] = []
         self._wake = threading.Event()
         # Not `_stop`: threading.Thread.join calls a method of that name.
         self._stopping = threading.Event()
@@ -1657,9 +1907,16 @@ class EngineRunner(threading.Thread):
             req_id = f"http-{self._sub_counter}"
             self._subs[req_id] = on_event
         try:
-            req = self.engine.submit(
-                prompt_tokens, max_new_tokens, req_id=req_id, trace_id=trace_id
-            )
+            if self.sync is None:
+                req = self.engine.submit(
+                    prompt_tokens, max_new_tokens, req_id=req_id, trace_id=trace_id
+                )
+            else:
+                req = self.engine.make_request(
+                    prompt_tokens, max_new_tokens, req_id=req_id, trace_id=trace_id
+                )
+                with self._subs_lock:
+                    self._inbox.append(req)
         except Exception:
             with self._subs_lock:
                 self._subs.pop(req_id, None)
@@ -1668,12 +1925,17 @@ class EngineRunner(threading.Thread):
         return req
 
     def step_once(self) -> None:
-        """One engine step + event dispatch (run()'s body)."""
-        try:
+        """One engine step + event dispatch (run()'s body). Meshless, a
+        failed step is logged and dropped; on a mesh it raises."""
+        if self.sync is not None:
             events = self.engine.step()
-        except Exception:
-            logger.exception("engine step failed")
-            return
+            self.sync.check(events)
+        else:
+            try:
+                events = self.engine.step()
+            except Exception:
+                logger.exception("engine step failed")
+                return
         if self._telemetry.enabled:
             now = time.monotonic()
             if now - self._last_telemetry >= self._telemetry_interval:
@@ -1705,10 +1967,28 @@ class EngineRunner(threading.Thread):
                     logger.exception("token subscriber failed")
 
     def run(self) -> None:
-        self._step_loop_in_ctx()
+        if self.sync is None:
+            self._step_loop_in_ctx()
+            return
+        try:
+            self._step_loop_in_ctx()
+        except Exception as e:  # noqa: BLE001 - every rank must go down
+            self.error = e
+            logger.exception("engine step failed on the serve mesh; stopping this rank")
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def _step_loop(self) -> None:
-        while not self._stopping.is_set():
+        while True:
+            stopping = self._stopping.is_set()
+            if self.sync is not None:
+                with self._subs_lock:
+                    inbox, self._inbox = self._inbox, []
+                self.sync.exchange({"stop": stopping, "requests": [
+                    (r.req_id, r.prompt, r.max_new_tokens, r.eos_id) for r in inbox]})
+                for req in ([] if stopping else inbox):
+                    self.engine.enqueue(req)
+            if stopping:
+                return
             if not self.engine.has_work():
                 self._wake.wait(self.idle_wait)
                 self._wake.clear()
@@ -1866,7 +2146,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     entrypoint, with the JAX CLI's flags. Binds DSTACK_SERVICE_PORT (the
     control plane's contract) unless --port says otherwise. Serves synthetic
     weights from a seed, or --checkpoint-dir's; --spec-model loads a draft
-    head. A --mesh raises until ROADMAP item 6 ports it."""
+    head. With --mesh every rank of torchrun's world (NCCL on a card, gloo
+    with --device cpu; a process group the caller has initialized is used
+    as it is) runs this entry point: each restores or draws its pieces and
+    builds its engine, rank 0 binds --port and runs the ``EngineRunner``,
+    the others ``follow`` it, and all return when rank 0 stops."""
     import argparse
 
     from aiohttp import web
@@ -1926,36 +2210,43 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--checkpoint-step", type=int, default=None, dest="checkpoint_step",
                         help="checkpoint step to restore (default: latest complete)")
     parser.add_argument("--mesh", default="",
-                        help="serve mesh spec, tpN or ddMxtpN (not yet ported:"
-                             " ROADMAP item 6); default meshless")
+                        help="serve mesh spec: tpN shards projections/heads"
+                             " over N ranks (ddMxtpN adds an explicit replica"
+                             " axis; default meshless - one card per replica);"
+                             " run one process a rank under torchrun")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without one) or cpu")
     args = parser.parse_args(argv)
 
-    if args.mesh and args.mesh != "none":
-        raise _not_ported(f"--mesh {args.mesh} (a serve mesh)", 6)
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_reference_matmul_precision()
     cfg = get_config(args.config)
+    mesh = None
+    if args.mesh and args.mesh != "none":
+        device = sharding.init_distributed(device) or device
+        mesh = parse_mesh_arg(args.mesh).connect(device)
+    lead = mesh is None or mesh.rank == 0
     params = None
     if args.checkpoint_dir:
         params, restored = load_serve_params(
-            args.checkpoint_dir, cfg, quant=args.quant, step=args.checkpoint_step,
+            args.checkpoint_dir, cfg, mesh=mesh, quant=args.quant, step=args.checkpoint_step,
             device=device,
         )
-        print(f"restored checkpoint step {restored['step']} from {args.checkpoint_dir}"
-              + (f" (saved on mesh {restored['mesh']})" if restored.get("mesh") else ""),
-              flush=True)
+        if lead:
+            print(f"restored checkpoint step {restored['step']} from {args.checkpoint_dir}"
+                  + (f" (saved on mesh {restored['mesh']})" if restored.get("mesh") else ""),
+                  flush=True)
     draft_params = None
     if args.spec_model:
         if args.spec_tokens <= 0:
             raise SystemExit("--spec-model needs --spec-tokens > 0")
         draft_params, draft_manifest = load_draft_params(
-            args.spec_model, cfg, step=args.spec_model_step, device=device,
+            args.spec_model, cfg, mesh=mesh, step=args.spec_model_step, device=device,
         )
-        print(f"draft head restored from {args.spec_model} step {draft_manifest['step']}"
-              f" (.draft subtree)", flush=True)
+        if lead:
+            print(f"draft head restored from {args.spec_model} step {draft_manifest['step']}"
+                  f" (.draft subtree)", flush=True)
     engine = ServeEngine(
         cfg,
         EngineConfig(
@@ -1974,10 +2265,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         ),
         params=params,
         device=device,
+        mesh=mesh,
         draft_params=draft_params,
     )
     del params, draft_params
-    runner = EngineRunner(engine)
+    sync = StepSync(mesh) if mesh is not None else None
+    if not lead:
+        follow(engine, sync)
+        return
+    runner = EngineRunner(engine, sync=sync)
     runner.start()
     print(
         f"serving config={args.config} on :{args.port} "
@@ -1985,7 +2281,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         f"policy={args.policy}, decode={engine.decode_impl}, "
         f"quant={args.quant}, prefill_chunk={args.prefill_chunk}, "
         f"prefix_cache={args.prefix_cache}, spec_tokens={args.spec_tokens}, "
-        f"spec_proposer={'draft' if engine._use_draft else 'ngram'}, mesh=none, "
+        f"spec_proposer={'draft' if engine._use_draft else 'ngram'}, "
+        f"mesh={engine.mesh_desc or 'none'}, "
         f"device={device}, weights={'checkpoint' if args.checkpoint_dir else 'synthetic'})",
         flush=True,
     )
@@ -1993,6 +2290,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         web.run_app(create_serve_app(runner), host="0.0.0.0", port=args.port, print=None)
     finally:
         runner.shutdown()
+        if sync is not None:
+            # The runner's last message stops the other ranks.
+            runner.join(timeout=sharding.COLLECTIVE_TIMEOUT.total_seconds())
+    if runner.error is not None:
+        raise RuntimeError("the engine failed on the serve mesh") from runner.error
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
-"""The training mesh: axes, the parameter layout and the process group.
+"""The meshes: axes, the parameter layouts and the process group.
 
-The port of ``dstack_tpu/workloads/sharding.py`` (its training half, lines
-1-97 and 221-231), in ``torch.distributed`` with one process per card.
-Axes, as the JAX package's:
+The port of ``dstack_tpu/workloads/sharding.py``, in ``torch.distributed``
+with one process per card. The training mesh's axes, as the JAX package's:
 
 - ``dp``   data parallel (the batch splits over it; so do the parameters,
            "zero-3 over the dp axis too", as PARAM_SPECS says);
@@ -11,17 +10,22 @@ Axes, as the JAX package's:
 - ``tp``   tensor parallel (attention heads, the MLP hidden and the vocab);
 - ``sp``   sequence parallel (ring attention; not ported, ROADMAP item 6).
 
-A ``Mesh`` is first a description: the shape and which global rank sits at
-each coordinate, enough to cut a leaf's local slice (``local_slices``)
-exactly as JAX's ``NamedSharding.devices_indices_map`` cuts it at the same
-coordinate. ``Mesh.connect`` then builds the ``DeviceMesh`` over the process
-group and its sub-groups: ``tp`` and the combined ``("dp", "fsdp")`` data
-group that FSDP shards over. Every rank holds plain local shards of the
-stacked-layer parameter dict; the collectives that join them are written
-out in ``kernels/collective.py``.
+The serve mesh (``make_serve_mesh``) has two: ``dd``, replicas that hold
+the same weights and run the same steps, and ``tp``, the Megatron split of
+the projections, the attention heads and the KV pages
+(``SERVE_PARAM_SPECS``, ``SERVE_PAGE_SPEC``).
 
-The serve mesh (``make_serve_mesh``, the sharding.py:100-219 half) waits
-with the tp-sharded engine (ROADMAP item 6).
+A ``Mesh`` is first a description: its axes, the shape and which global
+rank sits at each coordinate, enough to cut a leaf's local slice
+(``local_slices``) exactly as JAX's ``NamedSharding.devices_indices_map``
+cuts it at the same coordinate. ``Mesh.connect`` then builds the process
+groups: for a training mesh the ``DeviceMesh`` and its sub-groups, ``tp``
+and the combined ``("dp", "fsdp")`` data group that FSDP shards over; for a
+serve mesh the ``tp`` groups and a gloo group over the world for the
+host-side messages that keep the ranks' schedulers in step. Every rank
+holds plain local shards of the stacked-layer parameter dict; the
+collectives that join them are written out in ``kernels/collective.py``
+(training) and ``serve.py`` (serving).
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dstack_tpu_torch.workloads import quantize as quant_lib
+
 MESH_AXES = ("dp", "fsdp", "tp", "sp")
+SERVE_MESH_AXES = ("dd", "tp")
 DATA_AXES = ("dp", "fsdp")
 
 # A spec has one entry a dimension: None (whole), an axis, or a tuple of
@@ -79,13 +86,15 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
 
 
 class Mesh:
-    """A (dp, fsdp, tp, sp) mesh of global ranks. ``ranks[i, j, k, l]`` is
-    the rank at that coordinate (JAX's ``mesh.devices``). After ``connect``
-    it also holds this process's rank, its device, the ``DeviceMesh`` and
-    the process groups of its axes."""
+    """A mesh of global ranks over ``axes``: (dp, fsdp, tp, sp) for training,
+    (dd, tp) for serving. ``ranks[i, j, ...]`` is the rank at that
+    coordinate (JAX's ``mesh.devices``). After ``connect`` it also holds
+    this process's rank, its device and the process groups of its axes."""
 
-    def __init__(self, shape: Dict[str, int], ranks: np.ndarray):
-        self.shape = {a: int(shape[a]) for a in MESH_AXES}
+    def __init__(self, shape: Dict[str, int], ranks: np.ndarray,
+                 axes: Tuple[str, ...] = MESH_AXES):
+        self.axes = tuple(axes)
+        self.shape = {a: int(shape[a]) for a in self.axes}
         self.ranks = np.asarray(ranks, dtype=np.int64).reshape(tuple(self.shape.values()))
         self.rank: Optional[int] = None
         self.device: Optional[torch.device] = None
@@ -104,7 +113,7 @@ class Mesh:
         where = np.argwhere(self.ranks == rank)
         if len(where) != 1:
             raise ValueError(f"rank {rank} is not on the mesh {self.shape}")
-        return dict(zip(MESH_AXES, (int(i) for i in where[0])))
+        return dict(zip(self.axes, (int(i) for i in where[0])))
 
     def index(self, axes, rank: Optional[int] = None) -> int:
         """The row-major index over ``axes`` of ``rank``'s coordinate (how
@@ -117,24 +126,30 @@ class Mesh:
 
     def members(self, axes, rank: Optional[int] = None) -> list:
         """The global ranks of ``rank``'s group over ``axes`` (given in
-        MESH_AXES order), in the row-major order of their coordinates: the
+        the mesh's order), in the row-major order of their coordinates: the
         order a dimension split over those axes is cut in. A process group's
         own ranks run in global-rank order, which differs from this when
         --multislice reorders the ranks."""
         coords = self.coords(rank)
         axes = _axes(axes)
         return [int(r) for r in self.ranks[tuple(
-            slice(None) if a in axes else coords[a] for a in MESH_AXES)].ravel()]
+            slice(None) if a in axes else coords[a] for a in self.axes)].ravel()]
 
     def connect(self, device: torch.device) -> "Mesh":
-        """Build the ``DeviceMesh`` over the initialized process group, and
-        the flattened data group. Every rank calls it, in the same order."""
-        from torch.distributed.device_mesh import DeviceMesh
-
+        """Build the process groups of the mesh over the initialized process
+        group. Every rank calls it, in the same order. A serve mesh of one
+        rank needs no process group: it has no collective to run."""
+        self.device = torch.device(device)
+        if self.axes == SERVE_MESH_AXES and self.size == 1 and not dist.is_initialized():
+            self.rank = 0
+            return self
         if not dist.is_initialized() or dist.get_world_size() != self.size:
             raise RuntimeError(f"a mesh of {self.size} ranks needs a process group of as many")
-        self.device = torch.device(device)
         self.rank = dist.get_rank()
+        if self.axes == SERVE_MESH_AXES:
+            return self._connect_serve()
+        from torch.distributed.device_mesh import DeviceMesh
+
         self.device_mesh = DeviceMesh(self.device.type, torch.from_numpy(self.ranks),
                                       mesh_dim_names=MESH_AXES)
         for axis in MESH_AXES:
@@ -143,11 +158,33 @@ class Mesh:
         self._groups[MESH_AXES] = dist.group.WORLD
         return self
 
+    def _connect_serve(self) -> "Mesh":
+        """A serve mesh's groups: tp (``dist.new_group`` is collective, so
+        every rank makes each dd row's tp group, in the same order, and
+        keeps its own), the world, and a gloo group over the world for
+        host-side messages (the world itself when it is gloo). The dd
+        replicas run no collective with each other."""
+        for row in self.ranks.tolist():
+            group = dist.new_group(row)
+            if self.rank in row:
+                self._groups[("tp",)] = group
+        self._groups[self.axes] = dist.group.WORLD
+        self._groups["host"] = (dist.group.WORLD if dist.get_backend() == "gloo"
+                                else dist.new_group(backend="gloo"))
+        return self
+
     def group(self, axes):
         """The process group of ``axes`` (one axis, the data axes, or all)."""
         return self._groups[_axes(axes)]
 
+    def host_group(self):
+        """A serve mesh's gloo group over every rank, for messages between
+        the ranks' hosts; None for one rank without a process group."""
+        return self._groups.get("host")
+
     def describe(self) -> str:
+        """``dp1xfsdp2xtp2xsp1``; a serve mesh ``dd1xtp4``, as the JAX
+        engine's ``mesh_desc``."""
         return "x".join(f"{a}{n}" for a, n in self.shape.items())
 
 
@@ -235,7 +272,7 @@ def holds_first_copy(spec: Spec, mesh: Mesh, rank: Optional[int] = None) -> bool
     only."""
     coords = mesh.coords(rank)
     used = spec_axes(spec)
-    return all(coords[a] == 0 for a in MESH_AXES if a not in used)
+    return all(coords[a] == 0 for a in mesh.axes if a not in used)
 
 
 def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh,
@@ -247,12 +284,20 @@ def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh,
 _PARAM_KEY = re.compile(r"\['(\w+)'\]$")
 
 
-def spec_of_key(key: str) -> Spec:
+def spec_of_key(key: str, specs: Dict[str, Spec] = PARAM_SPECS) -> Spec:
     """The layout of a checkpoint leaf by its tree path: a parameter and
-    its optimizer moments (``...['wq']``) take PARAM_SPECS; the rest (step
-    counts) are whole on every rank."""
+    its optimizer moments (``...['wq']``) take their entry of ``specs``;
+    the rest (step counts) are whole on every rank."""
     m = _PARAM_KEY.search(key)
-    return PARAM_SPECS.get(m.group(1), ()) if m else ()
+    return specs.get(m.group(1), ()) if m else ()
+
+
+def param_specs(mesh: Optional[Mesh]) -> Dict[str, Spec]:
+    """The parameter layout of a mesh: SERVE_PARAM_SPECS on a serve mesh,
+    PARAM_SPECS on a training mesh (and without one)."""
+    if mesh is not None and mesh.axes == SERVE_MESH_AXES:
+        return SERVE_PARAM_SPECS
+    return PARAM_SPECS
 
 
 def validate_mesh(cfg, mesh: Mesh) -> None:
@@ -268,6 +313,99 @@ def validate_mesh(cfg, mesh: Mesh) -> None:
             raise ValueError(
                 f"mesh {mesh.describe()}: {name}={dim} does not split into {n} equal"
                 f" shards; the port shards whole blocks and whole heads"
+            )
+
+
+# -- the serve mesh (the JAX module's sharding.py:104-219) --------------------
+#
+# ``tp``: the Megatron layout, column-parallel q/k/v and gate/up,
+# row-parallel wo and w_down with one all-reduce each, the attention heads
+# and KV pages on the rank of their projections. ``dd``: replicas, which
+# every spec below leaves out (the weights and the engine's batches are the
+# same on each). The embed is whole on every rank (a gather on the decode
+# path); lm_head splits its contraction, so one all-reduce gives every rank
+# the whole fp32 logits and the greedy argmax needs no collective.
+
+SERVE_PARAM_SPECS: Dict[str, Spec] = {
+    "embed": (None, None),               # [V, D] whole (decode gather)
+    "wq": (None, None, "tp"),            # [L, D, H*Dh] heads over tp
+    "wk": (None, None, "tp"),            # [L, D, Hkv*Dh]
+    "wv": (None, None, "tp"),
+    "wo": (None, "tp", None),            # [L, H*Dh, D] row-parallel
+    "w_gate": (None, None, "tp"),        # [L, D, F] hidden over tp
+    "w_up": (None, None, "tp"),
+    "w_down": (None, "tp", None),        # [L, F, D] row-parallel
+    "attn_norm": (None, None),           # [L, D]
+    "mlp_norm": (None, None),
+    "final_norm": (None,),               # [D]
+    "lm_head": ("tp", None),             # [D, V] contraction over tp
+}
+
+# KV page pools [L, pool, page, Kh, Dh]: the heads ride the tp split of the
+# K/V projections that write them, so page writes and paged attention stay
+# on the rank.
+SERVE_PAGE_SPEC: Spec = (None, None, None, "tp", None)
+
+
+def make_serve_mesh(tp: int = 1, dd: Optional[int] = None, world: Optional[int] = None,
+                    ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A (dd, tp) serve mesh over ``ranks`` (default: ranks 0..world-1,
+    world defaulting to the process group's size, or 1 without one);
+    dd=None absorbs the remaining ranks. The errors are the JAX package's,
+    a rank standing for a device."""
+    if ranks is None:
+        if world is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = range(world)
+    ranks = list(ranks)
+    n = len(ranks)
+    if dd is None:
+        if n % tp != 0:
+            raise ValueError(f"{n} devices not divisible by tp={tp}")
+        dd = n // tp
+    if dd * tp != n:
+        raise ValueError(f"serve mesh {dd}x{tp} != {n} devices")
+    return Mesh(dict(dd=dd, tp=tp), np.array(ranks), SERVE_MESH_AXES)
+
+
+def serve_param_specs(quant: str = "none") -> Dict[str, Spec]:
+    """SERVE_PARAM_SPECS in the layout the engine holds: the fp tree, or the
+    ``quantize_serve_params`` layout (``<k>_q`` values take the fp weight's
+    spec; ``<k>_s`` per-output-channel scales [..., 1, N] keep only the
+    output axis's split, so a row-parallel weight's scales are whole on
+    every rank)."""
+    if not quant_lib.is_weight_only(quant):
+        return dict(SERVE_PARAM_SPECS)
+    specs = {k: SERVE_PARAM_SPECS[k] for k in ("embed", "final_norm", "attn_norm", "mlp_norm")}
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"):
+        spec = SERVE_PARAM_SPECS[k]
+        specs[k + "_q"] = spec
+        specs[k + "_s"] = spec[:-2] + (None,) + spec[-1:]
+    return specs
+
+
+def validate_serve_mesh(cfg, mesh: Mesh) -> None:
+    """The JAX package's checks of a serve mesh against the model, in its
+    words: (dd, tp) axes only, and tp dividing the query heads, the KV
+    heads (whole GQA groups), the MLP hidden and the lm_head contraction.
+    Every dimension a serve spec splits is one of these four, so they are
+    also the port's own condition that each rank holds whole blocks."""
+    axes = dict(mesh.shape)
+    unknown = set(axes) - {"dd", "tp"}
+    if unknown:
+        raise ValueError(
+            f"serve mesh has unknown axes {sorted(unknown)}; expected (dd, tp)"
+            f" — build it with sharding.make_serve_mesh"
+        )
+    tp = axes.get("tp", 1)
+    if tp <= 1:
+        return
+    for name, dim in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                      ("d_ff", cfg.d_ff), ("d_model", cfg.d_model)):
+        if dim % tp:
+            raise ValueError(
+                f"serve mesh tp={tp} must divide {name}={dim} (whole"
+                f" heads/channels per shard); adjust the mesh or the config"
             )
 
 

@@ -11,8 +11,9 @@ n-gram proposer and a scripted ``PrefixCache`` sequence agree with the JAX
 objects. The HTTP apps must answer alike, gauge headers included; a runner
 writes the JAX runner's ``engine`` telemetry point; the engine must refuse to
 run without a device it was not told about; the checkpoint and draft-head
-flags keep their error contracts, and a serve mesh (not yet ported)
-raises; the port must import nothing of JAX or of the JAX package.
+flags keep their error contracts, and so does a serve mesh (its own tests
+are ``test_torch_serve_mesh*.py``); the port must import nothing of JAX or
+of the JAX package.
 """
 
 import asyncio
@@ -310,14 +311,21 @@ def test_no_device_means_cuda_and_raises_without_it(torch_params, monkeypatch):
 
 @pytest.mark.parametrize("what", ["mesh", "main-mesh-tp4"])
 def test_unported_features_raise(what, torch_params):
-    """A serve mesh is not yet ported: the engine's mesh and the CLI's
-    --mesh raise, naming ROADMAP item 6."""
-    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP item 6"):
-        if what == "main-mesh-tp4":
+    """A serve mesh, once refused naming ROADMAP item 6, holds the JAX
+    package's error contracts: the engine validates its mesh against the
+    model first (TINY's 2 KV heads do not split 4 ways), and the CLI's
+    ``--mesh tp4`` without a process group of 4 ranks raises rather than
+    falling back to meshless."""
+    from dstack_tpu_torch.workloads import sharding
+
+    if what == "main-mesh-tp4":
+        with pytest.raises(ValueError, match="^1 devices not divisible by tp=4$"):
             tserve.main(["--config", "test", "--device", "cpu", "--mesh", "tp4"])
-        else:
-            tserve.ServeEngine(TTINY, tserve.EngineConfig(**BASE, spec_tokens=4),
-                               params=torch_params, device="cpu", mesh=object())
+        return
+    with pytest.raises(ValueError, match="serve mesh tp=4 must divide n_kv_heads=2"):
+        tserve.ServeEngine(TTINY, tserve.EngineConfig(**BASE, spec_tokens=4),
+                           params=torch_params, device="cpu",
+                           mesh=sharding.make_serve_mesh(4, world=4))
 
 
 @pytest.fixture(scope="module")

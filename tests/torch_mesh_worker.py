@@ -1,4 +1,5 @@
-"""One rank of a gloo world on the CPU, for the port's mesh tests.
+"""One rank of a gloo world on the CPU, for the port's mesh tests (training
+and serving).
 
     python -m tests.torch_mesh_worker <jobs.pt> <rank> <world> <init file> <out dir>
 
@@ -189,6 +190,94 @@ def restore(shape, cfg_kw, params, ckpt_dir, mu_dtype=None):
         train.state_tree(state))
     train.load_state_tree(state, tree)
     return dict(coords=mesh.coords(), tree=_tree(state), mesh=manifest["mesh"])
+
+
+def _serve_mesh(shape):
+    """The serve mesh of ``shape`` (make_serve_mesh's kwargs), connected."""
+    from dstack_tpu_torch.workloads import sharding
+
+    return sharding.make_serve_mesh(**shape).connect(CPU)
+
+
+def _drain(engine, waves, max_new):
+    """Token streams of ``waves`` of prompts, each wave submitted once the
+    one before has drained."""
+    reqs = []
+    for wave in waves:
+        reqs += [engine.submit(p, max_new_tokens=max_new) for p in wave]
+        steps = 0
+        while engine.has_work():
+            engine.step()
+            steps += 1
+            assert steps < 3000, "engine never drained"
+    return [r.tokens for r in reqs]
+
+
+@task
+def serve_streams(mesh, cfg_kw, params, base, cases, draft=None):
+    """The port's engine on a serve mesh (``mesh``: make_serve_mesh's
+    kwargs) from the whole ``params`` tree (numpy), one engine a case
+    ``(overrides, waves, max_new)`` with ``base`` engine settings: each
+    case's streams, stats and this rank's leaf and pool shapes."""
+    from dstack_tpu_torch.workloads import serve
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.convert import params_from_numpy
+
+    smesh = _serve_mesh(mesh)
+    cfg = get_config("test", **cfg_kw)
+    out = {"coords": smesh.coords()}
+    for name, (overrides, waves, max_new) in cases.items():
+        engine = serve.ServeEngine(
+            cfg, serve.EngineConfig(**{**base, **overrides}),
+            params=params_from_numpy(params, CPU, torch.float32), device=CPU, mesh=smesh,
+            draft_params=params_from_numpy(draft, CPU, torch.float32) if draft else None)
+        out[name] = dict(streams=_drain(engine, waves, max_new), stats=engine.stats(),
+                         shapes={k: tuple(v.shape) for k, v in engine.params.items()},
+                         pool=tuple(engine.k_pages.shape))
+    return out
+
+
+@task
+def serve_restore(cfg_kw, ckpt_dir, quants, base, prompts, max_new):
+    """``load_serve_params`` of ``ckpt_dir`` on a tp4 serve mesh under each
+    of ``quants`` (this rank's pieces, as numpy), and the streams of an
+    engine on the pieces restored without quantization."""
+    from dstack_tpu_torch.workloads import serve
+    from dstack_tpu_torch.workloads.config import get_config
+
+    smesh = _serve_mesh(dict(tp=4))
+    cfg = get_config("test", **cfg_kw)
+    out = {"coords": smesh.coords()}
+    for quant in quants:
+        params, manifest = serve.load_serve_params(ckpt_dir, cfg, mesh=smesh, quant=quant,
+                                                   device=CPU)
+        out[quant] = {k: _host(v) for k, v in params.items()}
+        out["mesh"] = manifest["mesh"]
+        if quant == "none":
+            engine = serve.ServeEngine(cfg, serve.EngineConfig(**base), params=params,
+                                       device=CPU, mesh=smesh)
+            out["streams"] = _drain(engine, [prompts], max_new)
+    return out
+
+
+@task
+def step_sync(message):
+    """``serve.StepSync`` on dd2 x tp2: rank 0's ``message`` as each rank
+    receives it, and whether ``check`` raised on agreeing tokens and on
+    tokens that differ on the last rank."""
+    from dstack_tpu_torch.workloads import serve
+
+    mesh = _serve_mesh(dict(tp=2))
+    sync = serve.StepSync(mesh)
+    got = sync.exchange(message if mesh.rank == 0 else None)
+    raised = []
+    for token in (7, 7 + (mesh.rank == 3)):
+        try:
+            sync.check([serve.TokenEvent("req-1", token, 0, False)])
+            raised.append(False)
+        except RuntimeError:
+            raised.append(True)
+    return dict(message=got, raised=raised)
 
 
 @task
