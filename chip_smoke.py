@@ -192,6 +192,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              cards, llama3_8b --mesh tp4 over NCCL: TTFT, ITL, tokens/s and
              peak memory a rank beside meshless; on one card it logs "serve
              mesh multi-card: not run".
+15. moe     - mixture-of-experts training. (a) The MoE example's command
+             line, train.main --config moe_test --steps 100, in a child
+             process (ep 1, blockwise): losses finite and falling, step p50.
+             (b) Mixtral-8x7B width (d_model 4096, d_ff 14336, 32/8 heads,
+             8 experts, top-2, vocab 32000, loss_chunk 512) at 2 of its 32
+             layers, fp32 masters, bf16 activations, flash, remat full,
+             batch 2 x 4096, 5 steps through train.train: losses finite and
+             falling, flash launches exactly 2 x layers x steps (forward)
+             and layers x steps (dq, dk/dv), the token drop rate, step p50,
+             tokens/s, a model-FLOPs share of the phase's own reckoning
+             (6 x active params + causal attention), the peak beside the
+             reckoned fp32 TrainState, and torch.profiler over the last
+             step (the MoE regions, flash, GEMM, copy and optimizer kernels,
+             device busy). (c) fp32 at Mixtral width, 1 layer, seq 1024: 3
+             steps on the flash kernels against 3 on the blockwise walk,
+             losses and grad norms within 1e-5; one --quant int8 step,
+             finite. (d) --checkpoint-every 2 --resume, crashed at step 3
+             and resumed: steps 3-4 bit-equal to (a). (e) --ep 1 on one
+             NCCL rank bit-equal to (a); four processes sharing the card
+             over gloo (the four collectives on CUDA tensors probed first;
+             a refusal logs "moe mesh on one card: not run"), fp32 moe_test
+             at ep 4 and dp 2 x ep 2 within 1e-5 of meshless; with four
+             cards, Mixtral width at 2 layers --ep 4 over NCCL (step times,
+             the dispatch all-to-all, peak a rank); on one card it logs
+             "moe multi-card: not run".
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -343,6 +368,20 @@ def device_ms(fn, iters: int = 20) -> float:
         if total > 0:
             return total / 1e3 / iters
     raise RuntimeError("torch.profiler recorded no device time in three sessions")
+
+
+# record_function ranges that the profiler also puts on the device timeline:
+# the optimizer's step, the profiler's steps, the MoE regions.
+ANNOTATIONS = ("Optimizer.", "ProfilerStep", "moe.")
+
+
+def device_kernels(events) -> list:
+    """The kernel rows of a profile's ``key_averages()``: device rows with
+    time, less the spans of record_function ranges on the device timeline,
+    which would count their whole span as busy time."""
+    return [e for e in events if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(ANNOTATIONS)]
 
 
 # -- phase 2: kernels --------------------------------------------------------
@@ -1769,10 +1808,7 @@ def profile_window(label: str, run, card: str, share_of: str = "") -> None:
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     # Kernel rows only: an operator's row repeats its kernels' time.
-    events = [
-        e for e in prof.key_averages()
-        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-    ]
+    events = device_kernels(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
     share = ""
     if share_of:
@@ -2143,10 +2179,7 @@ def profile_train_step(label: str, card: str, kernels: str = "flash_"):
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - clock["t0"]) * 1e3
             prof.stop()
-            events = [
-                e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-            ]
+            events = device_kernels(prof.key_averages())
             busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or float("nan")
             flash_ms = sum(e.self_device_time_total for e in events if kernels in e.key) / 1e3
             log(f"profile train step ({label}): wall {wall_ms:.2f} ms, device busy"
@@ -2206,15 +2239,20 @@ def phase_train(card: str) -> dict:
 
 
 def three_steps(cfg, init, batches, mu_dtype=None):
-    """(loss and grad norm per step, parameters) after 3 updates of cfg
-    from ``init`` on ``batches``."""
+    """(loss and grad norm per step, parameters) after an update of cfg
+    (dense, or an ``moe.MoeConfig``) from ``init`` on each of ``batches``."""
     import torch
 
-    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads import moe, train
 
     optimizer = train.make_optimizer(mu_dtype=mu_dtype)
-    state = train.init_train_state(cfg, optimizer, params={k: v.clone() for k, v in init.items()})
-    step = train.make_train_step(cfg, optimizer)
+    params = {k: v.clone() for k, v in init.items()}
+    if isinstance(cfg, moe.MoeConfig):
+        state = moe.init_moe_train_state(cfg, optimizer, params=params)
+        step = moe.make_moe_train_step(cfg, optimizer)
+    else:
+        state = train.init_train_state(cfg, optimizer, params=params)
+        step = train.make_train_step(cfg, optimizer)
     metrics = []
     for tokens, targets in batches:
         state, m = step(state, torch.from_numpy(tokens).cuda(), torch.from_numpy(targets).cuda())
@@ -2222,14 +2260,15 @@ def three_steps(cfg, init, batches, mu_dtype=None):
     return metrics, {k: v.detach() for k, v in state.params.items()}
 
 
-def check_same_training(name, run, ref_name, ref) -> float:
-    """Losses and grad norms of two three_steps runs within 1e-4 relative,
-    each parameter tensor within 1e-4 of its norm (norm-wise: AdamW's
-    sign-like step can move an entry whose gradient is rounding noise by up
-    to lr on one side only); returns the worst parameter difference."""
+def check_same_training(name, run, ref_name, ref, rtol: float = 1e-4) -> float:
+    """Losses and grad norms of two three_steps runs within ``rtol``
+    relative, each parameter tensor within 1e-4 of its norm (norm-wise:
+    AdamW's sign-like step can move an entry whose gradient is rounding
+    noise by up to lr on one side only); returns the worst parameter
+    difference."""
     (km, kp), (rm, rp) = run, ref
     for i, ((kl, kg), (rl, rg)) in enumerate(zip(km, rm)):
-        if abs(kl - rl) > 1e-4 * abs(rl) or abs(kg - rg) > 1e-4 * abs(rg):
+        if abs(kl - rl) > rtol * abs(rl) or abs(kg - rg) > rtol * abs(rg):
             raise AssertionError(f"step {i + 1}: {name} loss/grad norm {kl}/{kg} !="
                                  f" {ref_name} {rl}/{rg}")
     worst = max(float((kp[k] - rp[k]).norm() / rp[k].norm()) for k in rp)
@@ -3823,6 +3862,469 @@ def phase_serve_mesh(card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 15: mixture-of-experts training ---------------------------------------
+
+# The MoE example's command line (examples/moe-train.dstack.yml: train
+# --config moe_test --steps 100); moe_test keeps its preset's blockwise
+# attention, seq 2048 and the CLI's batch of 2.
+MOE_EXAMPLE_ARGV = ["--config", "moe_test", "--steps", "100"]
+# Mixtral-8x7B at full width (d_model 4096, d_ff 14336, 32/8 heads, 8
+# experts, top-2, vocab 32000, loss_chunk 512). The one cut is depth, 32 ->
+# 2 layers: at 32 the fp32 TrainState is about 747 GB, at 2 about 50.6 GB.
+MIXTRAL_LAYERS, MIXTRAL_STEPS, MIXTRAL_BATCH, MIXTRAL_SEQ = 2, 5, 2, 4096
+# fp32 runs that differ only in summation order: the kernels against their
+# plain versions, a mesh against meshless.
+MOE_TOL = 1e-5
+# The MoE mesh on one card, as four gloo processes: moe_test in fp32 at
+# seq 256, a global batch of 4, 2 steps.
+MOE_MESH_SHAPES = {"ep4": dict(dp=1, fsdp=1, ep=4, tp=1, sp=1),
+                   "dp2xep2": dict(dp=2, fsdp=1, ep=2, tp=1, sp=1)}
+MOE_MESH_RUN = dict(config="moe_test", layers=2, overrides=dict(dtype="float32"), batch=4,
+                    seq=256, steps=2, seed=7)
+# With four cards: Mixtral width at 2 layers over NCCL, --ep 4.
+MOE_CARDS_RUN = dict(config="mixtral_8x7b", layers=MIXTRAL_LAYERS,
+                     overrides=dict(attn_impl="flash"), batch=4, seq=MIXTRAL_SEQ, steps=3, seed=7)
+MOE_REGIONS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+# GEMM kernels by name: cuBLAS's nvjet and xmma kernels, CUTLASS's; the fp32
+# ones (no TF32: set_reference_matmul_precision) by their f32 / sgemm names.
+GEMM_KERNELS = ("gemm", "xmma", "cutlass", "nvjet")
+FP32_GEMM_KERNELS = ("f32f32_f32f32", "sgemm")
+
+
+def moe_config(name: str, layers: int, **overrides):
+    """An MoE preset at ``layers`` layers (the phases' one cut), with
+    ``overrides``."""
+    import dataclasses
+
+    from dstack_tpu_torch.workloads.moe import MOE_PRESETS
+
+    return dataclasses.replace(MOE_PRESETS[name], n_layers=layers, **overrides)
+
+
+class drop_counter:
+    """While active, counts the routing's (token, expert) claims and those
+    kept within capacity, by wrapping ``moe._route``; the counts stay on the
+    device until ``rate`` reads them."""
+
+    def __enter__(self):
+        from dstack_tpu_torch.workloads import moe
+
+        self.inner, self.kept, self.claims = moe._route, [], 0
+
+        def counting(logits, top_k, capacity):
+            combine, dispatch, balance = self.inner(logits, top_k, capacity)
+            self.kept.append(dispatch.sum())
+            self.claims += logits.shape[0] * logits.shape[1] * top_k
+            return combine, dispatch, balance
+
+        moe._route = counting
+        return self
+
+    def __exit__(self, *exc):
+        from dstack_tpu_torch.workloads import moe
+
+        moe._route = self.inner
+
+    def rate(self) -> float:
+        import torch
+
+        return 1.0 - float(torch.stack(self.kept).sum()) / self.claims
+
+
+def profile_moe_step(card: str, steps: int, readings: dict):
+    """An on_step hook for train.train that runs torch.profiler over the
+    last of ``steps`` steps: the device busy share, the device time of the
+    MoE regions (``moe.py``'s record_function ranges: routing, the dispatch
+    einsum and its exchange, the expert GEMMs, the combine einsum; forward
+    and its recompute under remat, the backward is not in the ranges), the
+    flash kernels, all GEMM kernels, and the top kernels, into
+    ``readings``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step: int, loss: float) -> None:
+        if step == steps - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            clock["t0"] = time.monotonic()
+        elif step == steps:
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - clock["t0"]) * 1e3
+            prof.stop()
+            events = prof.key_averages()
+            kernels = device_kernels(events)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3 or float("nan")
+
+            def kernel_ms(match) -> float:
+                return sum(e.self_device_time_total for e in kernels if match(e.key)) / 1e3
+
+            def host_ms(key: str) -> float:
+                # A host row's device time: the kernels launched under it.
+                return sum(e.device_time_total for e in events if e.key == key
+                           and not str(e.device_type).endswith("CUDA")) / 1e3
+
+            regions = {name: host_ms(name) for name in MOE_REGIONS}
+            readings.update(
+                wall_ms=wall_ms, busy_ms=busy, regions=regions,
+                flash_ms=kernel_ms(lambda k: "flash_" in k),
+                gemm_ms=kernel_ms(lambda k: any(s in k.lower() for s in GEMM_KERNELS)),
+                fp32_gemm_ms=kernel_ms(lambda k: any(s in k.lower() for s in FP32_GEMM_KERNELS)),
+                copy_ms=kernel_ms(lambda k: "copy_kernel" in k),
+                optimizer_ms=kernel_ms(lambda k: "multi_tensor_apply" in k),
+                bmm_backward_ms=host_ms("BmmBackward0"))
+            log(f"profile moe step (mixtral width, {MIXTRAL_LAYERS} layers): wall {wall_ms:.2f}"
+                f" ms, device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%); of busy: flash"
+                f" kernels {readings['flash_ms']:.2f} ms, GEMM kernels {readings['gemm_ms']:.2f}"
+                f" ms ({100 * readings['gemm_ms'] / busy:.1f}%), of them fp32 GEMMs (the fp32"
+                f" lm_head products and the router's) {readings['fp32_gemm_ms']:.2f} ms, dtype"
+                f" copies {readings['copy_ms']:.2f} ms, the optimizer's foreach kernels"
+                f" {readings['optimizer_ms']:.2f} ms [{card}]")
+            log("  MoE regions, forward and its remat recompute (device ms): " + ", ".join(
+                f"{name} {ms:.2f}" for name, ms in regions.items())
+                + f"; the backward's batched products (BmmBackward0: the experts' and the"
+                f" einsums') {readings['bmm_backward_ms']:.2f} ms")
+            for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+                ms = e.self_device_time_total / 1e3
+                log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+    return on_step
+
+
+def moe_batches(vocab: int, batch: int, seq: int, steps: int, seed: int) -> list:
+    """``steps`` seeded global batches (numpy tokens, targets)."""
+    from dstack_tpu_torch.workloads import data
+
+    return [b for _, b in zip(range(steps), data.synthetic_batches(vocab, batch, seq, seed=seed))]
+
+
+def moe_steps(cfg, seed: int, batches: list, device, mesh=None) -> dict:
+    """Steps of the MoE train step from ``init_moe_params`` of ``seed``
+    (this rank's pieces under an MoE ``mesh``) on the global ``batches``
+    (this rank's rows): each step's loss, grad norm and wall time, and the
+    peak memory."""
+    import torch
+
+    from dstack_tpu_torch.workloads import data, moe, sharding, train
+
+    optimizer = train.make_optimizer()
+    params = moe.init_moe_params(cfg, torch.Generator(device=device).manual_seed(seed), device,
+                                 mesh=mesh)
+    state = moe.init_moe_train_state(cfg, optimizer, params=params)
+    step = moe.make_moe_train_step(cfg, optimizer, mesh)
+    axes = sharding.MOE_DATA_AXES
+    losses, norms, times = [], [], []
+    for tokens, targets in batches:
+        if mesh is not None:
+            rows = data.rank_rows(tokens.shape[0], 1, mesh.index(axes), mesh.axis_size(axes))
+            tokens, targets = tokens[rows], targets[rows]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step(state, torch.from_numpy(tokens).to(device),
+                        torch.from_numpy(targets).to(device))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        times.append(time.perf_counter() - t0)
+    return dict(losses=losses, norms=norms, step_s=times,
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+
+
+def moe_gloo_probe(device) -> dict:
+    """On every rank of a gloo world, the collectives the MoE mesh step runs
+    on the card's tensors: all-to-all, all-gather, reduce-scatter and
+    all-reduce; raises naming what this torch build lacks."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        x = torch.arange(world, dtype=torch.float32, device=device) + 10 * rank
+        swapped = torch.empty_like(x)
+        dist.all_to_all_single(swapped, x)
+        gathered = torch.empty(world, device=device)
+        dist.all_gather_into_tensor(gathered, torch.full((1,), float(rank), device=device))
+        scattered = torch.empty(1, device=device)
+        dist.reduce_scatter_tensor(scattered, torch.ones(world, device=device))
+        total = torch.full((1,), float(rank), device=device)
+        dist.all_reduce(total)
+        torch.cuda.synchronize(device)
+    except Exception as e:  # noqa: BLE001 - the phase logs it and runs without the mesh
+        raise RuntimeError(f"gloo in torch {torch.__version__} cannot run the MoE mesh's"
+                           f" collectives on CUDA tensors: {type(e).__name__}: {e}") from e
+    want = [float(rank + 10 * r) for r in range(world)]
+    if (swapped.tolist() != want or gathered.tolist() != [float(r) for r in range(world)]
+            or scattered.tolist() != [float(world)]
+            or total.tolist() != [world * (world - 1) / 2]):
+        raise AssertionError(f"gloo on CUDA tensors: all-to-all {swapped.tolist()}, all-gather"
+                             f" {gathered.tolist()}, reduce-scatter {scattered.tolist()},"
+                             f" all-reduce {total.tolist()}")
+    return {"all_to_all": swapped.tolist()}
+
+
+def moe_mesh_child(plan_json: str, report: str) -> None:
+    """One rank of an MoE mesh under torchrun's environment: over gloo with
+    every rank on cuda:0 (four processes sharing one card, after
+    ``moe_gloo_probe``), or over NCCL one card a rank. Runs ``moe_steps``
+    on each mesh of the plan and, with ``time_a2a``, times the dispatch's
+    all-to-all at the plan's shapes; writes the results as JSON."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.workloads import sharding
+    from dstack_tpu_torch.workloads.kernels import collective, platform
+    from dstack_tpu_torch.workloads.moe import expert_capacity
+
+    plan = json.loads(plan_json)
+    platform.set_reference_matmul_precision()
+    if plan["backend"] == "gloo":
+        os.environ["LOCAL_RANK"] = "0"
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]),
+                                timeout=sharding.COLLECTIVE_TIMEOUT)
+    else:
+        device = sharding.init_distributed(torch.device("cuda"))
+    out = {}
+    try:
+        if plan["backend"] == "gloo":
+            try:
+                out["probe"] = moe_gloo_probe(device)
+            except RuntimeError as e:
+                out["probe_error"] = str(e)
+                return
+        run = plan["run"]
+        cfg = moe_config(run["config"], run["layers"], **run["overrides"])
+        batches = moe_batches(cfg.vocab_size, run["batch"], run["seq"], run["steps"], run["seed"])
+        for name, shape in plan["shapes"].items():
+            torch.cuda.reset_peak_memory_stats(device)
+            mesh = sharding.make_moe_mesh(**shape).connect(device)
+            out[name] = moe_steps(cfg, run["seed"], batches, device, mesh)
+            if plan.get("time_a2a"):
+                group = next(c for c in range(min(cfg.router_group, run["seq"]), 0, -1)
+                             if run["seq"] % c == 0)
+                groups = run["batch"] // mesh.axis_size(sharding.MOE_DATA_AXES) * (
+                    run["seq"] // group)
+                x = torch.randn((cfg.n_experts, groups, expert_capacity(cfg, group),
+                                 cfg.d_model), device=device, dtype=torch.bfloat16)
+                out[name]["a2a_ms"] = time_ms(lambda: collective.all_to_all(x, mesh, "ep"))
+                out[name]["a2a_bytes"] = x.numel() * x.element_size()
+    finally:
+        with open(report, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def moe_mixtral(card: str) -> dict:
+    """(b) Mixtral width at 2 layers through train.train: losses finite and
+    falling, exact flash launches, the drop rate, step p50, tokens/s, the
+    phase's own model-FLOPs share, the peak against the reckoned state,
+    and a profiled last step. Returns the flash launches."""
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.config import validate_config
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    cfg = moe_config("mixtral_8x7b", MIXTRAL_LAYERS, attn_impl="flash", remat=True,
+                     remat_policy="full")
+    validate_config(cfg, seq=MIXTRAL_SEQ)
+    losses, readings = [], {}
+    profiler = profile_moe_step(card, MIXTRAL_STEPS, readings)
+
+    def on_step(step, loss):
+        losses.append(loss)
+        profiler(step, loss)
+
+    fresh_peak()
+    flash.reset_launches()
+    with drop_counter() as drops:
+        stats = train.train(cfg, steps=MIXTRAL_STEPS, batch=MIXTRAL_BATCH, seq=MIXTRAL_SEQ,
+                            device=torch.device("cuda"), on_step=on_step)
+    got = dict(flash.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != MIXTRAL_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"mixtral: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mixtral: loss did not fall: {losses}")
+    calls = cfg.n_layers * MIXTRAL_STEPS
+    want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+    if got != want:
+        raise AssertionError(f"mixtral: flash launches {got} != {want}")
+    # The phase's own reckoning: 6 x the parameters a token touches, plus
+    # causal attention's score products, over the step p50, against 989
+    # TFLOP/s bf16 (dense peak of an H100 SXM at 700 W).
+    tokens = MIXTRAL_BATCH * MIXTRAL_SEQ
+    flops = tokens * (6.0 * cfg.active_params()
+                      + 6.0 * cfg.n_layers * MIXTRAL_SEQ * cfg.d_model)
+    p50 = stats["p50_s"]
+    state_gb = cfg.num_params() * 16 / 1e9
+    MEASURED["mixtral"] = dict(losses=losses, p50_s=p50, peak_gb=peak_gb, **readings)
+    log(f"moe (b) mixtral_8x7b width, {cfg.n_layers} of 32 layers ({cfg.num_params() / 1e9:.3f}"
+        f" B params, {cfg.active_params() / 1e9:.3f} B active), flash, remat full, batch"
+        f" {MIXTRAL_BATCH} x {MIXTRAL_SEQ}, {MIXTRAL_STEPS} steps: losses"
+        f" {[round(x, 4) for x in losses]}, compile+first-step {stats['compile_s']:.2f} s,"
+        f" step p50 {p50 * 1e3:.1f} ms, {stats['tokens_per_sec']:.1f} tokens/s, model-FLOPs"
+        f" share {flops / p50 / 989e12:.4f} (this phase's reckoning: 6 x active params + causal"
+        f" attention, of 989 TFLOP/s bf16), token drop rate {drops.rate():.4f} (capacity factor"
+        f" {cfg.capacity_factor}), peak memory {peak_gb:.2f} GB against a reckoned fp32"
+        f" TrainState of {state_gb:.2f} GB, flash launches {got} [{card}]")
+    torch.cuda.empty_cache()
+    return got
+
+
+def moe_identity(card: str) -> None:
+    """(c) fp32 at Mixtral width, 1 layer, seq 1024: 3 steps on the flash
+    kernels against 3 on the blockwise walk (plain PyTorch) from the same
+    parameters and batches, losses and grad norms within MOE_TOL; then one
+    --quant int8 step (fake-quantized experts, int8 attention
+    projections), finite."""
+    import dataclasses
+
+    import torch
+
+    from dstack_tpu_torch.workloads import moe
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    base = moe_config("mixtral_8x7b", 1, dtype="float32", param_dtype="float32")
+    dev = torch.device("cuda")
+    init = moe.init_moe_params(base, torch.Generator(device=dev).manual_seed(3), dev)
+    batches = moe_batches(base.vocab_size, 2, 1024, 3, seed=3)
+    runs = {}
+    for impl in ("flash", "blockwise"):
+        flash.reset_launches()
+        runs[impl] = three_steps(dataclasses.replace(base, attn_impl=impl), init, batches)
+        if (impl == "flash") != (flash.launches["flash_fwd"] > 0):
+            raise AssertionError(f"moe attn_impl={impl}: flash launches {flash.launches}")
+    worst = check_same_training("moe flash", runs["flash"], "moe blockwise", runs["blockwise"],
+                                rtol=MOE_TOL)
+    (fm, _), (bm, _) = runs["flash"], runs["blockwise"]
+    del runs
+    quant, _ = three_steps(dataclasses.replace(base, attn_impl="flash", quant="int8"), init,
+                           batches[:1])
+    if not np.isfinite(quant[0]).all():
+        raise AssertionError(f"moe int8 step: loss and grad norm {quant[0]}")
+    log(f"moe (c) fp32 mixtral width, 1 layer, seq 1024: flash kernels == blockwise over 3"
+        f" steps: losses {[x[0] for x in fm]} vs {[x[0] for x in bm]}, grad norms"
+        f" {[x[1] for x in fm]} vs {[x[1] for x in bm]} (within {MOE_TOL:g}), params"
+        f" {worst:.2e} of norm; one --quant int8 step: loss {quant[0][0]!r}, grad norm"
+        f" {quant[0][1]!r} [{card}]")
+    del init
+    torch.cuda.empty_cache()
+
+
+def phase_moe(card: str) -> dict:
+    """Phase 15: the MoE example's command line and Mixtral width on the
+    card; (a) train.main --config moe_test --steps 100 in a child process;
+    (b) Mixtral width at 2 layers (moe_mixtral); (c) fp32 identity
+    (moe_identity); (d) a crash at step 3 resumed from the step-2
+    checkpoint, steps 3-4 bit-equal to (a); (e) one NCCL rank (--ep 1)
+    bit-equal to (a), four gloo processes sharing the card at ep 4 and dp 2
+    x ep 2 within MOE_TOL of meshless, and with four cards Mixtral width
+    over NCCL at --ep 4. Returns the flash launches of the main paths."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-moe-")
+    try:
+        # (a) the example's command line.
+        example, stdout, _ = run_child("moe-example", "train", MOE_EXAMPLE_ARGV, workdir)
+        ref = example["losses"]
+        losses = [ref[s] for s in range(1, 101)]
+        if not all(np.isfinite(losses)) or not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError(f"moe example: losses {losses}")
+        if "mesh={'dp': 1, 'fsdp': 1, 'ep': 1, 'tp': 1, 'sp': 1}" not in stdout:
+            raise AssertionError(f"moe example: no ep 1 mesh in its output:\n{stdout[-2000:]}")
+        log(f"moe (a) train.main {' '.join(MOE_EXAMPLE_ARGV)} (blockwise, seq 2048, batch 2):"
+            f" losses 1-5 {[round(x, 4) for x in losses[:5]]} ... 96-100"
+            f" {[round(x, 4) for x in losses[-5:]]}, mean of the first 10"
+            f" {np.mean(losses[:10]):.4f}, of the last 10 {np.mean(losses[-10:]):.4f}, step p50"
+            f" {example['stats']['p50_s'] * 1e3:.2f} ms,"
+            f" {example['stats']['tokens_per_sec']:.1f} tokens/s, peak"
+            f" {example['peak_gb']:.2f} GB [{card}]")
+
+        launches = moe_mixtral(card)
+        moe_identity(card)
+
+        # (d) a checkpointed run crashed at step 3 and resumed.
+        ckpt = os.path.join(workdir, "ckpt")
+        argv = ["--config", "moe_test", "--steps", "4", "--checkpoint-every", "2",
+                "--checkpoint-dir", ckpt, "--resume"]
+        crashed, _, _ = run_child("moe-crash", "train", argv, workdir, expect_rc=1,
+                                  env={"DSTACK_TPU_TRAIN_CRASH_AT_STEP": "3"})
+        resumed, out, points = run_child("moe-resume", "train", argv, workdir)
+        if (crashed["losses"] != {s: ref[s] for s in (1, 2, 3)}
+                or resumed["losses"] != {s: ref[s] for s in (3, 4)}
+                or "resumed from checkpoint step 2" not in out):
+            raise AssertionError(f"moe resume: crashed {crashed['losses']}, resumed"
+                                 f" {resumed['losses']}, against {[ref[s] for s in (1, 2, 3, 4)]}")
+        log(f"moe (d) {' '.join(argv[:-3])} ... --resume crashed at step 3 and resumed from the"
+            f" step-2 checkpoint: steps 3-4 {[resumed['losses'][s] for s in (3, 4)]} bit-equal to"
+            f" (a); checkpoints {checkpoint_marks(points, 'moe-resume')} [{card}]")
+
+        # (e) the ep mesh: one NCCL rank.
+        one = run_train_ranks("moe-ep1", ["--config", "moe_test", "--steps", "5", "--ep", "1"], 1,
+                              workdir, timeout=300)[0][0]
+        if one["losses"] != {s: ref[s] for s in range(1, 6)}:
+            raise AssertionError(f"moe --ep 1 on one NCCL rank: losses {one['losses']} against"
+                                 f" {[ref[s] for s in range(1, 6)]}")
+        log(f"moe (e) --ep 1 on one NCCL rank under torchrun's environment: losses 1-5"
+            f" bit-equal to (a) [{card}]")
+
+        # Four processes sharing the card over gloo.
+        cfg = moe_config(MOE_MESH_RUN["config"], MOE_MESH_RUN["layers"],
+                         **MOE_MESH_RUN["overrides"])
+        batches = moe_batches(cfg.vocab_size, MOE_MESH_RUN["batch"], MOE_MESH_RUN["seq"],
+                              MOE_MESH_RUN["steps"], MOE_MESH_RUN["seed"])
+        meshless = moe_steps(cfg, MOE_MESH_RUN["seed"], batches, torch.device("cuda"))
+        plan = dict(backend="gloo", run=MOE_MESH_RUN, shapes=MOE_MESH_SHAPES)
+        code = "import sys, chip_smoke; chip_smoke.moe_mesh_child(*sys.argv[1:])"
+        ranks = run_ranks("moe-mesh-gloo", code, [json.dumps(plan)], 4, workdir, timeout=420)
+        if "probe_error" in ranks[0][0]:
+            log(f"moe mesh on one card: not run ({ranks[0][0]['probe_error']}); the CPU gloo"
+                f" tests (tests/test_torch_moe_mesh.py) carry the check [{card}]")
+        else:
+            for name in MOE_MESH_SHAPES:
+                got = [r[0][name] for r in ranks]
+                gaps = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], meshless["losses"])]
+                if any(g["losses"] != got[0]["losses"] for g in got) or max(gaps) > MOE_TOL:
+                    raise AssertionError(f"moe mesh {name}: losses {[g['losses'] for g in got]}"
+                                         f" against meshless {meshless['losses']}")
+                log(f"moe (e) {name}, four gloo processes on one card, fp32 moe_test seq"
+                    f" {MOE_MESH_RUN['seq']}: losses {got[0]['losses']} against meshless"
+                    f" {meshless['losses']} (relative gaps {[f'{g:.1e}' for g in gaps]}), peak"
+                    f" {max(g['peak_gb'] for g in got):.2f} GB a rank [{card}]")
+
+        # With four cards, Mixtral width over NCCL.
+        cards = torch.cuda.device_count()
+        if cards < 4:
+            log(f"moe multi-card: not run ({cards} card visible) [{card}]")
+            return launches
+        plan = dict(backend="nccl", run=MOE_CARDS_RUN, shapes={"ep4": MOE_MESH_SHAPES["ep4"]},
+                    time_a2a=True)
+        ranks = run_ranks("moe-cards", code, [json.dumps(plan)], 4, workdir, timeout=600)
+        got = [r[0]["ep4"] for r in ranks]
+        if any(g["losses"] != got[0]["losses"] for g in got) or not all(
+                np.isfinite(got[0]["losses"])):
+            raise AssertionError(f"moe on four cards: losses {[g['losses'] for g in got]}")
+        log(f"moe (e) mixtral width, {MIXTRAL_LAYERS} layers, --ep 4 on four cards over NCCL,"
+            f" batch {MOE_CARDS_RUN['batch']} x {MOE_CARDS_RUN['seq']}: losses"
+            f" {got[0]['losses']}, step times {[round(t * 1e3, 1) for t in got[0]['step_s']]} ms,"
+            f" the dispatch all-to-all {got[0]['a2a_ms']:.3f} ms for"
+            f" {got[0]['a2a_bytes'] / 1e6:.1f} MB a rank, peak"
+            f" {max(g['peak_gb'] for g in got):.2f} GB a rank [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3863,6 +4365,8 @@ def main() -> int:
         for name, n in phase_mesh(card).items():
             launches[name] += n
         serve_mesh = phase_serve_mesh(card)
+        for name, n in phase_moe(card).items():
+            launches[name] += n
     finally:
         import shutil
 

@@ -16,14 +16,16 @@ Leaves are keyed by the JAX tree path strings (``jax.tree_util.keystr``):
 ``leaf_entries`` flattens dicts in sorted key order (``['k']``), named
 tuples by field (``.name``) and other tuples and lists by position
 (``[i]``), as JAX flattens dicts, optax's states and tuples. The training
-state's layout in those terms is ``train.state_tree``.
+state's layout in those terms is ``train.state_tree`` (the MoE branch's is
+the reference's ``{"params", "opt"}`` dict).
 
 Meshless, the port writes one whole-array piece per leaf, keyed ``0:n,...``
 (``""`` for a 0-d leaf), exactly as a meshless ``jax.Array``'s one
 addressable shard is keyed. Under a mesh (``sharding.Mesh``) each rank
 writes ``shard-<rank>.npz`` with its local pieces keyed by global index (a
 leaf's layout follows its key and the mesh's kind: ``sharding.spec_of_key``
-of ``sharding.param_specs``, the serve layout on a serve mesh); a piece that
+of ``sharding.param_specs``, the serve layout on a serve mesh, the MoE
+layout, experts split over ep, on an MoE mesh); a piece that
 several ranks hold is written by the first of them only. Rank 0 writes the
 manifest (``process_count`` is the world, ``mesh`` its shape) and every rank
 its own commit marker. Reading takes from every shard file of a step the

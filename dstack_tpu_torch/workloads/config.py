@@ -115,8 +115,10 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
     upcast, as the reference allows off-TPU). ``mesh`` (a
     ``sharding.Mesh``) adds the reference's mesh checks and the port's own
     (``sharding.validate_mesh``); ``batch`` is the microbatch the
-    tp_overlap ring splits. Features the port does not have yet raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    tp_overlap ring splits. An MoE mesh (``sharding.make_moe_mesh``) counts
+    dp x fsdp x ep as its data shards and takes the MoE checks
+    (``sharding.validate_moe_mesh``). Features the port does not have yet
+    raise ``NotImplementedError`` naming their ROADMAP item."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}"
@@ -186,7 +188,16 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
     if mesh is None:
         return
     from dstack_tpu_torch.workloads.kernels.collective import can_fsdp_overlap, can_overlap
-    from dstack_tpu_torch.workloads.sharding import validate_mesh
+    from dstack_tpu_torch.workloads.sharding import (
+        MOE_MESH_AXES,
+        data_axes,
+        validate_mesh,
+        validate_moe_mesh,
+    )
+
+    moe = mesh.axes == MOE_MESH_AXES
+    if moe:
+        validate_moe_mesh(cfg, mesh)
 
     if cfg.fsdp_overlap and not can_fsdp_overlap(mesh, cfg.d_model):
         data = mesh.shape.get("dp", 1) * mesh.shape.get("fsdp", 1)
@@ -196,7 +207,11 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
             f"{cfg.d_model} divisible by it; adjust the mesh or drop "
             f"--fsdp-overlap"
         )
-    if cfg.tp_overlap and tp > 1 and batch and seq and not can_overlap(mesh, batch, seq):
+    if cfg.fsdp_overlap and moe:
+        raise NotImplementedError(
+            "MoE with --fsdp-overlap is not yet ported to PyTorch (ROADMAP item 14)")
+    if cfg.tp_overlap and tp > 1 and batch and seq and not can_overlap(
+            mesh, batch, seq, batch_axes=data_axes(mesh)):
         raise ValueError(
             f"tp_overlap needs the per-device row count (batch x seq "
             f"after dp/fsdp/sp sharding) to split into tp={tp} ring "
@@ -208,4 +223,5 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
             "sequence parallelism (sp > 1, ring attention) is not yet ported to"
             " PyTorch (ROADMAP item 6)"
         )
-    validate_mesh(cfg, mesh)
+    if not moe:
+        validate_mesh(cfg, mesh)

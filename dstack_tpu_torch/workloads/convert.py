@@ -2,7 +2,9 @@
 dtype names a checkpoint's manifest uses.
 
 ``params_from_numpy`` takes a JAX parameter tree as numpy arrays
-(``{k: np.asarray(v)}``): the ``init_params`` tree, or the weight-only serve
+(``{k: np.asarray(v)}``): the ``init_params`` tree, the MoE decoder's
+``init_moe_params`` tree (its ``router`` [L, D, E] and experts [L, E, D, F]
+keep their names and layout, as every leaf does), or the weight-only serve
 layout ``quantize_serve_params`` makes of it. Floating-point weights are
 stored once in the serving dtype: the JAX step functions cast each weight to
 the activation dtype on every use, so casting once at engine build gives the

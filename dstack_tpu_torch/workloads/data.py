@@ -8,7 +8,8 @@ plain numpy and give identical arrays for the same arguments:
   binary of token ids, the packed-corpus format). A single process is host 0
   of 1 unless told otherwise.
 - **The per-rank feed** (``rank_rows``): under a mesh each rank reads the
-  rows of its (dp, fsdp) coordinate, microbatch by microbatch, as the
+  rows of its (dp, fsdp) coordinate, on an MoE mesh of its (dp, fsdp, ep)
+  one (the reference's ``MOE_BATCH``), microbatch by microbatch, as the
   reference's ``make_global_array`` / ``sharded_batches`` place a global
   batch; ranks that differ only in tp or sp read the same rows.
 - **Prefetcher**: a depth-bounded background thread that pulls batches ahead

@@ -14,6 +14,10 @@ package on its own:
 - ``reduce_backward`` (column-parallel, and a leaf every data rank holds
   whole): identity forward; the gradient, which each rank has only for its
   own heads (or its own rows), is all-reduced in the backward pass.
+- ``all_to_all`` (MoE, over ``ep``): the token-to-expert exchange GSPMD
+  inserts between the dispatch einsum's token-sharded input and its
+  expert-sharded output, and back; its backward is the same exchange of the
+  gradient.
 
 The loss every rank computes is the same number, and each rank
 differentiates its own copy: with these three rules every gradient comes
@@ -177,6 +181,41 @@ def reduce_backward(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``axes`` (the input of a
     column-parallel product, or a leaf each rank of the group holds whole)."""
     return _ReduceBackward.apply(x, mesh.group(axes))
+
+
+def _exchange(x: torch.Tensor, axis: _Axis) -> torch.Tensor:
+    """All-to-all over the axis along dim 0: block i of ``x`` (dim 0 cut
+    into the axis' size, in coordinate order) goes to the rank at coordinate
+    i, and block j of the result came from the rank at coordinate j."""
+    n = axis.size
+    blocks = x.unflatten(0, (n, x.shape[0] // n))
+    blocks = (blocks if axis.ordered else blocks[axis.coord_of]).contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=axis.group)
+    if not axis.ordered:
+        out = out[[axis.coord_of.index(c) for c in range(n)]]
+    return out.flatten(0, 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The exchange is a permutation of blocks whose transpose is the
+        # same exchange: rank i's block j went to rank j's block i.
+        return _exchange(g, ctx.axis), None
+
+
+def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Exchange dim-0 blocks of ``x`` over ``axes`` (dim 0 a multiple of the
+    axis size): this rank keeps from each rank of the axis the block at its
+    own coordinate, in coordinate order. Differentiable: the gradient takes
+    the way back."""
+    return _AllToAll.apply(x, _Axis(mesh, axes))
 
 
 def max_over(mesh, axes):

@@ -17,13 +17,16 @@ the collectives GSPMD would insert for the JAX package, written out in
 parallel wo and w_down all-reduced, or the reduce-scatter ring with
 ``cfg.tp_overlap``), a vocab-sharded embedding lookup and a vocab-parallel
 cross-entropy. The attention kernels run unchanged on the local heads.
+The shared pieces take ``batch_axes``, the axes the batch splits over, as
+the JAX package's do: the MoE decoder (``moe.py``) adds ``ep``, over which
+the dense weights are whole, so their gradients are summed over it too.
 """
 
 from __future__ import annotations
 
 import functools
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,19 +61,23 @@ def init_params(
     device: torch.device,
     dtype: Optional[torch.dtype] = None,
     mesh: Optional[sharding.Mesh] = None,
+    shapes: Optional[Dict[str, tuple]] = None,
 ) -> Params:
     """Synthetic weights from ``generator``: normal / sqrt(fan_in) drawn in
     fp32, norms at one, stored in ``dtype`` (default cfg.param_dtype). Drawn
     one layer at a time, so the fp32 draw never holds more than one layer's
-    slice. Under ``mesh`` (a training or a serve mesh, each cut by its own
-    layout, ``sharding.param_specs``) each rank draws the same numbers and
-    keeps its local piece of every leaf, so the pieces of all ranks form
-    exactly the meshless tree of the same generator. The JAX package draws
-    other numbers from the same seed."""
+    slice. Under ``mesh`` (a training, an MoE or a serve mesh, each cut by
+    its own layout, ``sharding.param_specs``) each rank draws the same
+    numbers and keeps its local piece of every leaf, so the pieces of all
+    ranks form exactly the meshless tree of the same generator. ``shapes``
+    (default ``param_shapes(cfg)``) names the leaves: the MoE tree passes
+    its own; a leaf of three dimensions or more is stacked over layers, and
+    fan_in is the second-last dimension (d_model for the embed). The JAX
+    package draws other numbers from the same seed."""
     dtype = dtype or dtype_of(cfg.param_dtype)
     specs = sharding.param_specs(mesh)
     out = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in (shapes or param_shapes(cfg)).items():
         where = (sharding.local_slices(specs[name], shape, mesh)
                  if mesh is not None else tuple(slice(0, n) for n in shape))
         local = tuple(sl.stop - sl.start for sl in where)
@@ -79,7 +86,7 @@ def init_params(
             continue
         fan_in = cfg.d_model if name == "embed" else shape[-2]
         leaf = torch.empty(local, dtype=dtype, device=device)
-        stacked = len(shape) == 3
+        stacked = len(shape) >= 3
         for i in range(shape[0] if stacked else 1):
             draw = torch.randn(shape[1:] if stacked else shape, generator=generator,
                                dtype=torch.float32, device=device)
@@ -154,15 +161,26 @@ def _tp(mesh: Optional[sharding.Mesh]) -> int:
 
 
 def _norm_weight(params: Params, name: str, layer: Optional[int],
-                 mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+                 mesh: Optional[sharding.Mesh],
+                 batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
     """A norm's weight, whole on every rank: its gradient is summed over the
-    data ranks (the tp ranks already agree on it)."""
+    batch axes (the tp ranks already agree on it)."""
     w = params[name] if layer is None else params[name][layer]
-    return w if mesh is None else reduce_backward(w, mesh, DATA_AXES)
+    return w if mesh is None else reduce_backward(w, mesh, batch_axes)
+
+
+def _whole_over_batch(w: torch.Tensor, mesh: sharding.Mesh,
+                      batch_axes: Tuple[str, ...]) -> torch.Tensor:
+    """A weight split over the data axes and whole over the other batch axes
+    (``ep``): its gradient, which each rank there has for its own rows only,
+    is summed over them (the data axes' sum is the gather's)."""
+    extra = tuple(a for a in batch_axes if a not in DATA_AXES)
+    return reduce_backward(w, mesh, extra) if extra else w
 
 
 def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
-            mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+            mesh: Optional[sharding.Mesh],
+            batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
     """The column-parallel projections (wq/wk/wv/w_gate/w_up): ``x`` [B, T, D]
     this rank's rows, ``w`` its [D/data, N/tp] piece. The weight is gathered
     over the data ranks on use, or with cfg.fsdp_overlap its shards ride the
@@ -170,6 +188,7 @@ def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
     the result is this rank's N/tp columns."""
     if mesh is None:
         return dense_proj(x, w, cfg)
+    w = _whole_over_batch(w, mesh, batch_axes)
     if cfg.fsdp_overlap and can_fsdp_overlap(mesh, x.shape[-1]):
         return allgather_matmul(x, w, mesh, matmul=_quant_partial_mm(cfg),
                                 dtype=_gather_dtype(cfg, x.dtype)).to(x.dtype)
@@ -178,7 +197,8 @@ def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
 
 
 def down_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
-              mesh: Optional[sharding.Mesh]) -> torch.Tensor:
+              mesh: Optional[sharding.Mesh],
+              batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
     """The row-parallel projections (wo/w_down): ``x`` [B, T, K/tp] this
     rank's heads or hidden, ``w`` its [K/tp, D/data] piece, gathered over the
     data ranks on use. Under tp the partial products are summed over tp: by
@@ -188,7 +208,8 @@ def down_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
     contraction as GSPMD's do."""
     if mesh is None:
         return dense_proj(x, w, cfg)
-    w = gather_on_use(w, 1, mesh, DATA_AXES, _gather_dtype(cfg, x.dtype))
+    w = gather_on_use(_whole_over_batch(w, mesh, batch_axes), 1, mesh, DATA_AXES,
+                      _gather_dtype(cfg, x.dtype))
     if _tp(mesh) == 1:
         return dense_proj(x, w, cfg)
     rows = x.shape[0] * mesh.axis_size(DATA_AXES)
@@ -200,24 +221,30 @@ def down_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
 
 def attention_sublayer(
     x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor,
-    mesh: Optional[sharding.Mesh] = None,
+    mesh: Optional[sharding.Mesh] = None, batch_axes: Tuple[str, ...] = DATA_AXES,
 ) -> torch.Tensor:
     """Pre-norm attention + residual on ``attention_core(cfg.attn_impl)``;
     under tp on this rank's H/tp query and Kh/tp KV heads (whole GQA
-    groups)."""
+    groups). ``batch_axes``: the mesh axes the batch splits over (the MoE
+    decoder adds ``ep``)."""
     b, t = x.shape[0], x.shape[1]
     heads, kv_heads = cfg.n_heads // _tp(mesh), cfg.n_kv_heads // _tp(mesh)
-    h_in = _rms_norm(x, _norm_weight(params, "attn_norm", layer, mesh), cfg.norm_eps)
+    h_in = _rms_norm(x, _norm_weight(params, "attn_norm", layer, mesh, batch_axes),
+                     cfg.norm_eps)
     if _tp(mesh) > 1:
         h_in = reduce_backward(h_in, mesh, "tp")
-    q = up_proj(h_in, params["wq"][layer], cfg, mesh).reshape(b, t, heads, cfg.head_dim)
-    k = up_proj(h_in, params["wk"][layer], cfg, mesh).reshape(b, t, kv_heads, cfg.head_dim)
-    v = up_proj(h_in, params["wv"][layer], cfg, mesh).reshape(b, t, kv_heads, cfg.head_dim)
+
+    def proj(name):
+        return up_proj(h_in, params[name][layer], cfg, mesh, batch_axes)
+
+    q = proj("wq").reshape(b, t, heads, cfg.head_dim)
+    k = proj("wk").reshape(b, t, kv_heads, cfg.head_dim)
+    v = proj("wv").reshape(b, t, kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     o = attention_core(q, k, v, cfg.attn_impl, mesh, window=cfg.attn_window)
     o = o.to(x.dtype).reshape(b, t, heads * cfg.head_dim)
-    return x + down_proj(o, params["wo"][layer], cfg, mesh)
+    return x + down_proj(o, params["wo"][layer], cfg, mesh, batch_axes)
 
 
 def transformer_block(
@@ -255,14 +282,15 @@ def remat_policy_of(cfg: LlamaConfig) -> Callable:
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh: Optional[sharding.Mesh],
-                  adt: torch.dtype) -> torch.Tensor:
+                  adt: torch.dtype, batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
     """Token embedding lookup. Under a mesh the table's d_model is gathered
     over the data ranks on use; under tp its vocab is sharded, so each rank
     gathers the rows it owns, zeros the rest, and the partial rows are
     summed over tp (the reference's shard_map'd lookup)."""
     if mesh is None:
         return embed.to(adt)[tokens]
-    table = gather_on_use(embed, 1, mesh, DATA_AXES, adt)  # [V/tp, D]
+    table = gather_on_use(_whole_over_batch(embed, mesh, batch_axes), 1, mesh, DATA_AXES,
+                          adt)  # [V/tp, D]
     if _tp(mesh) == 1:
         return table[tokens]
     v_loc = table.shape[0]
@@ -309,12 +337,14 @@ def forward(
 
 
 def _lm_head(params: Params, cfg: LlamaConfig, mesh: Optional[sharding.Mesh],
-             dtype: Optional[torch.dtype]) -> torch.Tensor:
+             dtype: Optional[torch.dtype], batch_axes: Tuple[str, ...] = DATA_AXES
+             ) -> torch.Tensor:
     """The lm_head in ``dtype`` (None: its own), [D, V/tp] under a mesh:
     gathered over the data ranks on use."""
     if mesh is None:
         return params["lm_head"] if dtype is None else params["lm_head"].to(dtype)
-    return gather_on_use(params["lm_head"], 0, mesh, DATA_AXES, dtype)
+    return gather_on_use(_whole_over_batch(params["lm_head"], mesh, batch_axes), 0, mesh,
+                         DATA_AXES, dtype)
 
 
 def _tp_input(x: torch.Tensor, mesh: Optional[sharding.Mesh]) -> torch.Tensor:
@@ -439,9 +469,17 @@ def loss_fn(
     else:
         lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt)
         total, count = _nll_sum(_logits(hidden, lm_head, cfg.quant), targets, tp_mesh)
+    return global_mean(total, count, mesh)
+
+
+def global_mean(total: torch.Tensor, count: torch.Tensor, mesh: sharding.Mesh,
+                batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
+    """The mean over the global batch from each rank's (sum, count) of its
+    rows: both summed over ``batch_axes``; the gradient reaches each rank's
+    own sum."""
     count = count.clone()
-    dist.all_reduce(count, group=mesh.group(DATA_AXES))
-    return reduce_forward(total, mesh, DATA_AXES) / torch.clamp(count, min=1)
+    dist.all_reduce(count, group=mesh.group(batch_axes))
+    return reduce_forward(total, mesh, batch_axes) / torch.clamp(count, min=1)
 
 
 # ---------------------------------------------------------------------------

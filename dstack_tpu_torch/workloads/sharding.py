@@ -10,6 +10,13 @@ with one process per card. The training mesh's axes, as the JAX package's:
 - ``tp``   tensor parallel (attention heads, the MLP hidden and the vocab);
 - ``sp``   sequence parallel (ring attention; not ported, ROADMAP item 6).
 
+The MoE mesh (``make_moe_mesh``, the JAX package's ``moe.py:90-132``) adds
+``ep`` between them, (dp, fsdp, ep, tp, sp): the experts split over ``ep``
+on their E axis, and outside the experts ``ep`` is one more data axis, so
+the batch splits over (dp, fsdp, ep) (``MOE_DATA_AXES``) while the dense
+weights keep their (dp, fsdp) shards and are whole over ``ep``
+(``MOE_PARAM_SPECS``).
+
 The serve mesh (``make_serve_mesh``) has two: ``dd``, replicas that hold
 the same weights and run the same steps, and ``tp``, the Megatron split of
 the projections, the attention heads and the KV pages
@@ -44,7 +51,10 @@ from dstack_tpu_torch.workloads import quantize as quant_lib
 
 MESH_AXES = ("dp", "fsdp", "tp", "sp")
 SERVE_MESH_AXES = ("dd", "tp")
+MOE_MESH_AXES = ("dp", "fsdp", "ep", "tp", "sp")
 DATA_AXES = ("dp", "fsdp")
+# The axes an MoE batch splits over (the JAX package's MOE_BATCH).
+MOE_DATA_AXES = ("dp", "fsdp", "ep")
 
 # A spec has one entry a dimension: None (whole), an axis, or a tuple of
 # axes split row-major, as a jax PartitionSpec; missing trailing entries are
@@ -151,11 +161,14 @@ class Mesh:
         from torch.distributed.device_mesh import DeviceMesh
 
         self.device_mesh = DeviceMesh(self.device.type, torch.from_numpy(self.ranks),
-                                      mesh_dim_names=MESH_AXES)
-        for axis in MESH_AXES:
+                                      mesh_dim_names=self.axes)
+        for axis in self.axes:
             self._groups[(axis,)] = self.device_mesh.get_group(axis)
         self._groups[DATA_AXES] = self.device_mesh[DATA_AXES]._flatten("data").get_group()
-        self._groups[MESH_AXES] = dist.group.WORLD
+        if self.axes == MOE_MESH_AXES:
+            self._groups[MOE_DATA_AXES] = self.device_mesh[MOE_DATA_AXES]._flatten(
+                "batch").get_group()
+        self._groups[self.axes] = dist.group.WORLD
         return self
 
     def _connect_serve(self) -> "Mesh":
@@ -174,7 +187,8 @@ class Mesh:
         return self
 
     def group(self, axes):
-        """The process group of ``axes`` (one axis, the data axes, or all)."""
+        """The process group of ``axes`` (one axis, the data axes, on an MoE
+        mesh the batch axes, or all)."""
         return self._groups[_axes(axes)]
 
     def host_group(self):
@@ -277,8 +291,10 @@ def holds_first_copy(spec: Spec, mesh: Mesh, rank: Optional[int] = None) -> bool
 
 def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh,
                  rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """``rank``'s local piece of every leaf (views of the global tensors)."""
-    return {k: v[local_slices(PARAM_SPECS[k], v.shape, mesh, rank)] for k, v in params.items()}
+    """``rank``'s local piece of every leaf (views of the global tensors),
+    cut by the mesh's own layout (``param_specs``)."""
+    specs = param_specs(mesh)
+    return {k: v[local_slices(specs[k], v.shape, mesh, rank)] for k, v in params.items()}
 
 
 _PARAM_KEY = re.compile(r"\['(\w+)'\]$")
@@ -294,10 +310,19 @@ def spec_of_key(key: str, specs: Dict[str, Spec] = PARAM_SPECS) -> Spec:
 
 def param_specs(mesh: Optional[Mesh]) -> Dict[str, Spec]:
     """The parameter layout of a mesh: SERVE_PARAM_SPECS on a serve mesh,
-    PARAM_SPECS on a training mesh (and without one)."""
+    MOE_PARAM_SPECS on an MoE mesh, PARAM_SPECS on a training mesh (and
+    without one)."""
     if mesh is not None and mesh.axes == SERVE_MESH_AXES:
         return SERVE_PARAM_SPECS
+    if mesh is not None and mesh.axes == MOE_MESH_AXES:
+        return MOE_PARAM_SPECS
     return PARAM_SPECS
+
+
+def data_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
+    """The axes a training mesh splits the batch over: (dp, fsdp, ep) on an
+    MoE mesh, (dp, fsdp) otherwise."""
+    return MOE_DATA_AXES if mesh is not None and mesh.axes == MOE_MESH_AXES else DATA_AXES
 
 
 def validate_mesh(cfg, mesh: Mesh) -> None:
@@ -313,6 +338,64 @@ def validate_mesh(cfg, mesh: Mesh) -> None:
             raise ValueError(
                 f"mesh {mesh.describe()}: {name}={dim} does not split into {n} equal"
                 f" shards; the port shards whole blocks and whole heads"
+            )
+
+
+# -- the MoE mesh (the JAX package's moe.py:90-132) ----------------------------
+#
+# Experts [L, E, D, F] split E over ep and D over (dp, fsdp) (gathered on
+# use, as every dense weight); their F would split over tp. The router
+# [L, D, E] is whole everywhere. The dense leaves keep PARAM_SPECS' layout,
+# so they are whole over ep, which holds other rows of the batch.
+
+MOE_PARAM_SPECS: Dict[str, Spec] = {
+    **PARAM_SPECS,
+    "router": (None, None, None),                # [L, D, E]
+    "w_gate": (None, "ep", DATA_AXES, "tp"),     # [L, E, D, F]
+    "w_up": (None, "ep", DATA_AXES, "tp"),
+    "w_down": (None, "ep", "tp", DATA_AXES),     # [L, E, F, D]
+}
+
+
+def make_moe_mesh(dp: int = 1, fsdp: int = 1, ep: Optional[int] = None, tp: int = 1,
+                  sp: int = 1, world: Optional[int] = None,
+                  ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A (dp, fsdp, ep, tp, sp) mesh over ``ranks`` (default: ranks
+    0..world-1, world defaulting to the process group's size, or 1 without
+    one); ep=None absorbs the remaining ranks. The errors are the JAX
+    package's, a rank standing for a device."""
+    if ranks is None:
+        if world is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = range(world)
+    ranks = list(ranks)
+    n = len(ranks)
+    if ep is None:
+        denom = dp * fsdp * tp * sp
+        if n % denom != 0:
+            raise ValueError(f"{n} devices not divisible by dp*fsdp*tp*sp={denom}")
+        ep = n // denom
+    if dp * fsdp * ep * tp * sp != n:
+        raise ValueError(f"mesh {dp}x{fsdp}x{ep}x{tp}x{sp} != {n} devices")
+    return Mesh(dict(dp=dp, fsdp=fsdp, ep=ep, tp=tp, sp=sp), np.array(ranks), MOE_MESH_AXES)
+
+
+def validate_moe_mesh(cfg, mesh: Mesh) -> None:
+    """The port's conditions on an MoE mesh: tp and sp are not ported for
+    MoE (the JAX package reaches them only through its library, never its
+    CLI), the experts split into whole blocks over ep, and every dense leaf
+    into whole blocks as on a training mesh."""
+    for axis in ("tp", "sp"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"MoE with {axis}={mesh.shape[axis]} is not yet ported to PyTorch"
+                f" (ROADMAP item 14)")
+    ep, data = mesh.shape["ep"], mesh.axis_size(DATA_AXES)
+    for name, dim, n in (("n_experts", cfg.n_experts, ep), ("d_model", cfg.d_model, data)):
+        if dim % n:
+            raise ValueError(
+                f"mesh {mesh.describe()}: {name}={dim} does not split into {n} equal"
+                f" shards; the port shards whole blocks"
             )
 
 

@@ -14,7 +14,9 @@ Under ``torchrun`` (one process per card) ``main`` builds the reference's
 of the parameters and of the optimizer's moments, and reads the rows of its
 data coordinate; the backward pass leaves each rank the gradient of its own
 pieces, already summed over the data ranks (``kernels/collective.py``), so
-clipping and AdamW run on the local pieces with the global norm.
+clipping and AdamW run on the local pieces with the global norm. An MoE
+preset (``moe.MOE_PRESETS``) takes the reference's MoE branch instead: the
+(dp, fsdp, ep, tp, sp) mesh with the experts over ep (``_moe_main``).
 
 Checkpoints are the JAX package's (``checkpoint.py``): ``state_tree`` lays
 a state out as JAX's ``TrainState`` (or ``DraftTrainState``) flattens, with
@@ -39,13 +41,9 @@ from dstack_tpu_torch.workloads import sharding
 from dstack_tpu_torch.workloads import telemetry as telemetry_lib
 from dstack_tpu_torch.workloads.config import LlamaConfig
 from dstack_tpu_torch.workloads.kernels import platform
-from dstack_tpu_torch.workloads.sharding import DATA_AXES, MESH_AXES
+from dstack_tpu_torch.workloads.sharding import DATA_AXES
 
 Params = Dict[str, torch.Tensor]
-
-# The JAX package's MoE presets: named here so a command line that asks for
-# one gets "not yet ported" rather than an unknown-choice error.
-MOE_PRESET_NAMES = ("mixtral_8x7b", "moe_test")
 
 # Dense bf16 tensor-core peak of one H100 SXM for MFU (NVIDIA H100 data
 # sheet: 989 TFLOP/s without sparsity).
@@ -173,6 +171,12 @@ class TrainState:
     step: int = 0
 
 
+class MoeTrainState(TrainState):
+    """The MoE branch's state (``moe.init_moe_train_state``). Its checkpoint
+    layout is the reference's ``{"params": ..., "opt": ...}`` dict, which
+    has no step leaf: the step is the optimizer's count."""
+
+
 def init_train_state(
     cfg: LlamaConfig,
     optimizer: OptimizerConfig,
@@ -252,7 +256,7 @@ def global_norm(grads: Iterable[torch.Tensor], mesh: Optional[sharding.Mesh] = N
     if mesh is not None:
         sq = torch.stack([s if sharding.holds_first_copy(spec, mesh) else torch.zeros_like(s)
                           for s, spec in zip(sq, specs)])
-        dist.all_reduce(sq, group=mesh.group(MESH_AXES))
+        dist.all_reduce(sq, group=mesh.group(mesh.axes))
         sq = list(sq)
     return torch.sqrt(sum(sq))
 
@@ -269,29 +273,32 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
 
 
 def make_train_step(cfg: LlamaConfig, optimizer: OptimizerConfig,
-                    mesh: Optional[sharding.Mesh] = None, grad_accum: int = 1):
+                    mesh: Optional[sharding.Mesh] = None, grad_accum: int = 1,
+                    loss: Callable = model_lib.loss_fn):
     """Returns (state, tokens, targets) -> (state, metrics): one optimizer
-    update, over ``grad_accum`` microbatches. metrics holds 0-dim tensors
+    update of ``loss`` (the dense model's; the MoE step passes its own),
+    over ``grad_accum`` microbatches. metrics holds 0-dim tensors
     (``loss``, the unclipped ``grad_norm``) and the new ``step``. Under
     ``mesh`` the state holds this rank's pieces and tokens/targets its rows
-    (``data.rank_rows``: microbatch by microbatch); the loss and the norm
-    are the global batch's."""
+    (``data.rank_rows``: microbatch by microbatch, over the mesh's data
+    axes); the loss and the norm are the global batch's."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    data_shards = mesh.axis_size(DATA_AXES) if mesh is not None else 1
+    axes = sharding.data_axes(mesh)
+    data_shards = mesh.axis_size(axes) if mesh is not None else 1
 
     def step(state: TrainState, tokens: torch.Tensor, targets: torch.Tensor):
-        check_microbatch(tokens.shape[0] * data_shards, grad_accum, data_shards)
+        check_microbatch(tokens.shape[0] * data_shards, grad_accum, data_shards,
+                         axes_label="*".join(axes))
         if grad_accum == 1:
-            loss, grads = value_and_grad(model_lib.loss_fn, state.params, tokens, targets,
-                                         cfg=cfg, mesh=mesh)
+            value, grads = value_and_grad(loss, state.params, tokens, targets, cfg=cfg,
+                                          mesh=mesh)
         else:
-            loss, grads = accumulate_grads(
-                model_lib.loss_fn, state.params, tokens, targets, grad_accum, cfg=cfg, mesh=mesh
-            )
+            value, grads = accumulate_grads(loss, state.params, tokens, targets, grad_accum,
+                                            cfg=cfg, mesh=mesh)
         grad_norm = _apply_update(state.opt, state.params, grads, optimizer.grad_clip, mesh)
         state.step += 1
-        return state, {"loss": loss, "grad_norm": grad_norm, "step": state.step}
+        return state, {"loss": value, "grad_norm": grad_norm, "step": state.step}
 
     return step
 
@@ -300,7 +307,7 @@ def _apply_update(opt: torch.optim.Optimizer, trained: Params, grads: Params,
                   grad_clip: float, mesh: Optional[sharding.Mesh] = None) -> torch.Tensor:
     """clip_by_global_norm then the AdamW update of ``trained`` in place;
     returns the unclipped global norm."""
-    specs = [sharding.PARAM_SPECS[k] for k in grads] if mesh is not None else None
+    specs = [sharding.param_specs(mesh)[k] for k in grads] if mesh is not None else None
     grad_norm = global_norm(grads.values(), mesh, specs)
     clip_by_global_norm_(grads.values(), grad_clip, grad_norm)
     for name, p in trained.items():
@@ -383,9 +390,11 @@ def _trained(state) -> Params:
 def state_tree(state):
     """``state`` laid out as JAX's TrainState (or DraftTrainState) flattens:
     ``.params[...]`` (``.draft[...]``), ``.opt_state[1][0].count`` /
-    ``.mu[...]`` / ``.nu[...]`` and ``.step``. The tensors are the state's
-    own (no copy); the step counts are new 0-d int32 tensors. The
-    optimizer keeps a step count per parameter; all must agree."""
+    ``.mu[...]`` / ``.nu[...]`` and ``.step``; an ``MoeTrainState`` as the
+    reference's MoE branch saves its dict: ``['opt'][1][0].count`` / ...
+    and ``['params'][...]``. The tensors are the state's own (no copy); the
+    step counts are new 0-d int32 tensors. The optimizer keeps a step count
+    per parameter; all must agree."""
     trained = _trained(state)
     mu_key, nu_key = _moment_keys(state.opt)
     counts = {int(state.opt.state[p]["step"]) for p in trained.values()}
@@ -397,6 +406,8 @@ def state_tree(state):
         nu={k: state.opt.state[p][nu_key] for k, p in trained.items()},
     )
     opt_state = (EmptyState(), (adam, EmptyState(), EmptyState()))
+    if isinstance(state, MoeTrainState):
+        return {"params": state.params, "opt": opt_state}
     step = torch.tensor(state.step, dtype=torch.int32)
     if isinstance(state, DraftTrainState):
         return DraftStateTree(state.params, state.draft, opt_state, step)
@@ -408,7 +419,9 @@ def load_state_tree(state, tree) -> None:
     """Copy a restored ``state_tree`` layout into ``state`` in place: the
     parameters, the moments, every parameter's optimizer step count (a
     float tensor for torch's AdamW, whose bias correction reads it) and the
-    step."""
+    step (an MoE state's is the count)."""
+    if isinstance(state, MoeTrainState):
+        tree = TrainStateTree(tree["params"], tree["opt"], None)
     for name in ("params", "draft") if isinstance(state, DraftTrainState) else ("params",):
         for k, t in getattr(state, name).items():
             t.copy_(getattr(tree, name)[k])
@@ -420,7 +433,7 @@ def load_state_tree(state, tree) -> None:
         st[mu_key].copy_(adam.mu[k])
         st[nu_key].copy_(adam.nu[k])
         st["step"] = count if isinstance(state.opt, AdamWBf16Mu) else torch.tensor(float(count))
-    state.step = int(tree.step)
+    state.step = count if tree.step is None else int(tree.step)
 
 
 def _step_time_stats(times) -> Dict[str, float]:
@@ -454,7 +467,7 @@ def make_collective_fence(mesh: Optional[sharding.Mesh]):
     if mesh is None or mesh.size <= 1:
         return None
     x = torch.ones(1, device=mesh.device)
-    group = mesh.group(MESH_AXES)
+    group = mesh.group(mesh.axes)
 
     def fence() -> float:
         t0 = time.perf_counter()
@@ -666,7 +679,9 @@ def train(
     """Train ``cfg`` for ``steps`` updates on ``device`` from synthetic
     parameters and the input pipeline; returns the timed loop's stats.
     Under a connected ``mesh`` this process is one rank of it: its pieces of
-    the state, its rows of each global ``batch``, its checkpoint shard.
+    the state, its rows of each global ``batch``, its checkpoint shard. An
+    ``moe.MoeConfig`` trains the MoE decoder (on an MoE mesh, if any), with
+    no FLOP count (the reference reports no MFU for MoE).
 
     With ``ckpt``: ``resume`` restores the latest complete checkpoint and
     the feed seeks past the batches it consumed; a save every
@@ -674,22 +689,30 @@ def train(
     when ``checkpoint_every`` is set. ``on_step(step, loss)`` runs before the
     checkpoint hook. The manager is closed (its last write drained) on the
     way out, an injected crash included."""
+    from dstack_tpu_torch.workloads import moe as moe_lib
+
     if telemetry is None:
         telemetry = telemetry_lib.get_emitter()
     try:
         optimizer = make_optimizer(mu_dtype=mu_dtype)
-        state = init_train_state(cfg, optimizer, device, mesh=mesh)
+        is_moe = isinstance(cfg, moe_lib.MoeConfig)
+        if is_moe:
+            state = moe_lib.init_moe_train_state(cfg, optimizer, device, mesh=mesh)
+        else:
+            state = init_train_state(cfg, optimizer, device, mesh=mesh)
         state, start_step = maybe_resume(ckpt, resume, state, telemetry)
-        step_fn = make_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
+        step_fn = (moe_lib.make_moe_train_step if is_moe else make_train_step)(
+            cfg, optimizer, mesh, grad_accum=grad_accum)
+        axes = sharding.data_axes(mesh)
         shards = {} if mesh is None else dict(
-            data_index=mesh.index(DATA_AXES), data_shards=mesh.axis_size(DATA_AXES),
+            data_index=mesh.index(axes), data_shards=mesh.axis_size(axes),
             grad_accum=grad_accum)
         feed = data_lib.input_pipeline(
             batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
             start_batch=start_step, **shards,
         )
         mesh_shape = dict(mesh.shape) if mesh is not None else None
-        flops_per_step = cfg.flops_per_token(seq) * batch * seq
+        flops_per_step = 0.0 if is_moe else cfg.flops_per_token(seq) * batch * seq
         box = {"state": state}
         feed_wait = {"s": 0.0}
 
@@ -834,7 +857,6 @@ def _unported(args) -> Optional[str]:
     """The first flag of the JAX entry point that the port does not have
     yet, with its ROADMAP item."""
     checks = (
-        (args.config in MOE_PRESET_NAMES or args.ep, f"MoE config {args.config} / --ep", 9),
         (args.draft_head and (args.tp > 1 or args.tp_overlap or args.fsdp_overlap),
          "--draft-head on a mesh (--tp/--tp-overlap/--fsdp-overlap)", 6),
         (args.autotune, "--autotune", 10),
@@ -870,25 +892,95 @@ def build_mesh(args, device: torch.device) -> Tuple[sharding.Mesh, Optional[shar
     return layout, (layout.connect(rank_device) if rank_device is not None else None)
 
 
+def _moe_main(args, device: torch.device) -> Dict[str, float]:
+    """The reference's MoE branch (its ``_moe_main``): experts over ep, the
+    rest of the ranks on dp. ``--ep`` defaults to the largest axis that
+    divides both the rank count and the expert count (their gcd). A lone
+    process is the reference's one-device mesh: validated, run meshless."""
+    import math
+
+    from dstack_tpu_torch.workloads.config import validate_config
+    from dstack_tpu_torch.workloads.moe import MOE_PRESETS
+
+    if args.multislice:
+        raise SystemExit("--multislice is not supported for MoE configs yet")
+    if args.tp > 1 or args.tp_overlap:
+        raise SystemExit(
+            "--tp/--tp-overlap are not supported for MoE configs (the mesh "
+            "is dp×ep; expert matmuls have no tp-sharded contraction to "
+            "overlap) — drop the flags or pick a dense config"
+        )
+    cfg = MOE_PRESETS[args.config]
+    if args.remat_policy:
+        cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
+    cfg = apply_perf_overrides(cfg, args)
+    model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
+    rank_device = sharding.init_distributed(device)
+    n = dist.get_world_size() if rank_device is not None else 1
+    ep = args.ep or math.gcd(n, cfg.n_experts)
+    if n % ep != 0:
+        raise SystemExit(f"{n} devices not divisible by ep={ep}")
+    if cfg.n_experts % ep != 0:
+        raise SystemExit(
+            f"n_experts={cfg.n_experts} not divisible by ep={ep};"
+            f" pick --ep from the divisors of both"
+        )
+    layout = sharding.make_moe_mesh(dp=n // ep, fsdp=1, ep=ep, tp=1, sp=1, world=n)
+    mesh = layout.connect(rank_device) if rank_device is not None else None
+    device = rank_device or device
+    data_shards = layout.axis_size(sharding.MOE_DATA_AXES)
+    # 2 rows per data shard per microbatch by default.
+    batch = args.batch or 2 * data_shards * args.grad_accum
+    seq = args.seq or cfg.max_seq_len
+    validate_config(cfg, seq=seq, device=device, mesh=layout,
+                    batch=batch // max(args.grad_accum, 1))
+    print(f"config={args.config} device={device} devices={n} mesh={layout.shape}"
+          f" experts={cfg.n_experts} top_k={cfg.top_k} batch={batch} seq={seq}"
+          f" grad_accum={args.grad_accum} prefetch={args.prefetch}"
+          f" attn_impl={cfg.attn_impl} quant={cfg.quant}"
+          f" remat={cfg.remat_policy if cfg.remat else 'off'}"
+          f" params={cfg.num_params() / 1e9:.3f}B active={cfg.active_params() / 1e9:.3f}B",
+          flush=True)
+    telemetry = telemetry_lib.get_emitter()
+    telemetry.set_identity(proc=dist.get_rank() if mesh is not None else 0)
+    telemetry.mark("run_start", workload="train", config=args.config, devices=n,
+                   batch=batch, seq=seq)
+    try:
+        return train(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
+                     grad_accum=args.grad_accum, prefetch=args.prefetch,
+                     data_path=args.data or None, telemetry=telemetry,
+                     mu_dtype=args.mu_dtype or None,
+                     ckpt=make_checkpoint_manager(args, telemetry, mesh),
+                     checkpoint_every=args.checkpoint_every, resume=args.resume, mesh=mesh)
+    finally:
+        telemetry.close()
+
+
 def main(argv=None) -> Dict[str, float]:
     """``python -m dstack_tpu_torch.workloads.train``: the runnable training
     entry point, on the CUDA card unless ``--device cpu``; launched by
     ``torchrun`` (one process per card) it trains on the (dp, fsdp, tp, sp)
-    mesh. Synthetic data by default (``--data tokens.bin`` feeds a packed
-    corpus); prints per-step throughput and, on a known card, MFU."""
+    mesh, or for an MoE preset on the (dp, fsdp, ep, tp, sp) mesh. Synthetic
+    data by default (``--data tokens.bin`` feeds a packed corpus); prints
+    per-step throughput and, for a dense model on a known card, MFU."""
     import argparse
 
-    from dstack_tpu_torch.workloads.config import ATTN_IMPLS, PRESETS, get_config, validate_config
+    from dstack_tpu_torch.workloads.config import ATTN_IMPLS, PRESETS
+    from dstack_tpu_torch.workloads.moe import MOE_PRESETS
 
     parser = argparse.ArgumentParser(prog="dstack_tpu_torch.workloads.train")
     parser.add_argument("--config", default="test",
-                        choices=sorted(PRESETS) + sorted(MOE_PRESET_NAMES))
+                        choices=sorted(PRESETS) + sorted(MOE_PRESETS))
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=0,
                         help="global batch (0 = 2 per data shard per microbatch)")
     parser.add_argument("--seq", type=int, default=0, help="sequence length (0 = config max)")
     parser.add_argument("--multislice", action="store_true",
                         help="leading dp axis over the MEGASCALE slice count")
+    parser.add_argument("--ep", type=int, default=0,
+                        help="expert-parallel axis size for MoE configs"
+                             " (0 = largest ep dividing both the rank count"
+                             " and n_experts, i.e. their gcd)")
     parser.add_argument("--grad-accum", type=int, default=1, dest="grad_accum",
                         help="microbatches per optimizer update (fp32 grad"
                              " accumulators; batch must divide evenly)")
@@ -955,13 +1047,15 @@ def main(argv=None) -> Dict[str, float]:
                              " shards rotate around dp*fsdp, each hop hiding under"
                              " the previous chunk's product (requires dp*fsdp > 1"
                              " and d_model divisible by it)")
-    # Flags of the JAX entry point that the port does not have yet: they
-    # parse, then raise naming their ROADMAP item.
-    parser.add_argument("--ep", type=int, default=0)
+    # A flag of the JAX entry point that the port does not have yet: it
+    # parses, then raises naming its ROADMAP item.
     parser.add_argument("--autotune", action="store_true")
     args = parser.parse_args(argv)
     if args.checkpoint_every and not args.checkpoint_dir:
         raise SystemExit("--checkpoint-every requires --checkpoint-dir")
+    is_moe = args.config in MOE_PRESETS
+    if is_moe and args.draft_head:
+        raise SystemExit("--draft-head supports dense configs only")
 
     missing = _unported(args)
     if missing:
@@ -970,8 +1064,10 @@ def main(argv=None) -> Dict[str, float]:
     if device.type == "cuda":
         platform.set_reference_matmul_precision()
     owns_group = not dist.is_initialized()
-    layout, mesh = build_mesh(args, device)
     try:
+        if is_moe:
+            return _moe_main(args, device)
+        layout, mesh = build_mesh(args, device)
         return _main(args, layout, mesh, mesh.device if mesh is not None else device)
     finally:
         if owns_group and dist.is_initialized():

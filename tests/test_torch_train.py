@@ -355,10 +355,9 @@ def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize(
     "argv",
-    # --tp runs since the training mesh was ported; --ep beside it (MoE)
-    # still raises.
-    [["--tp", "2", "--ep", "2"], ["--config", "moe_test"], ["--autotune"],
-     ["--remat-policy", "save_proj"], ["--draft-head", "--tp", "2"]],
+    # --tp runs since the training mesh was ported, the MoE presets and
+    # --ep since the MoE branch was (test_ported_flags_run_on_the_cpu).
+    [["--autotune"], ["--remat-policy", "save_proj"], ["--draft-head", "--tp", "2"]],
     ids=lambda a: a[-1] if len(a) == 1 else a[0].lstrip("-"),
 )
 def test_unported_flags_raise_naming_their_item(argv):
@@ -366,18 +365,23 @@ def test_unported_flags_raise_naming_their_item(argv):
         ttrain.main(["--device", "cpu", "--steps", "1", *argv])
 
 
-@pytest.mark.parametrize("flag", ["quant", "checkpoint-dir", "draft-head"])
+@pytest.mark.parametrize("flag", ["quant", "checkpoint-dir", "draft-head", "moe_test", "ep"])
 def test_ported_flags_run_on_the_cpu(flag, tmp_path):
-    """The flags that once raised naming ROADMAP items 3b, 4 and 8 run:
-    int8 training, a checkpointed run (which leaves its final step), and
-    the draft head's distillation (which saves a DraftTrainState)."""
+    """The flags that once raised naming ROADMAP items 3b, 4, 8 and 9 run:
+    int8 training, a checkpointed run (which leaves its final step), the
+    draft head's distillation (which saves a DraftTrainState), the MoE
+    preset, and --ep on a dense config, which the reference ignores."""
     argv = {"quant": ["--quant", "int8"],
             "checkpoint-dir": ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "1"],
-            "draft-head": ["--draft-head", "--checkpoint-dir", str(tmp_path)]}[flag]
+            "draft-head": ["--draft-head", "--checkpoint-dir", str(tmp_path)],
+            "moe_test": ["--config", "moe_test"],
+            "ep": ["--ep", "2"]}[flag]
     stats = ttrain.main(["--device", "cpu", "--config", "test", "--seq", "32", "--steps", "2",
                          *argv])
     assert stats["compile_s"] > 0 and stats["tokens_per_sec"] > 0
-    if flag != "quant":
+    if flag == "moe_test":
+        assert "mfu" not in stats and "tf_per_sec" not in stats
+    if flag in ("checkpoint-dir", "draft-head"):
         manifest = json.loads((tmp_path / "step-00000002" / "manifest.json").read_text())
         keys = [leaf["key"] for leaf in manifest["leaves"]]
         assert keys[-1] == ".step" and (".draft['w_fuse']" in keys) == (flag == "draft-head")

@@ -192,6 +192,51 @@ def restore(shape, cfg_kw, params, ckpt_dir, mu_dtype=None):
     return dict(coords=mesh.coords(), tree=_tree(state), mesh=manifest["mesh"])
 
 
+@task
+def moe_steps(shape, cfg_kw, params, batches, grad_accum=1, ckpt_dir=None):
+    """Steps of the port's MoE train step on the MoE mesh of ``shape``
+    (make_moe_mesh's kwargs) from the global ``params`` on the global
+    ``batches``: each step's loss and grad norm, this rank's state after the
+    last (saved to ``ckpt_dir`` if given) and its coordinates."""
+    from dstack_tpu_torch.workloads import checkpoint, data, moe, sharding, train
+
+    mesh = sharding.make_moe_mesh(**shape).connect(CPU)
+    cfg = moe.MoeConfig(**cfg_kw)
+    local = moe.shard_moe_params({k: torch.from_numpy(v) for k, v in params.items()}, mesh)
+    optimizer = train.make_optimizer()
+    state = moe.init_moe_train_state(cfg, optimizer,
+                                     params={k: v.clone() for k, v in local.items()})
+    step = moe.make_moe_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
+    axes = sharding.MOE_DATA_AXES
+    losses, norms = [], []
+    for tokens, targets in batches:
+        rows = data.rank_rows(tokens.shape[0], grad_accum, mesh.index(axes),
+                              mesh.axis_size(axes))
+        state, metrics = step(state, torch.from_numpy(tokens[rows]),
+                              torch.from_numpy(targets[rows]))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    if ckpt_dir is not None:
+        manager = checkpoint.CheckpointManager(ckpt_dir, mesh=mesh)
+        manager.save(state.step, train.state_tree(state), data_offset=state.step,
+                     mesh_shape=dict(mesh.shape), block=True)
+        manager.close()
+    return dict(losses=losses, norms=norms, coords=mesh.coords(), tree=_tree(state))
+
+
+@task
+def main_exit(argv):
+    """``train.main(argv)`` on this rank, which must end in SystemExit: its
+    message."""
+    from dstack_tpu_torch.workloads import train
+
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        return str(e)
+    raise AssertionError(f"train.main({argv}) did not exit")
+
+
 def _serve_mesh(shape):
     """The serve mesh of ``shape`` (make_serve_mesh's kwargs), connected."""
     from dstack_tpu_torch.workloads import sharding
