@@ -116,6 +116,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              splash_reference, with the fp32 and the bf16 first moment; the
              splash route launches the forward kernel at T = 1000 and 63;
 12. handoff - the trainer-to-server handoff on llama3_1b at full width and
+             4 of its 16 layers (DEPTH_CUTS: phases 12-14 run llama3_1b at 4
+             layers and llama3_8b at 8 of 32, in their child processes too,
+             so that the script with phase 16 stays inside its time limit)
              depth. Training's quantized products at its wq, w_gate and
              w_down shapes on 16384 rows: fp8_matmul (torch._scaled_mm,
              fp32 output and accumulation) within FP8_LIMIT of fp64 sums of
@@ -143,7 +146,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the chunk kernel launched exactly layers x (chunk-prefill +
              verify steps) times and the decode kernel never, beside the
              head without its fallback and the n-gram proposer;
-13. mesh   - the training mesh on llama3_1b at full width and depth:
+13. mesh   - the training mesh on llama3_1b at full width, phase 12's depth:
              phase 12's command line through train.main in child processes
              under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
              MASTER_ADDR/PORT; NCCL, one card a rank), each with a timeout,
@@ -163,7 +166,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              its plain collective at llama3_1b's shapes (outputs of the fp
              products within 2^-7 of the largest, times with fp8 partials);
              on one card it logs "mesh multi-rank: not run";
-14. serve mesh - the serving example's command line on the serve mesh:
+14. serve mesh - the serving example's command line on the serve mesh
+             (llama3_8b at 8 of its 32 layers, llama3_1b at phase 12's 4):
              serve.main in child processes under torchrun's environment,
              each with a timeout, against meshless serve.main servers on the
              same HTTP traffic (phase 4's two-wave burst at llama3_8b,
@@ -217,6 +221,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              cards, Mixtral width at 2 layers --ep 4 over NCCL (step times,
              the dispatch all-to-all, peak a rank); on one card it logs
              "moe multi-card: not run".
+16. mesh axes - the pipeline, sequence and MoE-tensor axes. (a) GPipe
+             (pipeline.pipelined_loss_fn) on llama3_1b at full width and
+             depth (fp32 masters, bf16 activations, remat full, flash,
+             batch 2 x 8192, 2 microbatches) over pp 2 as two processes
+             sharing the card over gloo, against meshless loss_fn on the
+             same parameters and batch in a process of its own: the loss
+             within 1e-3 relative, each leaf's gradient norm (a layer
+             leaf's by stage) within 1%, the flash launches a rank exactly
+             8 layers x 2 microbatches x 2 (forward, and again under remat)
+             and 8 x 2 (dq, dk/dv), the forward-and-backward time and the
+             peak a rank beside meshless; then fp32 at 2 layers, seq 1024,
+             every gradient piece within 1e-5 of its leaf's largest value.
+             (b) ring attention over sp 2 (two processes on the card,
+             blockwise): 2 steps of train.train on llama3_1b, batch 2 x
+             8192, against meshless within 1e-3 relative; fp32 at 2 layers,
+             seq 1024, 3 steps within 1e-5. (c) MoE under tp: fp32 Mixtral
+             width at 1 layer, seq 1024, ep 1 x tp 2 on two processes, and
+             moe_test at ep 2 x tp 2 on four, 2 steps each within 1e-5 of
+             meshless. (d) python -m dstack_tpu_torch.dryrun 16 on the
+             card: JAX's four dry-run lines and the entry point's forward.
+             (e) with four cards over NCCL, GPipe at pp 4 (batch 4 x 8192,
+             4 microbatches) and the ring at sp 4 (seq 32768): times and
+             peaks a rank; on one card it logs "mesh axes multi-card: not
+             run". gloo's times on one card are host copies: correctness
+             only.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -229,6 +258,7 @@ import asyncio
 import gc
 import json
 import logging
+import os
 import subprocess
 import sys
 import threading
@@ -2484,6 +2514,49 @@ def phase_splash_identity() -> None:
 FP8_LIMIT = 1e-3
 # The training example's single-card command line with --quant fp8, 4 steps.
 HANDOFF_TRAIN_ARGV = SPLASH_MAIN_ARGV[:-2] + ["--quant", "fp8", "--steps", "4"]
+# Phases 12-14 run llama3_1b and llama3_8b at their full widths and these
+# depths (of 16 and 32 layers): at full depth the script with phase 16
+# passes its time limit. The cut is set in the environment, so that their
+# child processes take it too.
+DEPTH_CUTS = {"llama3_1b": 4, "llama3_8b": 8}
+DEPTH_ENV = "CHIP_SMOKE_DEPTH_CUTS"
+
+
+def cut_depths(layers: dict) -> None:
+    """The presets of ``layers`` (name -> layer count) at those depths in
+    this process."""
+    import dataclasses
+
+    from dstack_tpu_torch.workloads import config
+
+    for name, n in layers.items():
+        config.PRESETS[name] = dataclasses.replace(config.PRESETS[name], n_layers=n)
+
+
+class cut_depth:
+    """While active, the presets of ``layers`` have those depths here and in
+    every child process started meanwhile."""
+
+    def __init__(self, layers: dict):
+        self.layers = layers
+
+    def __enter__(self):
+        from dstack_tpu_torch.workloads import config
+
+        self.presets = {name: config.PRESETS[name] for name in self.layers}
+        os.environ[DEPTH_ENV] = json.dumps(self.layers)
+        cut_depths(self.layers)
+        return self
+
+    def __exit__(self, *exc):
+        from dstack_tpu_torch.workloads import config
+
+        os.environ.pop(DEPTH_ENV, None)
+        config.PRESETS.update(self.presets)
+
+
+if os.environ.get(DEPTH_ENV):  # a child process of phases 12-14
+    cut_depths(json.loads(os.environ[DEPTH_ENV]))
 # What the handoff writes at most: two llama3_1b TrainStates with a bf16
 # first moment (8.7 GB each) and a DraftTrainState (3.5 GB), with room.
 HANDOFF_DISK_BYTES = 30e9
@@ -2756,7 +2829,8 @@ def serve_main_traffic(argv: list, waves, max_new: int) -> dict:
 
 
 def phase_handoff(card: str) -> dict:
-    """The trainer-to-server handoff on llama3_1b at full width and depth:
+    """The trainer-to-server handoff on llama3_1b at full width (at
+    DEPTH_CUTS' depth, under ``cut_depth``):
     quantized projections on the card; the training example's command
     line with --quant fp8 and checkpoints, crashed at step 3 and resumed,
     against the same run without checkpoints; the draft head distilled
@@ -2822,8 +2896,9 @@ def phase_handoff(card: str) -> dict:
         log(f"handoff train ({' '.join(train_argv)} + checkpoints every 2): crashed at"
             f" step 3 and resumed at step 2; losses {[ref[s] for s in sorted(ref)]}, steps 3 and 4"
             f" bit-equal across the resumed and the uninterrupted run (and steps 1-3 of the"
-            f" crashed one); fp8 step p50 {p50 * 1e3:.1f} ms against {bf16_p50 * 1e3:.1f} ms"
-            f" without --quant (phase 10), {reference['stats']['tokens_per_sec']:.1f} tokens/s,"
+            f" crashed one); at {cfg.n_layers} layers the fp8 step p50 {p50 * 1e3:.1f} ms (phase"
+            f" 10's step at 16 layers without --quant: {bf16_p50 * 1e3:.1f} ms),"
+            f" {reference['stats']['tokens_per_sec']:.1f} tokens/s,"
             f" peak memory {reference['peak_gb']:.2f} GB; checkpoint of step 4"
             f" {bytes_4 / 1e9:.3f} GB; crash run: {checkpoint_marks(crash_points, 'crash')};"
             f" resumed run: {checkpoint_marks(resumed_points, 'resume')}; process walls"
@@ -3087,7 +3162,7 @@ def mesh_rings_child(report: str) -> None:
 
 
 def phase_mesh(card: str) -> dict:
-    """The training mesh on llama3_1b at full width and depth, through
+    """The training mesh on llama3_1b at full width (phase 12's depth), through
     train.main under torchrun's environment with the training example's
     flags and --quant fp8 (phase 12's command line) on phase 12's token
     file: (a) up to two cards as one rank each (--tp 1, no rings), 2
@@ -4325,6 +4400,501 @@ def phase_moe(card: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# -- phase 16: the mesh axes -------------------------------------------------------
+#
+# llama3_1b at full width and depth (fp32 masters, bf16 activations, remat
+# full), batch 2 x 8192: GPipe over pp 2 (2 microbatches, the flash
+# kernels in every stage) and the ring over sp 2 (blockwise, the
+# reference's ring core), each as two processes sharing the card over gloo;
+# then fp32 identity at 2 layers, seq 1024. MoE under tp: fp32 Mixtral
+# width at 1 layer over ep 1 x tp 2 and moe_test over ep 2 x tp 2.
+AXES_RUN = dict(config="llama3_1b", batch=2, seq=8192, seed=16)
+AXES_SMALL = dict(layers=2, seq=1024)
+PP_MICRO = 2
+# bf16 runs whose sums round in other orders: the loss relative, each
+# leaf's gradient norm relative.
+AXES_LOSS_RTOL, AXES_NORM_RTOL = 1e-3, 1e-2
+AXES_TOL = 1e-5
+AXES_MOE_RUN = dict(config="mixtral_8x7b", layers=1,
+                    overrides=dict(dtype="float32", param_dtype="float32", attn_impl="flash"),
+                    batch=2, seq=1024, steps=2, seed=3)
+AXES_MOE_SHAPES = {"ep1xtp2": dict(dp=1, fsdp=1, ep=1, tp=2, sp=1)}
+AXES_MOE_TEST_SHAPES = {"ep2xtp2": dict(dp=1, fsdp=1, ep=2, tp=2, sp=1)}
+# With four cards, over NCCL: pp 4 at batch 4 x 8192 (4 microbatches), sp 4
+# at seq 32768.
+AXES_CARDS = dict(pp=4, pp_batch=4, pp_micro=4, sp=4, sp_seq=32768, sp_batch=2)
+
+
+def axes_config(layers: int = 0, **overrides):
+    """llama3_1b for phase 16: flash, remat full, at ``layers`` layers
+    (0: all 16), with ``overrides``."""
+    from dstack_tpu_torch.workloads.config import get_config
+
+    kw = {"attn_impl": "flash", "remat": True, "remat_policy": "full", **overrides}
+    if layers:
+        kw["n_layers"] = layers
+    return get_config(AXES_RUN["config"], **kw)
+
+
+def axes_batch(vocab: int, batch: int, seq: int, seed: int):
+    """One seeded global batch (numpy tokens, targets)."""
+    from dstack_tpu_torch.workloads import data
+
+    return next(data.synthetic_batches(vocab, batch, seq, seed=seed))
+
+
+def pp_value_and_grad(cfg, batch, seq, device, mesh=None, n_micro: int = PP_MICRO,
+                      iters: int = 2, save: str = "") -> dict:
+    """Loss and gradients of the seeded llama3_1b tree on one seeded batch:
+    meshless (``model.loss_fn``) or on a pipeline mesh (this rank's stage,
+    ``pipeline.pipelined_loss_fn``), ``iters`` times; the last run's loss,
+    each leaf's gradient norm (a layer leaf's by stage: [L/pp] rows each),
+    its time and the flash launches, the peak memory. ``save``: a file for
+    the gradients (this rank's pieces)."""
+    import torch
+
+    from dstack_tpu_torch.workloads import data, model, pipeline
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    torch.cuda.reset_peak_memory_stats(device)
+    params = model.init_params(cfg, torch.Generator(device=device).manual_seed(AXES_RUN["seed"]),
+                               device)
+    pp = mesh.shape["pp"] if mesh is not None else 2
+    if mesh is not None:
+        params = {k: v.clone() for k, v in pipeline.shard_params_pp(params, mesh).items()}
+        torch.cuda.empty_cache()
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    tokens, targets = axes_batch(cfg.vocab_size, batch, seq, AXES_RUN["seed"])
+    if mesh is not None:
+        rows = data.rank_rows(batch, n_micro, mesh.index("dp"), mesh.shape["dp"])
+        tokens, targets = tokens[rows], targets[rows]
+    tokens, targets = (torch.from_numpy(a).to(device) for a in (tokens, targets))
+    for _ in range(iters):
+        flash.reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if mesh is None:
+            loss = model.loss_fn(params, tokens, targets, cfg)
+        else:
+            loss = pipeline.pipelined_loss_fn(params, tokens, targets, cfg, mesh, n_micro)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    grads = dict(zip(params, grads))
+    norms = {}
+    for k, g in grads.items():
+        if k in pipeline.LAYER_KEYS and mesh is None:
+            norms[k] = [float(c.float().norm()) for c in g.chunk(pp)]
+        elif k in pipeline.LAYER_KEYS:
+            norms[k] = {mesh.index("pp"): float(g.float().norm())}
+        else:
+            norms[k] = float(g.float().norm())
+    if save:
+        torch.save({k: g.cpu() for k, g in grads.items()}, save)
+    return dict(loss=loss.item(), norms=norms, ms=ms, launches=dict(flash.launches),
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+
+
+def sp_train(cfg, batch, seq, steps, device, mesh=None) -> dict:
+    """``train.train`` of ``cfg`` from seed 0 on the synthetic feed: each
+    step's loss and wall time, the peak memory."""
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, times, last = [], [], [time.perf_counter()]
+
+    def on_step(step, loss):
+        torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        losses.append(float(loss))
+        times.append(now - last[0])
+        last[0] = now
+
+    train.train(cfg, steps=steps, batch=batch, seq=seq, device=device, prefetch=1,
+                on_step=on_step, mesh=mesh)
+    return dict(losses=losses, step_s=times,
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+
+
+def axes_reference_child(plan_json: str, report: str) -> None:
+    """The meshless runs phase 16 holds the meshes against, in a process of
+    its own on the card: the pipelined runs' loss and gradients, the ring
+    runs' train.train losses, the MoE steps."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import platform
+
+    plan = json.loads(plan_json)
+    platform.set_reference_matmul_precision()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out = {}
+    try:
+        out["pp"] = pp_value_and_grad(axes_config(), AXES_RUN["batch"], AXES_RUN["seq"], device)
+        torch.cuda.empty_cache()
+        out["pp_fp32"] = pp_value_and_grad(
+            axes_config(AXES_SMALL["layers"], dtype="float32"), AXES_RUN["batch"],
+            AXES_SMALL["seq"], device, iters=1, save=plan["pp_fp32_grads"])
+        torch.cuda.empty_cache()
+        out["sp"] = sp_train(axes_config(attn_impl="blockwise"), AXES_RUN["batch"],
+                             AXES_RUN["seq"], 2, device)
+        torch.cuda.empty_cache()
+        out["sp_fp32"] = sp_train(axes_config(AXES_SMALL["layers"], attn_impl="blockwise",
+                                              dtype="float32"),
+                                  AXES_RUN["batch"], AXES_SMALL["seq"], 3, device)
+        torch.cuda.empty_cache()
+        for name, run in (("moe", AXES_MOE_RUN), ("moe_test", MOE_MESH_RUN)):
+            cfg = moe_config(run["config"], run["layers"], **run["overrides"])
+            batches = moe_batches(cfg.vocab_size, run["batch"], run["seq"], run["steps"],
+                                  run["seed"])
+            out[name] = moe_steps(cfg, run["seed"], batches, device)
+            torch.cuda.empty_cache()
+    finally:
+        with open(report, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+
+
+def _axes_group(plan: dict):
+    """Join the plan's process group under torchrun's environment: gloo
+    with every rank on cuda:0 (processes sharing one card), or NCCL one
+    card a rank. Returns this rank's device."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.workloads import sharding
+
+    if plan["backend"] == "gloo":
+        os.environ["LOCAL_RANK"] = "0"
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]),
+                                timeout=sharding.COLLECTIVE_TIMEOUT)
+        return device
+    return sharding.init_distributed(torch.device("cuda"))
+
+
+def axes_mesh_child(plan_json: str, report: str) -> None:
+    """One rank of phase 16's meshes: each part of the plan in turn (GPipe,
+    the ring, MoE under tp, at the plan's sizes); writes the results as
+    JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.workloads import pipeline, sharding
+    from dstack_tpu_torch.workloads.kernels import platform
+
+    plan = json.loads(plan_json)
+    platform.set_reference_matmul_precision()
+    device = _axes_group(plan)
+    world = dist.get_world_size()
+    out = {}
+    try:
+        for part in plan["parts"]:
+            torch.cuda.empty_cache()
+            if part == "pp":
+                mesh = pipeline.make_pp_mesh(dp=1, pp=world).connect(device)
+                out[part] = pp_value_and_grad(axes_config(), plan.get("pp_batch", AXES_RUN["batch"]),
+                                              AXES_RUN["seq"], device, mesh,
+                                              plan.get("pp_micro", PP_MICRO))
+            elif part == "pp_fp32":
+                mesh = pipeline.make_pp_mesh(dp=1, pp=world).connect(device)
+                save = plan["pp_fp32_grads"].format(rank=dist.get_rank())
+                out[part] = pp_value_and_grad(
+                    axes_config(AXES_SMALL["layers"], dtype="float32"), AXES_RUN["batch"],
+                    AXES_SMALL["seq"], device, mesh, iters=1, save=save)
+            elif part in ("sp", "sp_fp32"):
+                mesh = sharding.make_mesh(fsdp=1, sp=world).connect(device)
+                small = part == "sp_fp32"
+                cfg = axes_config(AXES_SMALL["layers"] if small else 0, attn_impl="blockwise",
+                                  **({"dtype": "float32"} if small else {}))
+                out[part] = sp_train(cfg, plan.get("sp_batch", AXES_RUN["batch"]),
+                                     AXES_SMALL["seq"] if small else plan.get(
+                                         "sp_seq", AXES_RUN["seq"]),
+                                     3 if small else 2, device, mesh)
+            else:  # MoE under tp
+                run = AXES_MOE_RUN if part == "moe" else MOE_MESH_RUN
+                shapes = AXES_MOE_SHAPES if part == "moe" else AXES_MOE_TEST_SHAPES
+                cfg = moe_config(run["config"], run["layers"], **run["overrides"])
+                batches = moe_batches(cfg.vocab_size, run["batch"], run["seq"], run["steps"],
+                                      run["seed"])
+                for name, shape in shapes.items():
+                    mesh = sharding.make_moe_mesh(**shape).connect(device)
+                    out[name] = moe_steps(cfg, run["seed"], batches, device, mesh)
+    finally:
+        with open(report, "w", encoding="utf-8") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def check_pp(label: str, got: list, ref: dict, rtol: float, norm_rtol: float) -> float:
+    """Every rank's pipelined loss within ``rtol`` of meshless, and each
+    leaf's gradient norm (a layer leaf's by stage) within ``norm_rtol``;
+    returns the largest relative gap of a norm."""
+    worst = 0.0
+    for rank, g in enumerate(got):
+        if _rel(g["loss"], ref["loss"]) > rtol:
+            raise AssertionError(f"{label} rank {rank}: loss {g['loss']!r} against meshless"
+                                 f" {ref['loss']!r}")
+        for k, n in g["norms"].items():
+            if isinstance(n, dict):
+                (stage, n), = ((int(s), v) for s, v in n.items())
+                want = ref["norms"][k][stage]
+            else:
+                want = ref["norms"][k]
+            worst = max(worst, _rel(n, want))
+            if _rel(n, want) > norm_rtol:
+                raise AssertionError(f"{label} rank {rank}: {k} gradient norm {n!r} against"
+                                     f" meshless {want!r}")
+    return worst
+
+
+def compare_saved_grads(label: str, paths: list, ref_path: str, specs: dict, mesh) -> float:
+    """Each rank's saved gradient pieces against the same pieces of the
+    meshless gradients: the largest difference over each leaf's largest
+    |value| must stay within AXES_TOL."""
+    import torch
+
+    from dstack_tpu_torch.workloads import sharding
+
+    ref = torch.load(ref_path)
+    worst = 0.0
+    for rank, path in enumerate(paths):
+        for k, g in torch.load(path).items():
+            want = ref[k][sharding.local_slices(specs[k], ref[k].shape, mesh, rank)]
+            err = float((g - want).abs().max() / ref[k].abs().max())
+            worst = max(worst, err)
+            if err > AXES_TOL:
+                raise AssertionError(f"{label} rank {rank}: {k} gradient {err:.2e} of its"
+                                     f" largest value from meshless")
+    return worst
+
+
+def phase_mesh_axes(card: str) -> dict:
+    """Phase 16: pp, sp and MoE under tp, and the port's dry run. Returns
+    the flash launches of the GPipe runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dstack_tpu_torch.workloads import pipeline, sharding
+
+    workdir = tempfile.mkdtemp(prefix="chip-smoke-axes-")
+    code = "import sys, chip_smoke; chip_smoke.axes_mesh_child(*sys.argv[1:])"
+    dryrun = None
+    try:
+        t0 = time.monotonic()
+        grads = os.path.join(workdir, "pp-fp32-{rank}.pt")
+        ref_grads = os.path.join(workdir, "pp-fp32-meshless.pt")
+        ref, _, _ = run_ranks_one("axes-reference", "import sys, chip_smoke;"
+                                  " chip_smoke.axes_reference_child(*sys.argv[1:])",
+                                  json.dumps(dict(pp_fp32_grads=ref_grads)), workdir, 600)
+        # (d) runs beside the gloo worlds, whose times are correctness only;
+        # the meshless times above ran alone.
+        dryrun = start_dryrun(workdir)
+        plan = dict(backend="gloo", parts=["pp", "pp_fp32", "sp", "sp_fp32", "moe"],
+                    pp_fp32_grads=grads)
+        ranks = [r[0] for r in run_ranks("axes-gloo2", code, [json.dumps(plan)], 2, workdir,
+                                         timeout=900)]
+        cfg = axes_config()
+        layers = cfg.n_layers // 2
+        # (a) GPipe: every rank's loss and gradient norms against meshless,
+        # and its flash launches: each of its layers runs the forward twice
+        # a microbatch (and again under remat), dq and dk/dv once.
+        pp = [r["pp"] for r in ranks]
+        worst = check_pp("pp2", pp, ref["pp"], AXES_LOSS_RTOL, AXES_NORM_RTOL)
+        want = {"flash_fwd": layers * PP_MICRO * 2, "flash_bwd_dq": layers * PP_MICRO,
+                "flash_bwd_dkv": layers * PP_MICRO}
+        for rank, g in enumerate(pp):
+            if g["launches"] != want:
+                raise AssertionError(f"pp2 rank {rank}: flash launches {g['launches']},"
+                                     f" want {want}")
+        log(f"mesh axes (a) GPipe llama3_1b full width and depth (bf16 activations, fp32"
+            f" masters, remat full, flash), batch {AXES_RUN['batch']} x {AXES_RUN['seq']},"
+            f" pp 2 as two gloo processes on one card, {PP_MICRO} microbatches: loss"
+            f" {pp[0]['loss']!r} against meshless {ref['pp']['loss']!r} (relative"
+            f" {_rel(pp[0]['loss'], ref['pp']['loss']):.2e}), gradient norms within"
+            f" {worst:.2e}; flash launches a rank {pp[0]['launches']} (exact: {layers} layers x"
+            f" {PP_MICRO} microbatches); forward and backward {pp[0]['ms']:.1f} / {pp[1]['ms']:.1f}"
+            f" ms a rank (correctness only: gloo's hops are host copies, and both ranks share"
+            f" the card) against meshless {ref['pp']['ms']:.1f} ms, peak"
+            f" {pp[0]['peak_gb']:.2f} / {pp[1]['peak_gb']:.2f} GB a rank against meshless"
+            f" {ref['pp']['peak_gb']:.2f} GB [{card}]")
+        small = [r["pp_fp32"] for r in ranks]
+        mesh = pipeline.make_pp_mesh(dp=1, pp=2, world=2)
+        err = compare_saved_grads("pp2 fp32", [grads.format(rank=r) for r in range(2)],
+                                  ref_grads, pipeline.stage_params_spec(), mesh)
+        for g in small:
+            if _rel(g["loss"], ref["pp_fp32"]["loss"]) > AXES_TOL:
+                raise AssertionError(f"pp2 fp32: loss {g['loss']!r} against"
+                                     f" {ref['pp_fp32']['loss']!r}")
+        log(f"mesh axes (a) fp32 llama3_1b width, {AXES_SMALL['layers']} layers, seq"
+            f" {AXES_SMALL['seq']}, pp 2: loss {small[0]['loss']!r} against meshless"
+            f" {ref['pp_fp32']['loss']!r}, every gradient piece within {err:.2e} of its leaf's"
+            f" largest value [{card}]")
+        # (b) the ring over sp 2.
+        for part, rtol in (("sp", AXES_LOSS_RTOL), ("sp_fp32", AXES_TOL)):
+            got = [r[part] for r in ranks]
+            gaps = [_rel(a, b) for a, b in zip(got[0]["losses"], ref[part]["losses"])]
+            if any(g["losses"] != got[0]["losses"] for g in got) or max(gaps) > rtol:
+                raise AssertionError(f"{part}: losses {[g['losses'] for g in got]} against"
+                                     f" meshless {ref[part]['losses']}")
+            what = (f"llama3_1b full width and depth, batch {AXES_RUN['batch']} x"
+                    f" {AXES_RUN['seq']}, 2 steps" if part == "sp" else
+                    f"fp32 llama3_1b width, {AXES_SMALL['layers']} layers, seq"
+                    f" {AXES_SMALL['seq']}, 3 steps")
+            log(f"mesh axes (b) ring attention, sp 2 as two gloo processes on one card,"
+                f" blockwise, {what} through train.train: losses {got[0]['losses']} against"
+                f" meshless {ref[part]['losses']} (relative gaps {[f'{g:.1e}' for g in gaps]});"
+                f" step times {[round(s * 1e3, 1) for s in got[0]['step_s']]} ms (correctness"
+                f" only) against meshless {[round(s * 1e3, 1) for s in ref[part]['step_s']]},"
+                f" peak {max(g['peak_gb'] for g in got):.2f} GB a rank against"
+                f" {ref[part]['peak_gb']:.2f} GB [{card}]")
+        # (c) MoE under tp.
+        check_moe_tp("ep1xtp2", [r["ep1xtp2"] for r in ranks], ref["moe"],
+                      f"fp32 mixtral width, {AXES_MOE_RUN['layers']} layer, seq"
+                      f" {AXES_MOE_RUN['seq']}, two gloo processes on one card", card)
+        four = [r[0] for r in run_ranks("axes-gloo4", code, [json.dumps(dict(
+            backend="gloo", parts=["moe_test"]))], 4, workdir, timeout=300)]
+        check_moe_tp("ep2xtp2", [r["ep2xtp2"] for r in four], ref["moe_test"],
+                     f"fp32 moe_test, seq {MOE_MESH_RUN['seq']}, four gloo processes on one card",
+                     card)
+        # (d) the dry run and the entry point.
+        finish_dryrun(dryrun, card)
+        launches = {name: sum(g["launches"][name] for g in pp) for name in want}
+        # (e) four cards.
+        cards = torch.cuda.device_count()
+        if cards < 4:
+            log(f"mesh axes multi-card: not run ({cards} card visible) [{card}]")
+        else:
+            axes_cards(card, workdir)
+        log(f"mesh axes: {time.monotonic() - t0:.1f} s [{card}]")
+        return launches
+    finally:
+        stop_dryrun(dryrun)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def check_moe_tp(name: str, got: list, ref: dict, what: str, card: str) -> None:
+    gaps = [_rel(a, b) for a, b in zip(got[0]["losses"], ref["losses"])]
+    if any(g["losses"] != got[0]["losses"] for g in got) or max(gaps) > AXES_TOL:
+        raise AssertionError(f"moe {name}: losses {[g['losses'] for g in got]} against meshless"
+                             f" {ref['losses']}")
+    log(f"mesh axes (c) MoE {name}, {what}: losses {got[0]['losses']} against meshless"
+        f" {ref['losses']} (relative gaps {[f'{g:.1e}' for g in gaps]}), grad norms"
+        f" {got[0]['norms']} against {ref['norms']}, peak {max(g['peak_gb'] for g in got):.2f}"
+        f" GB a rank [{card}]")
+
+
+def run_ranks_one(label: str, code: str, arg: str, workdir: str, timeout: float):
+    """``code`` in one child process (no process group): its report."""
+    import os
+
+    report = os.path.join(workdir, f"{label}.json")
+    proc = subprocess.run([sys.executable, "-c", code, arg, report],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(report, encoding="utf-8") as f:
+        return json.load(f), proc.stdout, proc.stderr
+
+
+def start_dryrun(workdir: str):
+    """Start ``python -m dstack_tpu_torch.dryrun 16`` on the card (16 ranks
+    sharing it over gloo, 8 and 4 beside them); its output goes to files
+    under ``workdir``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(workdir, "dryrun.out"), "w+", encoding="utf-8")
+    err = open(os.path.join(workdir, "dryrun.err"), "w+", encoding="utf-8")
+    # Its own process group (setsid): stop_dryrun kills the run with its ranks.
+    proc = subprocess.Popen([sys.executable, "-m", "dstack_tpu_torch.dryrun", "16"], cwd=root,
+                            stdout=out, stderr=err, text=True, start_new_session=True)
+    return proc, out, err, time.monotonic()
+
+
+def stop_dryrun(started) -> None:
+    """Kill ``start_dryrun``'s run and its ranks, if still running."""
+    import signal
+
+    if started is not None and started[0].poll() is None:
+        os.killpg(started[0].pid, signal.SIGKILL)
+        started[0].wait()
+
+
+def finish_dryrun(started, card: str, timeout: float = 600.0) -> None:
+    """Wait for ``start_dryrun``'s run: JAX's four lines at 16 devices with
+    finite positive losses, and the entry point's forward."""
+    import re
+
+    proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(started)
+        raise AssertionError(f"dryrun 16: not done in {timeout:.0f} s") from None
+    wall = time.monotonic() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun 16: exit {proc.returncode}:\n{stdout[-3000:]}"
+                             f"\n{stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
+    want = ["dryrun_multichip ok: mesh dp=2 fsdp=2 tp=2 sp=2, loss=",
+            "dryrun_multichip multislice ok: 4 slices x 4 devices (fsdp=2 tp=2), loss=",
+            "dryrun_multichip MoE ok: ep=2 tp=2 dp=2 (4 experts top-2), loss=",
+            "dryrun_multichip pipeline ok: pp=2 dp=2 (GPipe), loss="]
+    if len(lines) != 5 or any(not line.startswith(w) for line, w in zip(lines, want)):
+        raise AssertionError(f"dryrun 16: printed {lines}")
+    for line in lines[:4]:
+        loss = float(line.rsplit("loss=", 1)[1])
+        if not (np.isfinite(loss) and loss > 0):
+            raise AssertionError(f"dryrun 16: {line}")
+    if not re.fullmatch(r"entry ok: \(2, 128, 4096\) float32", lines[4]):
+        raise AssertionError(f"dryrun 16: {lines[4]}")
+    for line in lines:
+        log(f"  [dryrun 16] {line}")
+    log(f"mesh axes (d) python -m dstack_tpu_torch.dryrun 16 on the card: 16, 8 and 4 gloo"
+        f" processes sharing it, beside (a)-(c)'s gloo worlds, {wall:.1f} s [{card}]")
+
+
+def axes_cards(card: str, workdir: str) -> None:
+    """(e) With four cards over NCCL: GPipe at pp 4 (batch 4 x 8192, 4
+    microbatches) and the ring at sp 4 (seq 32768): times and peaks a rank."""
+    code = "import sys, chip_smoke; chip_smoke.axes_mesh_child(*sys.argv[1:])"
+    plan = dict(backend="nccl", parts=["pp", "sp"], pp_batch=AXES_CARDS["pp_batch"],
+                pp_micro=AXES_CARDS["pp_micro"], sp_seq=AXES_CARDS["sp_seq"],
+                sp_batch=AXES_CARDS["sp_batch"])
+    ranks = [r[0] for r in run_ranks("axes-cards", code, [json.dumps(plan)], 4, workdir,
+                                     timeout=900)]
+    pp, sp = [r["pp"] for r in ranks], [r["sp"] for r in ranks]
+    if any(abs(g["loss"] - pp[0]["loss"]) > 0 for g in pp) or not np.isfinite(pp[0]["loss"]):
+        raise AssertionError(f"pp 4 on four cards: losses {[g['loss'] for g in pp]}")
+    if any(g["losses"] != sp[0]["losses"] for g in sp) or not all(np.isfinite(sp[0]["losses"])):
+        raise AssertionError(f"sp 4 on four cards: losses {[g['losses'] for g in sp]}")
+    log(f"mesh axes (e) GPipe pp 4 on four cards over NCCL, llama3_1b, batch"
+        f" {AXES_CARDS['pp_batch']} x {AXES_RUN['seq']}, {AXES_CARDS['pp_micro']} microbatches:"
+        f" loss {pp[0]['loss']!r}, forward and backward {[round(g['ms'], 1) for g in pp]} ms by"
+        f" rank, peak {[round(g['peak_gb'], 2) for g in pp]} GB [{card}]")
+    log(f"mesh axes (e) ring sp 4 on four cards over NCCL, llama3_1b blockwise, batch"
+        f" {AXES_CARDS['sp_batch']} x {AXES_CARDS['sp_seq']}: losses {sp[0]['losses']}, step"
+        f" times {[round(s * 1e3, 1) for s in sp[0]['step_s']]} ms, peak"
+        f" {max(g['peak_gb'] for g in sp):.2f} GB a rank [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4348,25 +4918,37 @@ def main() -> int:
         for line in ptxas_summary(text):
             log(f"ptxas {name}: {line}")
 
+    def done(phase: str) -> None:
+        log(f"phases to {phase} done at {time.monotonic() - t_start:.1f} s")
+
     report = phase_kernels(card)
     report.update(phase_flash())
+    done("flash")
     launches = phase_serve(card)
     cfg, params = phase_identity()
     phase_http(cfg, params)
     del params
+    done("http")
     launches.update(phase_train(card))
     phase_train_identity()
+    done("train identity")
     report.update(phase_splash())
     launches.update(phase_train_splash(card))
     phase_splash_identity()
+    done("splash identity")
     try:
-        for name, n in phase_handoff(card).items():
-            launches[name] += n
-        for name, n in phase_mesh(card).items():
-            launches[name] += n
-        serve_mesh = phase_serve_mesh(card)
+        with cut_depth(DEPTH_CUTS):
+            for name, n in phase_handoff(card).items():
+                launches[name] += n
+            done("handoff")
+            for name, n in phase_mesh(card).items():
+                launches[name] += n
+            done("mesh")
+            serve_mesh = phase_serve_mesh(card)
+            done("serve mesh")
         for name, n in phase_moe(card).items():
             launches[name] += n
+        done("moe")
     finally:
         import shutil
 
@@ -4375,6 +4957,9 @@ def main() -> int:
         launches[name] += n
     for name, entry in serve_mesh["report"].items():
         report[name].update(entry)
+    for name, n in phase_mesh_axes(card).items():
+        launches[name] += n
+    done("mesh axes")
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",

@@ -6,7 +6,9 @@ online-softmax helpers, ``plain_attention``, ``flash_attention_tpu`` (on the
 port's flash kernels) and ``attention_core`` (which also routes to the
 splash kernels, meshless or on a rank's local heads), and
 ``paged_decode_attention`` / ``paged_chunk_attention``, the gather references
-that the serving engine's ``decode_impl="plain"`` runs. Layouts are the JAX
+that the serving engine's ``decode_impl="plain"`` runs, and
+``ring_attention``, the sequence-parallel core that ``attention_core`` runs
+whenever the mesh splits the sequence (sp > 1). Layouts are the JAX
 package's: q [B, T, H, D],
 k/v [B, S, Kh, D]; outputs are fp32. Score products take fp32 inputs, which
 reproduces the reference's bf16 x bf16 -> fp32 accumulation exactly, since
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from dstack_tpu_torch.workloads.kernels.flash import flash_attention, pick_flash_block
 from dstack_tpu_torch.workloads.kernels.splash import splash_attention, splash_reference
@@ -210,14 +213,12 @@ def attention_core(
     Under a ``mesh`` q/k/v are this rank's rows and its H/tp query and Kh/tp
     KV heads (whole GQA groups), which the same kernels take as they are;
     ``auto`` and ``flash_tpu`` run blockwise there, as the reference's (the
-    public kernel runs meshless only). Sequence parallelism (sp > 1, ring
-    attention) is not ported yet and raises.
+    public kernel runs meshless only). Sequence parallelism (sp > 1) always
+    runs ``ring_attention`` on this rank's sequence chunk, whatever
+    ``attn_impl`` says, as the reference's dispatch does.
     """
     if mesh is not None and mesh.shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            "ring attention (sequence parallelism, sp > 1) is not yet ported to"
-            " PyTorch (ROADMAP item 6)"
-        )
+        return ring_attention(q, k, v, mesh, causal=causal)
     impl = attn_impl
     if impl == "auto":
         impl = "flash_tpu" if (mesh is None and flash_available(q.device)) else "blockwise"
@@ -239,6 +240,58 @@ def attention_core(
     if impl == "plain":
         return plain_attention(q, k, v, causal=causal)
     return blockwise_attention(q, k, v, causal=causal)
+
+
+def ring_attention(
+    q: torch.Tensor,  # [B, T/sp, H, D]: this rank's chunk of the sequence
+    k: torch.Tensor,  # [B, T/sp, Kh, D]
+    v: torch.Tensor,
+    mesh,
+    *,
+    causal: bool = True,
+    block_size: int = 512,
+) -> torch.Tensor:
+    """Sequence-parallel attention over the mesh's ``sp`` axis (the JAX
+    package's ``ring_attention``): each rank holds one contiguous chunk of
+    the sequence, its queries at positions ``chunk * T/sp + i``. The K/V
+    chunks go sp times around the sp ring (``collective.ppermute``, whose
+    gradient takes the way back), each accumulating into the blockwise
+    core's online-softmax state, walked in blocks of ``block_size`` keys;
+    when gradients are recorded each block is recomputed in the backward
+    pass, so a rank keeps one block's scores at a time, not sp x T/sp /
+    block_size of them. Heads stay as the rank holds them (split over tp). Every chunk is
+    walked, as in the reference, one wholly in the causal future of this
+    rank's queries too (it adds nothing): every rank's backward pass then
+    runs the same hops in the same order. Returns [B, T/sp, H, D] in
+    q.dtype."""
+    from dstack_tpu_torch.workloads.kernels.collective import ppermute
+
+    sp = mesh.shape["sp"]
+    if sp == 1:
+        return blockwise_attention(q, k, v, causal=causal, block_size=block_size)
+    t = q.shape[1]
+    n_rep = q.shape[2] // k.shape[2]
+    mine = mesh.index("sp")
+    q_pos = mine * t + torch.arange(t, device=q.device)
+    state = _attn_state_init(q)
+    kv = torch.stack([k, v])
+    remat = torch.is_grad_enabled()
+
+    def accum(o, l, m, k_blk, v_blk, kv_pos):
+        return _attn_block_accum((o, l, m), q, k_blk, v_blk, q_pos, kv_pos, causal)
+
+    for step in range(sp):
+        src = (mine - step) % sp
+        k_cur, v_cur = _repeat_kv(kv[0], n_rep), _repeat_kv(kv[1], n_rep)
+        for b0 in range(0, t, block_size):
+            sl = slice(b0, min(b0 + block_size, t))
+            kv_pos = src * t + torch.arange(sl.start, sl.stop, device=q.device)
+            args = (*state, k_cur[:, sl], v_cur[:, sl], kv_pos)
+            state = (torch.utils.checkpoint.checkpoint(accum, *args, use_reentrant=False)
+                     if remat else accum(*args))
+        if step + 1 < sp:
+            kv = ppermute(kv, mesh, "sp")
+    return _finalize(state).to(q.dtype)
 
 
 def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -218,10 +218,7 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
             f"chunks; batch={batch} seq={seq} mesh={dict(mesh.shape)} "
             f"doesn't — grow the batch or drop --tp-overlap"
         )
-    if sp > 1:
-        raise NotImplementedError(
-            "sequence parallelism (sp > 1, ring attention) is not yet ported to"
-            " PyTorch (ROADMAP item 6)"
-        )
+    if sp > 1 and seq and seq % sp:
+        raise ValueError(f"seq={seq} does not split into sp={sp} equal chunks")
     if not moe:
         validate_mesh(cfg, mesh)

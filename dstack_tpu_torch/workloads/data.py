@@ -11,7 +11,8 @@ plain numpy and give identical arrays for the same arguments:
   rows of its (dp, fsdp) coordinate, on an MoE mesh of its (dp, fsdp, ep)
   one (the reference's ``MOE_BATCH``), microbatch by microbatch, as the
   reference's ``make_global_array`` / ``sharded_batches`` place a global
-  batch; ranks that differ only in tp or sp read the same rows.
+  batch; ranks that differ only in tp or sp read the same rows, and under
+  sp each keeps its chunk of the sequence (``columns``).
 - **Prefetcher**: a depth-bounded background thread that pulls batches ahead
   of the consumer. ``device_batches`` stages each batch into pinned host
   memory and copies it to the card with ``non_blocking=True``, so the pull
@@ -228,13 +229,15 @@ def input_pipeline(
     data_index: int = 0,
     data_shards: int = 1,
     grad_accum: int = 1,
+    columns: Optional[slice] = None,
 ) -> Prefetcher:
     """The train entrypoint's one-call feed on one device: the source (token
     file or synthetic), staged onto ``device``, behind the prefetcher.
     ``start_batch`` seeks (one global batch per optimizer step). Under a
-    mesh the feed holds this rank's ``rank_rows``; the synthetic global
-    batch is then ``data_shards`` draws, as the reference's is one draw per
-    host, so it depends on the data-shard count."""
+    mesh the feed holds this rank's ``rank_rows``, and of each its
+    ``columns`` (the rank's chunk of the sequence under sp); the synthetic
+    global batch is then ``data_shards`` draws, as the reference's is one
+    draw per host, so it depends on the data-shard count."""
     rows = rank_rows(global_batch, grad_accum, data_index, data_shards)
     if data_path:
         source: Iterator[Batch] = token_file_batches(
@@ -243,4 +246,6 @@ def input_pipeline(
     else:
         source = synthetic_batches(vocab_size, global_batch, seq, start_batch=start_batch,
                                    process_count=data_shards, rows=rows)
+    if columns is not None:
+        source = ((tokens[:, columns], targets[:, columns]) for tokens, targets in source)
     return Prefetcher(device_batches(source, torch.device(device)), depth=prefetch)

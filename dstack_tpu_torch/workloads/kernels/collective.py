@@ -18,6 +18,15 @@ package on its own:
   inserts between the dispatch einsum's token-sharded input and its
   expert-sharded output, and back; its backward is the same exchange of the
   gradient.
+- ``ppermute`` (ring attention, over ``sp``): JAX's cyclic shift, each
+  rank's tensor to the next rank around the axis; its backward is the
+  reverse shift, JAX's transpose of ``ppermute``. ``send``/``recv`` are the
+  same hop between two ranks, and ``broadcast`` one rank's tensor to its
+  group, for the pipeline's explicit schedule.
+
+Point-to-point hops and broadcasts of CUDA tensors over gloo (several
+processes sharing a card) go through host copies, since gloo moves host
+memory; the compute stays on the card, and NCCL moves device to device.
 
 The loss every rank computes is the same number, and each rank
 differentiates its own copy: with these three rules every gradient comes
@@ -216,6 +225,86 @@ def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     own coordinate, in coordinate order. Differentiable: the gradient takes
     the way back."""
     return _AllToAll.apply(x, _Axis(mesh, axes))
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """True when a hop of ``x`` over ``group`` goes through a host copy: a
+    CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send(x: torch.Tensor, dst: int, group):
+    """Start sending ``x`` to global rank ``dst`` of ``group``; returns the
+    work to wait on (which keeps the sent buffer alive)."""
+    buf = x.detach().contiguous()
+    if _staged(buf, group):
+        buf = buf.cpu()
+    return _Sent(dist.isend(buf, dst, group=group), buf)
+
+
+class _Sent:
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
+def recv(shape, dtype: torch.dtype, device: torch.device, src: int, group) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from global rank ``src``
+    of ``group``, onto ``device``."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    buf = out.cpu() if _staged(out, group) else out
+    dist.recv(buf, src, group=group)
+    return out.copy_(buf) if buf is not out else out
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> None:
+    """``t`` from global rank ``src`` to every rank of ``group``, in place."""
+    if dist.get_world_size(group) == 1:
+        return
+    if _staged(t, group):
+        buf = t.cpu()
+        dist.broadcast(buf, src, group=group)
+        t.copy_(buf)
+    else:
+        dist.broadcast(t, src, group=group)
+
+
+def _permute(x: torch.Tensor, axis: "_Axis", shift: int) -> torch.Tensor:
+    """``x`` of the rank ``shift`` places before this one around the axis
+    (this rank's goes ``shift`` places on)."""
+    n = axis.size
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    dst = axis.members[(axis.index + shift) % n]
+    src = axis.members[(axis.index - shift) % n]
+    out = torch.empty_like(x)
+    buf, got = x.contiguous(), out
+    if _staged(buf, axis.group):
+        buf, got = buf.cpu(), torch.empty(out.shape, dtype=out.dtype)
+    _wait(dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, dst, axis.group),
+                                  dist.P2POp(dist.irecv, got, src, axis.group)]))
+    return out.copy_(got) if got is not out else out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return _permute(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.axis, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """JAX's ``ppermute`` with the cyclic permutation i -> i + shift over
+    ``axis``: this rank sends ``x`` ``shift`` places on (in coordinate
+    order) and returns what the rank ``shift`` places before it sent.
+    Differentiable: the gradient takes the reverse shift."""
+    return _Ppermute.apply(x, _Axis(mesh, axis), shift)
 
 
 def max_over(mesh, axes):

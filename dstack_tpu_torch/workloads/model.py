@@ -17,9 +17,12 @@ the collectives GSPMD would insert for the JAX package, written out in
 parallel wo and w_down all-reduced, or the reduce-scatter ring with
 ``cfg.tp_overlap``), a vocab-sharded embedding lookup and a vocab-parallel
 cross-entropy. The attention kernels run unchanged on the local heads.
-The shared pieces take ``batch_axes``, the axes the batch splits over, as
-the JAX package's do: the MoE decoder (``moe.py``) adds ``ep``, over which
-the dense weights are whole, so their gradients are summed over it too.
+The shared pieces take ``batch_axes``, the axes the tokens split over, as
+the JAX package's do: the MoE decoder (``moe.py``) adds ``ep``, and a mesh
+with sp > 1 adds ``sp`` (``sharding.token_axes``); the weights are whole
+over those, so their gradients are summed over them too. Under sp a rank
+holds one contiguous chunk of each row, its RoPE positions offset by the
+chunk's start, and attention runs ``attention.ring_attention``.
 """
 
 from __future__ import annotations
@@ -249,17 +252,25 @@ def attention_sublayer(
 
 def transformer_block(
     x: torch.Tensor, params: Params, layer: int, cfg: LlamaConfig, positions: torch.Tensor,
-    mesh: Optional[sharding.Mesh] = None,
+    mesh: Optional[sharding.Mesh] = None, batch_axes: Tuple[str, ...] = DATA_AXES,
 ) -> torch.Tensor:
     """One dense decoder block (attention + SwiGLU MLP, both pre-norm residual)."""
-    x = attention_sublayer(x, params, layer, cfg, positions, mesh)
-    h2 = _rms_norm(x, _norm_weight(params, "mlp_norm", layer, mesh), cfg.norm_eps)
+    x = attention_sublayer(x, params, layer, cfg, positions, mesh, batch_axes)
+    h2 = _rms_norm(x, _norm_weight(params, "mlp_norm", layer, mesh, batch_axes), cfg.norm_eps)
     if _tp(mesh) > 1:
         h2 = reduce_backward(h2, mesh, "tp")
-    gate = up_proj(h2, params["w_gate"][layer], cfg, mesh)
-    up = up_proj(h2, params["w_up"][layer], cfg, mesh)
+    gate = up_proj(h2, params["w_gate"][layer], cfg, mesh, batch_axes)
+    up = up_proj(h2, params["w_up"][layer], cfg, mesh, batch_axes)
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + down_proj(hidden, params["w_down"][layer], cfg, mesh)
+    return x + down_proj(hidden, params["w_down"][layer], cfg, mesh, batch_axes)
+
+
+def positions_of(seq: int, mesh: Optional[sharding.Mesh], device) -> torch.Tensor:
+    """The global positions of this rank's ``seq`` tokens of each row: its
+    chunk of the sequence under sp (chunk i starts at i * seq)."""
+    sp = mesh.shape.get("sp", 1) if mesh is not None else 1
+    start = mesh.index("sp") * seq if sp > 1 else 0
+    return start + torch.arange(seq, device=device)
 
 
 def remat_policy_of(cfg: LlamaConfig) -> Callable:
@@ -313,26 +324,27 @@ def forward(
     chunked cross-entropy uses. Every weight is cast to cfg.dtype on use, so
     fp32 masters and weights stored in cfg.dtype give the same result. Under
     cfg.remat each block is recomputed in the backward pass (when gradients
-    are recorded). Under ``mesh``: this rank's rows, and under tp its V/tp
-    vocab columns of the logits."""
+    are recorded). Under ``mesh``: this rank's rows (under sp its chunk of
+    the sequence), and under tp its V/tp vocab columns of the logits."""
     adt = dtype_of(cfg.dtype)
+    axes = sharding.token_axes(mesh)
     tokens = tokens.to(params["embed"].device).long()
-    x = _embed_lookup(params["embed"], tokens, mesh, adt)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_lookup(params["embed"], tokens, mesh, adt, axes)
+    positions = positions_of(tokens.shape[1], mesh, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = remat_policy_of(cfg) if remat else None
     for layer in range(cfg.n_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                transformer_block, x, params, layer, cfg, positions, mesh,
+                transformer_block, x, params, layer, cfg, positions, mesh, axes,
                 use_reentrant=False, context_fn=context_fn,
             )
         else:
-            x = transformer_block(x, params, layer, cfg, positions, mesh)
-    x = _rms_norm(x, _norm_weight(params, "final_norm", None, mesh), cfg.norm_eps)
+            x = transformer_block(x, params, layer, cfg, positions, mesh, axes)
+    x = _rms_norm(x, _norm_weight(params, "final_norm", None, mesh, axes), cfg.norm_eps)
     if return_hidden:
         return x
-    lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt)
+    lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt, axes)
     return _logits(_tp_input(x, mesh), lm_head, cfg.quant)
 
 
@@ -447,12 +459,15 @@ def loss_fn(
     mesh: Optional[sharding.Mesh] = None,
 ) -> torch.Tensor:
     """Mean cross-entropy over the targets >= 0. Under ``mesh`` each rank
-    passes its own rows: the sum and the count are reduced over the data
-    ranks, so every rank returns the loss of the global batch, and its
-    gradient reaches this rank's rows only (the data ranks' weight
-    gradients are summed by the gathers' backward)."""
+    passes its own rows (under sp its chunk of them): the sum and the count
+    are reduced over the token axes, so every rank returns the loss of the
+    global batch, and its gradient reaches this rank's tokens only (the
+    data ranks' weight gradients are summed by the gathers' backward, the
+    sp ranks' by one more sum). The loss chunk is picked from the global
+    sequence length, as the reference's."""
     targets = targets.to(params["embed"].device)
-    chunk = pick_loss_chunk(cfg, tokens.shape[1])
+    sp = mesh.shape.get("sp", 1) if mesh is not None else 1
+    chunk = pick_loss_chunk(cfg, tokens.shape[1] * sp)
     if mesh is None:
         if chunk:
             hidden = forward(params, tokens, cfg, return_hidden=True)
@@ -461,15 +476,16 @@ def loss_fn(
             return total_nll / torch.clamp(total_cnt, min=1)
         return masked_ce(forward(params, tokens, cfg), targets)
     adt = dtype_of(cfg.dtype)
+    axes = sharding.token_axes(mesh)
     tp_mesh = mesh if _tp(mesh) > 1 else None
     hidden = _tp_input(forward(params, tokens, cfg, return_hidden=True, mesh=mesh), mesh)
     if chunk:
-        lm_head = _lm_head(params, cfg, mesh, adt)
+        lm_head = _lm_head(params, cfg, mesh, adt, axes)
         total, count = _chunked_nll(hidden, lm_head, targets, chunk, cfg.quant, tp_mesh)
     else:
-        lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt)
+        lm_head = _lm_head(params, cfg, mesh, None if cfg.quant == "int8" else adt, axes)
         total, count = _nll_sum(_logits(hidden, lm_head, cfg.quant), targets, tp_mesh)
-    return global_mean(total, count, mesh)
+    return global_mean(total, count, mesh, axes)
 
 
 def global_mean(total: torch.Tensor, count: torch.Tensor, mesh: sharding.Mesh,

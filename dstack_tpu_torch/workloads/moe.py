@@ -22,11 +22,17 @@ input and its expert-sharded output is written out
 [E, G_local, C, D] goes out and [E/ep, ep * G_local, C, D] comes in, the
 tokens of every ep rank for this rank's experts; the expert outputs take
 the way back. The experts' D axis is gathered on use over (dp, fsdp), as
-every dense weight's. Gradients: the experts' come out of the exchange's
-backward already holding every ep rank's tokens and are reduce-scattered
-over (dp, fsdp) only; the dense leaves, whole over ep, are summed over it
-too; the router and the norms, whole everywhere, over all three axes.
-The aux loss and the cross-entropy are means over the global batch.
+every dense weight's. Under tp (``MOE_PARAM_SPECS``' "tp" entries) the
+experts' hidden F splits over it, the Megatron way: w_gate and w_up are
+column-parallel (the expert inputs' gradient summed over tp), w_down
+row-parallel, its partial outputs all-reduced over tp before the combine;
+attention, the embed and the lm_head split over tp as the dense model's,
+and the cross-entropy is vocab-parallel. Gradients: the experts' come out
+of the exchange's backward already holding every ep rank's tokens and are
+reduce-scattered over (dp, fsdp) only; the dense leaves, whole over ep,
+are summed over it too; the router and the norms, whole everywhere, over
+the three batch axes (the tp ranks already agree on them). The aux loss
+and the cross-entropy are means over the global batch.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from dstack_tpu_torch.workloads.config import LlamaConfig
 from dstack_tpu_torch.workloads.kernels.collective import (
     all_to_all,
     gather_on_use,
+    max_over,
     reduce_backward,
     reduce_forward,
 )
@@ -178,13 +185,17 @@ def _expert_weight(params: Params, name: str, layer: int, cfg: MoeConfig,
     """A layer's expert weight [E/ep, K, N] in the activation dtype, its D
     axis gathered over the data ranks on use; under quant=int8 on the int8
     grid over K with straight-through gradients (fp8 leaves the experts
-    alone, as the JAX package does)."""
+    alone, as the JAX package does), w_down's scales joined over tp, which
+    splits its K."""
     w = params[name][layer]
     if mesh is None:
         w = w.to(adt)
     else:
         w = gather_on_use(w, 2 if name == "w_down" else 1, mesh, DATA_AXES, adt)
-    return quant_lib.fake_quant(w, axis=1) if cfg.quant == "int8" else w
+    if cfg.quant != "int8":
+        return w
+    row_parallel = name == "w_down" and model_lib._tp(mesh) > 1
+    return quant_lib.fake_quant(w, axis=1, reduce=max_over(mesh, "tp") if row_parallel else None)
 
 
 def _to_experts(x: torch.Tensor, mesh: sharding.Mesh) -> torch.Tensor:
@@ -234,12 +245,22 @@ def moe_mlp(x: torch.Tensor, params: Params, layer: int, cfg: MoeConfig,
     with record_function("moe.experts"):
         # One fp32-accumulated product rounded once to the activation dtype
         # (the reference's preferred_element_type=float32, then astype).
+        # Under tp each rank holds F/tp of the hidden: the inputs' gradient
+        # is summed over tp, the w_down partials in fp32 before the rounding.
+        tp = model_lib._tp(mesh)
         e_loc = expert_in.shape[0]
         xe = expert_in.reshape(e_loc, -1, d)
+        if tp > 1:
+            xe = reduce_backward(xe, mesh, "tp")
         gate = torch.bmm(xe, _expert_weight(params, "w_gate", layer, cfg, mesh, adt))
         up = torch.bmm(xe, _expert_weight(params, "w_up", layer, cfg, mesh, adt))
         hidden = torch.nn.functional.silu(gate.float()).to(adt) * up
-        expert_out = torch.bmm(hidden, _expert_weight(params, "w_down", layer, cfg, mesh, adt))
+        w_down = _expert_weight(params, "w_down", layer, cfg, mesh, adt)
+        if tp > 1:
+            expert_out = reduce_forward(torch.bmm(hidden.float(), w_down.float()), mesh,
+                                        "tp").to(adt)
+        else:
+            expert_out = torch.bmm(hidden, w_down)
         expert_out = expert_out.reshape(expert_in.shape)
     with record_function("moe.combine"):
         if exchange:
@@ -290,8 +311,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
     if return_hidden:
         return x, aux_total
     # The MoE lm_head is the fp product under every quant mode, as the
-    # reference's.
-    return model_lib._logits(x, model_lib._lm_head(params, cfg, mesh, adt, MOE_DATA_AXES),
+    # reference's; under tp the logits are this rank's V/tp columns.
+    return model_lib._logits(model_lib._tp_input(x, mesh),
+                             model_lib._lm_head(params, cfg, mesh, adt, MOE_DATA_AXES),
                              "none"), aux_total
 
 
@@ -302,14 +324,16 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: Mo
     are the global batch's, the same number on every rank."""
     targets = targets.to(params["embed"].device)
     chunk = model_lib.pick_loss_chunk(cfg, tokens.shape[1])
+    tp_mesh = mesh if model_lib._tp(mesh) > 1 else None
     if chunk:
         hidden, aux = forward(params, tokens, cfg, mesh, return_hidden=True)
         lm_head = model_lib._lm_head(params, cfg, mesh, model_lib.dtype_of(cfg.dtype),
                                      MOE_DATA_AXES)
-        total, count = model_lib._chunked_nll(hidden, lm_head, targets, chunk)
+        total, count = model_lib._chunked_nll(model_lib._tp_input(hidden, mesh), lm_head,
+                                              targets, chunk, tp_mesh=tp_mesh)
     else:
         logits, aux = forward(params, tokens, cfg, mesh)
-        total, count = model_lib._nll_sum(logits, targets)
+        total, count = model_lib._nll_sum(logits, targets, tp_mesh)
     if mesh is None:
         ce = total / torch.clamp(count, min=1)
     else:

@@ -216,14 +216,15 @@ def fp8_matmul_ste(x: torch.Tensor, w: torch.Tensor, reduce: Reduce = None) -> t
     return _Fp8MatmulSTE.apply(x, w, reduce)
 
 
-def fake_quant(w: torch.Tensor, axis: int) -> torch.Tensor:
+def fake_quant(w: torch.Tensor, axis: int, reduce: Reduce = None) -> torch.Tensor:
     """Quantize-dequantize onto the int8 grid with straight-through
     gradients, for weights ``int8_matmul`` cannot take (the MoE experts'
     [E, D, F] tensors, contracted by a batched product): per-channel scales
     over ``axis``, the values int8-grid exact, the gradient that of ``w``.
     The arithmetic is the JAX package's, ``w + (deq - w)`` with the
-    difference detached."""
-    values, scales = quantize_int8(w, axis)
+    difference detached. ``reduce`` joins the scales over ranks that split
+    ``axis``."""
+    values, scales = quantize_int8(w, axis, reduce)
     deq = (values.float() * scales).to(w.dtype)
     return w + (deq - w).detach()
 

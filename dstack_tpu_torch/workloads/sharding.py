@@ -8,7 +8,9 @@ with one process per card. The training mesh's axes, as the JAX package's:
 - ``fsdp`` fully sharded data parallel (parameters and batch split over
            it; a weight is gathered on use and its gradient reduce-scattered);
 - ``tp``   tensor parallel (attention heads, the MLP hidden and the vocab);
-- ``sp``   sequence parallel (ring attention; not ported, ROADMAP item 6).
+- ``sp``   sequence parallel (the tokens' sequence splits over it and ring
+           attention rotates the KV chunks around it; the parameters are
+           whole over it, so their gradients take one more sum over it).
 
 The MoE mesh (``make_moe_mesh``, the JAX package's ``moe.py:90-132``) adds
 ``ep`` between them, (dp, fsdp, ep, tp, sp): the experts split over ``ep``
@@ -16,6 +18,11 @@ on their E axis, and outside the experts ``ep`` is one more data axis, so
 the batch splits over (dp, fsdp, ep) (``MOE_DATA_AXES``) while the dense
 weights keep their (dp, fsdp) shards and are whole over ``ep``
 (``MOE_PARAM_SPECS``).
+
+The pipeline mesh (``make_pp_mesh``, the JAX package's ``pipeline.py``) is
+(dp, pp): the layer-stacked leaves split their L axis into contiguous
+stages over ``pp`` and the rest is whole (``PP_PARAM_SPECS``); the batch
+splits over ``dp``.
 
 The serve mesh (``make_serve_mesh``) has two: ``dd``, replicas that hold
 the same weights and run the same steps, and ``tp``, the Megatron split of
@@ -52,7 +59,11 @@ from dstack_tpu_torch.workloads import quantize as quant_lib
 MESH_AXES = ("dp", "fsdp", "tp", "sp")
 SERVE_MESH_AXES = ("dd", "tp")
 MOE_MESH_AXES = ("dp", "fsdp", "ep", "tp", "sp")
+PP_MESH_AXES = ("dp", "pp")
 DATA_AXES = ("dp", "fsdp")
+# The axes a dense training mesh splits the tokens over when sp > 1: the
+# rows over the data axes, the sequence over sp.
+TOKEN_AXES = DATA_AXES + ("sp",)
 # The axes an MoE batch splits over (the JAX package's MOE_BATCH).
 MOE_DATA_AXES = ("dp", "fsdp", "ep")
 
@@ -164,12 +175,29 @@ class Mesh:
                                       mesh_dim_names=self.axes)
         for axis in self.axes:
             self._groups[(axis,)] = self.device_mesh.get_group(axis)
-        self._groups[DATA_AXES] = self.device_mesh[DATA_AXES]._flatten("data").get_group()
+        if self.axes != PP_MESH_AXES:
+            self._groups[DATA_AXES] = self.device_mesh[DATA_AXES]._flatten("data").get_group()
         if self.axes == MOE_MESH_AXES:
             self._groups[MOE_DATA_AXES] = self.device_mesh[MOE_DATA_AXES]._flatten(
                 "batch").get_group()
+        if self.axes == MESH_AXES and self.shape["sp"] > 1:
+            # (dp, fsdp, sp) is not a contiguous run of the mesh's axes,
+            # which DeviceMesh flattens only: its groups are made directly.
+            self._groups[TOKEN_AXES] = self._new_groups(TOKEN_AXES)
         self._groups[self.axes] = dist.group.WORLD
         return self
+
+    def _new_groups(self, axes):
+        """Every rank's group over ``axes``, made with ``dist.new_group``
+        (collective: every rank makes every group, in the same order); this
+        rank's is returned."""
+        mine = None
+        for rank in sorted({min(self.members(axes, int(r))) for r in self.ranks.ravel()}):
+            members = self.members(axes, rank)
+            group = dist.new_group(sorted(members))
+            if self.rank in members:
+                mine = group
+        return mine
 
     def _connect_serve(self) -> "Mesh":
         """A serve mesh's groups: tp (``dist.new_group`` is collective, so
@@ -188,7 +216,7 @@ class Mesh:
 
     def group(self, axes):
         """The process group of ``axes`` (one axis, the data axes, on an MoE
-        mesh the batch axes, or all)."""
+        mesh the batch axes, under sp the token axes, or all)."""
         return self._groups[_axes(axes)]
 
     def host_group(self):
@@ -310,19 +338,42 @@ def spec_of_key(key: str, specs: Dict[str, Spec] = PARAM_SPECS) -> Spec:
 
 def param_specs(mesh: Optional[Mesh]) -> Dict[str, Spec]:
     """The parameter layout of a mesh: SERVE_PARAM_SPECS on a serve mesh,
-    MOE_PARAM_SPECS on an MoE mesh, PARAM_SPECS on a training mesh (and
-    without one)."""
+    MOE_PARAM_SPECS on an MoE mesh, PP_PARAM_SPECS on a pipeline mesh,
+    PARAM_SPECS on a training mesh (and without one)."""
     if mesh is not None and mesh.axes == SERVE_MESH_AXES:
         return SERVE_PARAM_SPECS
     if mesh is not None and mesh.axes == MOE_MESH_AXES:
         return MOE_PARAM_SPECS
+    if mesh is not None and mesh.axes == PP_MESH_AXES:
+        return PP_PARAM_SPECS
     return PARAM_SPECS
 
 
 def data_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
-    """The axes a training mesh splits the batch over: (dp, fsdp, ep) on an
-    MoE mesh, (dp, fsdp) otherwise."""
+    """The axes a training mesh splits the batch's rows over: (dp, fsdp, ep)
+    on an MoE mesh, (dp, fsdp) otherwise."""
     return MOE_DATA_AXES if mesh is not None and mesh.axes == MOE_MESH_AXES else DATA_AXES
+
+
+def token_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
+    """The axes a training mesh splits the tokens over: its data axes, and
+    sp on a dense mesh with sp > 1 (the reference's BATCH_SPEC). A leaf
+    whole over any of them has its gradient summed over it, and the loss
+    is a mean over all of them."""
+    if mesh is not None and mesh.axes == MESH_AXES and mesh.shape["sp"] > 1:
+        return TOKEN_AXES
+    return data_axes(mesh)
+
+
+def seq_chunk(seq: int, mesh: Optional[Mesh]) -> slice:
+    """This rank's contiguous chunk of a sequence of ``seq`` positions: the
+    whole of it unless the mesh splits it over sp."""
+    sp = mesh.shape.get("sp", 1) if mesh is not None else 1
+    if seq % sp:
+        raise ValueError(f"seq={seq} does not split into sp={sp} equal chunks")
+    n = seq // sp
+    i = mesh.index("sp") if sp > 1 else 0
+    return slice(i * n, (i + 1) * n)
 
 
 def validate_mesh(cfg, mesh: Mesh) -> None:
@@ -343,8 +394,9 @@ def validate_mesh(cfg, mesh: Mesh) -> None:
 
 # -- the MoE mesh (the JAX package's moe.py:90-132) ----------------------------
 #
-# Experts [L, E, D, F] split E over ep and D over (dp, fsdp) (gathered on
-# use, as every dense weight); their F would split over tp. The router
+# Experts [L, E, D, F] split E over ep, D over (dp, fsdp) (gathered on
+# use, as every dense weight) and F over tp (the Megatron split: gate and
+# up column-parallel, w_down row-parallel). The router
 # [L, D, E] is whole everywhere. The dense leaves keep PARAM_SPECS' layout,
 # so they are whole over ep, which holds other rows of the batch.
 
@@ -381,22 +433,60 @@ def make_moe_mesh(dp: int = 1, fsdp: int = 1, ep: Optional[int] = None, tp: int 
 
 
 def validate_moe_mesh(cfg, mesh: Mesh) -> None:
-    """The port's conditions on an MoE mesh: tp and sp are not ported for
-    MoE (the JAX package reaches them only through its library, never its
-    CLI), the experts split into whole blocks over ep, and every dense leaf
-    into whole blocks as on a training mesh."""
-    for axis in ("tp", "sp"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"MoE with {axis}={mesh.shape[axis]} is not yet ported to PyTorch"
-                f" (ROADMAP item 14)")
-    ep, data = mesh.shape["ep"], mesh.axis_size(DATA_AXES)
-    for name, dim, n in (("n_experts", cfg.n_experts, ep), ("d_model", cfg.d_model, data)):
+    """The port's conditions on an MoE mesh: sp is not ported for MoE (the
+    reference picks its routing groups from the global sequence, which a
+    rank's chunk does not see), the experts split into whole blocks over
+    ep, and every dense leaf into whole blocks as on a training mesh; tp
+    splits whole heads, the experts' hidden and the vocab."""
+    if mesh.shape["sp"] > 1:
+        raise NotImplementedError(
+            f"MoE with sp={mesh.shape['sp']} is not yet ported to PyTorch (ROADMAP item 14)")
+    ep, data, tp = mesh.shape["ep"], mesh.axis_size(DATA_AXES), mesh.shape["tp"]
+    for name, dim, n in (("n_experts", cfg.n_experts, ep), ("d_model", cfg.d_model, data),
+                         ("d_ff", cfg.d_ff, tp), ("n_heads", cfg.n_heads, tp),
+                         ("n_kv_heads", cfg.n_kv_heads, tp), ("vocab_size", cfg.vocab_size, tp)):
         if dim % n:
             raise ValueError(
                 f"mesh {mesh.describe()}: {name}={dim} does not split into {n} equal"
                 f" shards; the port shards whole blocks"
             )
+
+
+# -- the pipeline mesh (the JAX package's pipeline.py:33-63) -------------------
+#
+# The layer-stacked leaves split their leading L axis into pp contiguous
+# stages; the embed, the final norm and the lm_head are whole on every
+# rank, and nothing splits over dp, which holds other rows of the batch.
+
+PP_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "mlp_norm")
+
+PP_PARAM_SPECS: Dict[str, Spec] = {
+    **{k: ("pp",) for k in PP_LAYER_KEYS},
+    "embed": (None, None),
+    "final_norm": (None,),
+    "lm_head": (None, None),
+}
+
+
+def make_pp_mesh(dp: int = 1, pp: Optional[int] = None, world: Optional[int] = None,
+                 ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A (dp, pp) mesh over ``ranks`` (default: ranks 0..world-1, world
+    defaulting to the process group's size, or 1 without one); pp=None
+    absorbs the remaining ranks. The errors are the JAX package's, a rank
+    standing for a device."""
+    if ranks is None:
+        if world is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = range(world)
+    ranks = list(ranks)
+    n = len(ranks)
+    if pp is None:
+        if n % dp != 0:
+            raise ValueError(f"{n} devices not divisible by dp={dp}")
+        pp = n // dp
+    if dp * pp != n:
+        raise ValueError(f"mesh {dp}x{pp} != {n} devices")
+    return Mesh(dict(dp=dp, pp=pp), np.array(ranks), PP_MESH_AXES)
 
 
 # -- the serve mesh (the JAX module's sharding.py:104-219) --------------------

@@ -31,6 +31,7 @@ import os
 import time
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -197,6 +198,20 @@ def init_train_state(
     for p in params.values():
         p.requires_grad_(True)
     return TrainState(params=params, opt=optimizer.build(params))
+
+
+def local_batch(tokens: np.ndarray, targets: np.ndarray, mesh: Optional[sharding.Mesh],
+                grad_accum: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """This rank's part of a global batch (numpy [B, T]): its rows over the
+    mesh's data axes, microbatch by microbatch (``data.rank_rows``), and
+    under sp its chunk of the sequence. Meshless: the batch as it is."""
+    if mesh is None:
+        return tokens, targets
+    axes = sharding.data_axes(mesh)
+    rows = data_lib.rank_rows(tokens.shape[0], grad_accum, mesh.index(axes),
+                              mesh.axis_size(axes))
+    cols = sharding.seq_chunk(tokens.shape[1], mesh)
+    return tokens[rows][:, cols], targets[rows][:, cols]
 
 
 def check_microbatch(batch: int, grad_accum: int, data_shards: int,
@@ -706,7 +721,7 @@ def train(
         axes = sharding.data_axes(mesh)
         shards = {} if mesh is None else dict(
             data_index=mesh.index(axes), data_shards=mesh.axis_size(axes),
-            grad_accum=grad_accum)
+            grad_accum=grad_accum, columns=sharding.seq_chunk(seq, mesh))
         feed = data_lib.input_pipeline(
             batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch, device=device,
             start_batch=start_step, **shards,

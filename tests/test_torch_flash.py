@@ -169,15 +169,24 @@ class TestDispatch:
             with pytest.raises(ValueError, match="CUDA device"):
                 call()
 
-    def test_splash_and_meshes_are_not_ported(self):
-        """Splash is ported (tests/test_torch_splash.py), and so is the
-        training mesh (tests/test_torch_train_mesh.py); a sequence-parallel
-        mesh (ring attention) is not."""
-        from dstack_tpu_torch.workloads.sharding import make_mesh
+    def test_splash_and_meshes_are_not_ported(self, tmp_path):
+        """Splash, the training mesh and now the sequence-parallel mesh are
+        ported (tests/test_torch_splash.py, test_torch_train_mesh.py,
+        test_torch_ring.py; the name is the one this test had while sp was
+        refused): attention_core(flash) at sp 2, on two gloo ranks each
+        holding its half of the sequence, runs ring attention and equals
+        the blockwise walk over the whole sequence."""
+        from tests.torch_mesh_worker import start_world
 
-        q, k, v = (t(x) for x in qkv(8))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tattn.attention_core(q, k, v, "flash", mesh=make_mesh(sp=2, world=2))
+        q, k, v = qkv(8)
+        results = start_world([("attention_core_sp", dict(shape=dict(fsdp=1, sp=2), q=q, k=k,
+                                                          v=v, impl="flash"))],
+                              2, tmp_path / "world", timeout=120)()
+        got = np.zeros(q.shape, np.float32)
+        for (rank,) in results:
+            got[rank["q_index"]] = rank["out"]
+        want = tattn.blockwise_attention(*(t(x) for x in (q, k, v))).numpy()
+        np.testing.assert_allclose(got, want, atol=TOL)
 
     def test_validate_config_checks_each_impls_block_menu(self):
         """576 takes the in-repo kernel's block of 64 but none of the public

@@ -169,14 +169,35 @@ def test_validate_config_takes_the_examples_mesh_and_refuses_uneven_shards():
     tvalidate(cfg, seq=64, device="cpu", mesh=sharding.make_mesh(fsdp=2, tp=2, world=4), batch=4)
     with pytest.raises(ValueError, match="whole heads"):
         tvalidate(tget_config("test", d_ff=690), seq=64, mesh=sharding.make_mesh(tp=4, world=4))
-    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP item 6"):
-        tvalidate(tget_config("test"), seq=64, mesh=sharding.make_mesh(fsdp=2, sp=2, world=4))
+    # A blockwise sp mesh, once refused naming ROADMAP item 6, validates;
+    # its sequence must split into whole chunks.
+    tvalidate(tget_config("test"), seq=64, mesh=sharding.make_mesh(fsdp=2, sp=2, world=4))
+    with pytest.raises(ValueError, match="seq=63 does not split into sp=2"):
+        tvalidate(tget_config("test"), seq=63, mesh=sharding.make_mesh(fsdp=2, sp=2, world=4))
 
 
-def test_attention_under_a_sequence_parallel_mesh_is_not_ported():
+def test_moe_under_sp_still_raises_naming_item_14():
+    from dstack_tpu_torch.workloads.moe import MOE_PRESETS
+
+    with pytest.raises(NotImplementedError, match="MoE with sp=2 .*ROADMAP item 14"):
+        tvalidate(MOE_PRESETS["moe_test"], seq=64,
+                  mesh=sharding.make_moe_mesh(ep=2, sp=2, world=4))
+    # MoE under tp validates (its dims split over tp).
+    tvalidate(MOE_PRESETS["moe_test"], seq=64, mesh=sharding.make_moe_mesh(ep=2, tp=2, world=4))
+
+
+def test_attention_under_a_sequence_parallel_mesh_is_not_ported(monkeypatch):
+    """Ported since (the name is the one this test had while sp was
+    refused): under a mesh with sp > 1, attention_core runs ring attention
+    on the rank's chunk, whatever attn_impl says, as the reference's
+    dispatch does (tests/test_torch_ring.py holds it against JAX)."""
+    calls = []
+    monkeypatch.setattr(tattn, "ring_attention",
+                        lambda q, k, v, mesh, causal: calls.append((mesh.shape, causal)) or q)
     q = torch.zeros((1, 16, 2, 8))
-    with pytest.raises(NotImplementedError, match="ring attention.*ROADMAP item 6"):
-        tattn.attention_core(q, q, q, "blockwise", sharding.make_mesh(sp=2, world=2))
+    for impl in ("blockwise", "flash", "splash"):
+        assert tattn.attention_core(q, q, q, impl, sharding.make_mesh(sp=2, world=2)) is q
+    assert calls == [(dict(dp=1, fsdp=1, tp=1, sp=2), True)] * 3
 
 
 @pytest.mark.parametrize("argv,error", [

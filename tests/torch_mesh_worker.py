@@ -158,17 +158,14 @@ def train_steps(shape, cfg_kw, params, batches, grad_accum=1, mu_dtype=None, ckp
     """Steps of the port's sharded train step from the global ``params`` on
     the global ``batches``: each step's loss and grad norm, and this rank's
     state after the last (saved to ``ckpt_dir`` at the last step if given)."""
-    from dstack_tpu_torch.workloads import checkpoint, data, train
-    from dstack_tpu_torch.workloads.sharding import DATA_AXES
+    from dstack_tpu_torch.workloads import checkpoint, train
 
     mesh, cfg, optimizer, state = _state(shape, cfg_kw, params, mu_dtype)
     step = train.make_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
     losses, norms = [], []
     for tokens, targets in batches:
-        rows = data.rank_rows(tokens.shape[0], grad_accum, mesh.index(DATA_AXES),
-                              mesh.axis_size(DATA_AXES))
-        state, metrics = step(state, torch.from_numpy(tokens[rows]),
-                              torch.from_numpy(targets[rows]))
+        tokens, targets = train.local_batch(tokens, targets, mesh, grad_accum)
+        state, metrics = step(state, torch.from_numpy(tokens), torch.from_numpy(targets))
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
     if ckpt_dir is not None:
@@ -198,7 +195,7 @@ def moe_steps(shape, cfg_kw, params, batches, grad_accum=1, ckpt_dir=None):
     (make_moe_mesh's kwargs) from the global ``params`` on the global
     ``batches``: each step's loss and grad norm, this rank's state after the
     last (saved to ``ckpt_dir`` if given) and its coordinates."""
-    from dstack_tpu_torch.workloads import checkpoint, data, moe, sharding, train
+    from dstack_tpu_torch.workloads import checkpoint, moe, sharding, train
 
     mesh = sharding.make_moe_mesh(**shape).connect(CPU)
     cfg = moe.MoeConfig(**cfg_kw)
@@ -207,13 +204,10 @@ def moe_steps(shape, cfg_kw, params, batches, grad_accum=1, ckpt_dir=None):
     state = moe.init_moe_train_state(cfg, optimizer,
                                      params={k: v.clone() for k, v in local.items()})
     step = moe.make_moe_train_step(cfg, optimizer, mesh, grad_accum=grad_accum)
-    axes = sharding.MOE_DATA_AXES
     losses, norms = [], []
     for tokens, targets in batches:
-        rows = data.rank_rows(tokens.shape[0], grad_accum, mesh.index(axes),
-                              mesh.axis_size(axes))
-        state, metrics = step(state, torch.from_numpy(tokens[rows]),
-                              torch.from_numpy(targets[rows]))
+        tokens, targets = train.local_batch(tokens, targets, mesh, grad_accum)
+        state, metrics = step(state, torch.from_numpy(tokens), torch.from_numpy(targets))
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
     if ckpt_dir is not None:
@@ -222,6 +216,75 @@ def moe_steps(shape, cfg_kw, params, batches, grad_accum=1, ckpt_dir=None):
                      mesh_shape=dict(mesh.shape), block=True)
         manager.close()
     return dict(losses=losses, norms=norms, coords=mesh.coords(), tree=_tree(state))
+
+
+def _token_slices(mesh, shape):
+    """This rank's index into a global [B, T, heads, D] activation: its
+    rows over the data axes, its chunk of the sequence, its heads over tp."""
+    from dstack_tpu_torch.workloads import sharding
+
+    b, t, h = shape[:3]
+    data, tp = mesh.axis_size(sharding.DATA_AXES), mesh.shape["tp"]
+    di, ti = mesh.index(sharding.DATA_AXES), mesh.index("tp")
+    return (slice(di * b // data, (di + 1) * b // data), sharding.seq_chunk(t, mesh),
+            slice(ti * h // tp, (ti + 1) * h // tp))
+
+
+@task
+def ring_attention(shape, q, k, v, r, causal, block_size=512):
+    """``attention.ring_attention`` on this rank's part of the global q
+    [B, T, H, D] and k, v [B, T, Kh, D] (rows over the data axes, sequence
+    over sp, heads over tp), and the gradients of sum(out * r): this rank's
+    out, dq, dk, dv with their global indices."""
+    from dstack_tpu_torch.workloads import attention
+
+    mesh = _mesh(shape)
+    qi, ki = _token_slices(mesh, q.shape), _token_slices(mesh, k.shape)
+    qs = torch.from_numpy(q[qi]).requires_grad_(True)
+    ks = torch.from_numpy(k[ki]).requires_grad_(True)
+    vs = torch.from_numpy(v[ki]).requires_grad_(True)
+    out = attention.ring_attention(qs, ks, vs, mesh, causal=causal, block_size=block_size)
+    (out * torch.from_numpy(r[qi])).sum().backward()
+    return dict(out=_host(out), dq=_host(qs.grad), dk=_host(ks.grad), dv=_host(vs.grad),
+                q_index=qi, k_index=ki)
+
+
+@task
+def attention_core_sp(shape, q, k, v, impl):
+    """``attention.attention_core(impl)`` on this rank's part of q, k, v
+    under the mesh: this rank's output and its global index."""
+    from dstack_tpu_torch.workloads import attention
+
+    mesh = _mesh(shape)
+    qi, ki = _token_slices(mesh, q.shape), _token_slices(mesh, k.shape)
+    out = attention.attention_core(torch.from_numpy(q[qi]), torch.from_numpy(k[ki]),
+                                   torch.from_numpy(v[ki]), impl, mesh)
+    return dict(out=_host(out), q_index=qi)
+
+
+@task
+def pipeline(shape, cfg_kw, params, tokens, targets, n_micro, grads):
+    """The port's GPipe on the (dp, pp) mesh of ``shape`` from the global
+    ``params`` and batch: with ``grads`` the loss and the gradient of this
+    rank's pieces, else the forward's logits of this rank's rows (in
+    ``rows`` order)."""
+    from dstack_tpu_torch.workloads import data, pipeline as pp_lib
+    from dstack_tpu_torch.workloads.config import get_config
+
+    mesh = pp_lib.make_pp_mesh(**shape).connect(CPU)
+    cfg = get_config("test", **cfg_kw)
+    local = {k: v.clone().requires_grad_(grads) for k, v in pp_lib.shard_params_pp(
+        {k: torch.from_numpy(v) for k, v in params.items()}, mesh).items()}
+    rows = data.rank_rows(tokens.shape[0], n_micro, mesh.index("dp"), mesh.shape["dp"])
+    tok, tgt = torch.from_numpy(tokens[rows]), torch.from_numpy(targets[rows])
+    if not grads:
+        with torch.no_grad():
+            logits = pp_lib.pipelined_forward(local, tok, cfg, mesh, n_micro)
+        return dict(logits=_host(logits), rows=rows, coords=mesh.coords())
+    loss = pp_lib.pipelined_loss_fn(local, tok, tgt, cfg, mesh, n_micro)
+    got = torch.autograd.grad(loss, list(local.values()))
+    return dict(loss=loss.item(), grads={k: _host(g) for k, g in zip(local, got)},
+                coords=mesh.coords())
 
 
 @task
