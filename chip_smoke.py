@@ -223,20 +223,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              "moe multi-card: not run".
 16. mesh axes - the pipeline, sequence and MoE-tensor axes. (a) GPipe
              (pipeline.pipelined_loss_fn) on llama3_1b at full width and
-             depth (fp32 masters, bf16 activations, remat full, flash,
-             batch 2 x 8192, 2 microbatches) over pp 2 as two processes
+             DEPTH_CUTS' depth (4 of 16 layers; fp32 masters, bf16
+             activations, remat full, flash, batch 2 x 8192, 2
+             microbatches) over pp 2 as two processes
              sharing the card over gloo, against meshless loss_fn on the
              same parameters and batch in a process of its own: the loss
              within 1e-3 relative, each leaf's gradient norm (a layer
              leaf's by stage) within 1%, the flash launches a rank exactly
-             8 layers x 2 microbatches x 2 (forward, and again under remat)
-             and 8 x 2 (dq, dk/dv), the forward-and-backward time and the
+             2 layers x 2 microbatches x 2 (forward, and again under remat)
+             and 2 x 2 (dq, dk/dv), the forward-and-backward time and the
              peak a rank beside meshless; then fp32 at 2 layers, seq 1024,
              every gradient piece within 1e-5 of its leaf's largest value.
              (b) ring attention over sp 2 (two processes on the card,
-             blockwise): 2 steps of train.train on llama3_1b, batch 2 x
-             8192, against meshless within 1e-3 relative; fp32 at 2 layers,
-             seq 1024, 3 steps within 1e-5. (c) MoE under tp: fp32 Mixtral
+             blockwise): 2 steps of train.train on llama3_1b (4 layers),
+             batch 2 x 8192, against meshless within 1e-3 relative; fp32
+             at 2 layers, seq 1024, 3 steps within 1e-5. (c) MoE under tp: fp32 Mixtral
              width at 1 layer, seq 1024, ep 1 x tp 2 on two processes, and
              moe_test at ep 2 x tp 2 on four, 2 steps each within 1e-5 of
              meshless. (d) python -m dstack_tpu_torch.dryrun 16 on the
@@ -246,6 +247,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              peaks a rank; on one card it logs "mesh axes multi-card: not
              run". gloo's times on one card are host copies: correctness
              only.
+17. last paths - (a) the tile menu (kernels/flash.py TILE_MENU): a
+             pair off the menu and a tile edge the library is not built at
+             raising, every pair's flash and splash kernels (W 4096, with
+             and without four documents) against their plain versions at
+             llama3_1b heads (T 8192 bf16) and at D 64, at atol 2e-5, dq
+             and dk/dv at every pair against fp64 sums per head, the planted
+             tile and band faults at each pair's own edges, each pair's
+             times. Every main-path launch of the other phases ran at the
+             default pair, or the run fails. (b)
+             train.main with phase 10's flags and --autotune in a fresh
+             autotune directory: the sweep's line and cache entry, every
+             splash launch exact and at the pair it ran, losses finite and
+             falling; one more step without --autotune reads the cache and
+             sweeps nothing. (c) the remat policies full, dots and save_proj
+             on llama3_1b (flash, batch 2 x 8192, 3 steps each): losses
+             within 1e-4 of full's, step time, peak memory, exact flash
+             launches; save_proj against full in fp32 at 2 layers within
+             1e-6. (d) --draft-head under torchrun at world 1 (NCCL)
+             against meshless, bit for bit; moe_test under sp 2 and with the
+             all-gather ring at fsdp 2 as two gloo processes on the card
+             within 1e-5 of meshless; the draft head at fsdp 2 x tp 2 over
+             NCCL when four cards are visible.
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}. Exits non-zero
@@ -904,7 +927,7 @@ def flash_compare(label, q3, k3, v3, do3, causal) -> dict:
     return errs
 
 
-def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
+def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None, pairs=None) -> None:
     """dq and dk/dv against an exact computation: per KV head, scores, p, ds
     and the sums over every key (dq) and every query (dk, dv) in fp64 from
     the same inputs, lse and delta. With ``window`` None, the flash kernels:
@@ -916,7 +939,9 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
     not held to the limit: batched over the KV heads (the former form) and
     one KV head at a time. With a ``window``, the splash kernels under the
     causal band of that window (no documents): the tensor-core dq and dk/dv
-    and their plain versions, held to the same limit."""
+    and their plain versions, held to the same limit. With ``pairs`` (menu
+    pairs), the tensor-core kernels run at each pair beside the plain
+    versions, and the fp32 drift readings are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -931,7 +956,17 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
     delta = (do3 * ro).sum(-1)
     del ro
     args = (q3, k3, v3, do3, lse, delta)
-    if window is None:
+    if pairs is not None:
+        kind = splash if window is not None else flash
+        prefix = "splash" if window is not None else "flash"
+        extra = (None, None, True, window) if window is not None else (True,)
+        names = (f"{prefix}_bwd_dq", f"{prefix}_bwd_dkv")
+        dkv_fn, dq_fn = getattr(kind, names[1]), getattr(kind, names[0])
+        runs = {f"kernel at {bq}x{bk}": dkv_fn(*args, *extra, (bq, bk)) for bq, bk in pairs}
+        runs["plain version"] = getattr(kind, names[1] + "_plain")(*args, *extra)
+        dq_runs = {f"kernel at {bq}x{bk}": dq_fn(*args, *extra, (bq, bk)) for bq, bk in pairs}
+        dq_runs["plain version"] = getattr(kind, names[0] + "_plain")(*args, *extra)
+    elif window is None:
         names = ("flash_bwd_dq", "flash_bwd_dkv")
         runs = {"tensor-core kernel": flash.flash_bwd_dkv(*args, True),
                 "plain version": flash.flash_bwd_dkv_plain(*args, True),
@@ -979,7 +1014,7 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
         log(f"kernel {name} {label}: max |x - fp64| over the {heads}: "
             + ", ".join(f"{run} {err:.3e}" for run, err in found.items())
             + f" (atol {FLASH_TOL:g}) ok")
-    if window is not None:
+    if window is not None or pairs is not None:
         del runs, dq_runs
         torch.cuda.empty_cache()
         return
@@ -1008,34 +1043,37 @@ def flash_bwd_against_fp64(label, q3, k3, v3, do3, window=None) -> None:
     torch.cuda.empty_cache()
 
 
-def flash_planted_faults(label, q3, k3, v3, do3) -> None:
+def flash_planted_faults(label, q3, k3, v3, do3,
+                         tiles=(FLASH_TILE, FLASH_DQ_KV_TILE, FLASH_DKV_Q_TILE)) -> None:
     """What a kernel that skipped one tile would read against the plain
     version, computed by the plain versions: the forward and dq without
     their last KV tile, dk/dv without the last q tile (its do and delta rows
     set to 0, which removes exactly that tile's terms). Under causal masking
     the last rows spread their softmax over the most keys, so these tiles
     carry the smallest weights and their loss is the hardest to see. Each
-    reading must lie far outside FLASH_TOL."""
+    reading must lie far outside FLASH_TOL. ``tiles``: the forward's and
+    dq's KV tile and dk/dv's q tile."""
     import torch
 
     from dstack_tpu_torch.workloads.kernels import flash
 
-    keep = k3.shape[1] - FLASH_TILE
-    keep_dq = k3.shape[1] - FLASH_DQ_KV_TILE
+    fwd_tile, dq_tile, dkv_tile = tiles
+    keep = k3.shape[1] - fwd_tile
+    keep_dq = k3.shape[1] - dq_tile
     ro, rlse = flash.flash_fwd_plain(q3, k3, v3, True)
     delta = (do3 * ro).sum(-1)
     fo, flse = flash.flash_fwd_plain(q3, k3[:, :keep], v3[:, :keep], True)
     dq = flash.flash_bwd_dq_plain(q3, k3, v3, do3, rlse, delta, True)
     fdq = flash.flash_bwd_dq_plain(q3, k3[:, :keep_dq], v3[:, :keep_dq], do3, rlse, delta, True)
     cut_do, cut_delta = do3.clone(), delta.clone()
-    cut_do[:, -FLASH_DKV_Q_TILE:] = 0
-    cut_delta[:, -FLASH_DKV_Q_TILE:] = 0
+    cut_do[:, -dkv_tile:] = 0
+    cut_delta[:, -dkv_tile:] = 0
     dkv = flash.flash_bwd_dkv_plain(q3, k3, v3, do3, rlse, delta, True)
     fdkv = flash.flash_bwd_dkv_plain(q3, k3, v3, cut_do, rlse, cut_delta, True)
     readings = {
-        "flash_fwd": ("last KV tile", FLASH_TILE, (fo, flse), (ro, rlse)),
-        "flash_bwd_dq": ("last KV tile", FLASH_DQ_KV_TILE, (fdq,), (dq,)),
-        "flash_bwd_dkv": ("last q tile", FLASH_DKV_Q_TILE, fdkv, dkv),
+        "flash_fwd": ("last KV tile", fwd_tile, (fo, flse), (ro, rlse)),
+        "flash_bwd_dq": ("last KV tile", dq_tile, (fdq,), (dq,)),
+        "flash_bwd_dkv": ("last q tile", dkv_tile, fdkv, dkv),
     }
     for name, (tile, rows, fault, ref) in readings.items():
         err = max(float((f - r).abs().max()) for f, r in zip(fault, ref))
@@ -1304,7 +1342,7 @@ def band_faults(t, window, rows, keys):
     }
 
 
-def splash_planted_faults(label, q3, k3, v3, do3, window) -> None:
+def splash_planted_faults(label, q3, k3, v3, do3, window, tiles=SPLASH_TILES) -> None:
     """What kernels with an off-by-one at the band's edges would read
     against the plain versions, computed by the plain versions at each
     kernel's own tile edges (SPLASH_TILES): the forward and dq dropping each
@@ -1323,7 +1361,7 @@ def splash_planted_faults(label, q3, k3, v3, do3, window) -> None:
     run = {"splash_fwd": lambda: splash.splash_fwd_plain(q3, k3, v3, None, None, True, window),
            "splash_bwd_dq": lambda: (splash.splash_bwd_dq_plain(*args),),
            "splash_bwd_dkv": lambda: splash.splash_bwd_dkv_plain(*args)}
-    for name, (rows, keys) in SPLASH_TILES.items():
+    for name, (rows, keys) in tiles.items():
         tile = "live q tile" if name == "splash_bwd_dkv" else "live KV tile"
         for edge, (kv_drop, q_drop) in band_faults(t, window, rows, keys).items():
             # Each faulty kernel reads the right residuals (lse, delta) and
@@ -2246,7 +2284,7 @@ def phase_train(card: str) -> dict:
         stats = train.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                             device=torch.device("cuda"), grad_accum=grad_accum,
                             on_step=on_step)
-        got = dict(flash.launches)
+        got = default_launches(flash)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
             raise AssertionError(f"grad_accum={grad_accum}: losses {losses}")
@@ -2370,13 +2408,42 @@ SPLASH_MAIN_ARGV = ["--config", "llama3_1b", "--attn-impl", "splash", "--attn-wi
                     "--prefetch", "2", "--seq", "8192", "--steps", "3"]
 
 
+def stray_pairs(*mods) -> dict:
+    """The launches of ``mods``' wrappers since their last reset that ran at
+    a pair other than DEFAULT_BLOCKS, by wrapper and pair ("64x32"), and
+    under "unpaired" any launches that their pair counts do not hold."""
+    from dstack_tpu_torch.workloads.kernels.flash import DEFAULT_BLOCKS
+
+    out = {}
+    for mod in mods:
+        for name, by_pair in mod.pair_launches.items():
+            stray = {"%dx%d" % p: n for p, n in by_pair.items() if p != DEFAULT_BLOCKS}
+            if sum(by_pair.values()) != mod.launches[name]:
+                stray["unpaired"] = mod.launches[name] - sum(by_pair.values())
+            if stray:
+                out[name] = stray
+    return out
+
+
+def default_launches(mod) -> dict:
+    """``mod``'s launches since its last reset, read from its pair counts:
+    every one must have run at DEFAULT_BLOCKS. The main paths outside 17 (b)
+    pass no blocks and run with main's empty autotune directory."""
+    from dstack_tpu_torch.workloads.kernels.flash import DEFAULT_BLOCKS
+
+    stray = stray_pairs(mod)
+    if stray:
+        raise AssertionError(f"launches off the default pair {DEFAULT_BLOCKS}: {stray}")
+    return {name: by_pair[DEFAULT_BLOCKS] for name, by_pair in mod.pair_launches.items()}
+
+
 def check_splash_launches(label, cfg, microbatches, steps) -> dict:
     """The splash launches of a run: exactly 2 x layers x microbatches x
     steps forwards (the forward and again under remat) and layers x
     microbatches x steps of each backward kernel; no flash launch."""
     from dstack_tpu_torch.workloads.kernels import flash, splash
 
-    got = dict(splash.launches)
+    got = default_launches(splash)
     calls = cfg.n_layers * microbatches * steps
     want = {"splash_fwd": 2 * calls, "splash_bwd_dq": calls, "splash_bwd_dkv": calls}
     if got != want or any(flash.launches.values()):
@@ -2515,9 +2582,9 @@ FP8_LIMIT = 1e-3
 # The training example's single-card command line with --quant fp8, 4 steps.
 HANDOFF_TRAIN_ARGV = SPLASH_MAIN_ARGV[:-2] + ["--quant", "fp8", "--steps", "4"]
 # Phases 12-14 run llama3_1b and llama3_8b at their full widths and these
-# depths (of 16 and 32 layers): at full depth the script with phase 16
-# passes its time limit. The cut is set in the environment, so that their
-# child processes take it too.
+# depths (of 16 and 32 layers), and phase 16's llama3_1b runs take the same
+# depth: at full depth the script passes its time limit. The cut is set in
+# the environment, so that the children of phases 12-14 take it too.
 DEPTH_CUTS = {"llama3_1b": 4, "llama3_8b": 8}
 DEPTH_ENV = "CHIP_SMOKE_DEPTH_CUTS"
 
@@ -2712,7 +2779,8 @@ def handoff_child(kind: str, argv_json: str, report: str) -> None:
         sums = param_sums(last["state"].params) if "state" in last else None
         with open(report, "w", encoding="utf-8") as f:
             json.dump({"losses": losses, "splash": dict(splash.launches),
-                       "flash": dict(flash.launches), "stats": stats, "param_sums": sums,
+                       "flash": dict(flash.launches), "stray_pairs": stray_pairs(flash, splash),
+                       "stats": stats, "param_sums": sums,
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9
                        if torch.cuda.is_available() else 0.0}, f)
 
@@ -2739,6 +2807,8 @@ def run_child(label: str, kind: str, argv: list, workdir: str, expect_rc: int = 
                              f"{proc.stderr[-4000:]}")
     with open(report, encoding="utf-8") as f:
         out = json.load(f)
+    if out["stray_pairs"]:
+        raise AssertionError(f"{label}: launches off the default pair {out['stray_pairs']}")
     out["losses"] = {int(s): loss for s, loss in out["losses"].items()}
     out["wall_s"] = time.monotonic() - t0
     with open(telemetry, encoding="utf-8") as f:
@@ -3069,6 +3139,8 @@ def run_ranks(label: str, code: str, args: list, world: int, workdir: str, timeo
         stdout = stdout_err[0]
         with open(report, encoding="utf-8") as f:
             out = json.load(f)
+        if out.get("stray_pairs"):
+            raise AssertionError(f"{label}: launches off the default pair {out['stray_pairs']}")
         if "losses" in out:
             out["losses"] = {int(s): loss for s, loss in out["losses"].items()}
         out["wall_s"] = wall
@@ -4078,23 +4150,21 @@ def moe_batches(vocab: int, batch: int, seq: int, steps: int, seed: int) -> list
 def moe_steps(cfg, seed: int, batches: list, device, mesh=None) -> dict:
     """Steps of the MoE train step from ``init_moe_params`` of ``seed``
     (this rank's pieces under an MoE ``mesh``) on the global ``batches``
-    (this rank's rows): each step's loss, grad norm and wall time, and the
+    (this rank's rows, under sp its chunk): each step's loss, grad norm and
+    wall time, and the
     peak memory."""
     import torch
 
-    from dstack_tpu_torch.workloads import data, moe, sharding, train
+    from dstack_tpu_torch.workloads import moe, train
 
     optimizer = train.make_optimizer()
     params = moe.init_moe_params(cfg, torch.Generator(device=device).manual_seed(seed), device,
                                  mesh=mesh)
     state = moe.init_moe_train_state(cfg, optimizer, params=params)
     step = moe.make_moe_train_step(cfg, optimizer, mesh)
-    axes = sharding.MOE_DATA_AXES
     losses, norms, times = [], [], []
     for tokens, targets in batches:
-        if mesh is not None:
-            rows = data.rank_rows(tokens.shape[0], 1, mesh.index(axes), mesh.axis_size(axes))
-            tokens, targets = tokens[rows], targets[rows]
+        tokens, targets = train.local_batch(tokens, targets, mesh)
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         state, m = step(state, torch.from_numpy(tokens).to(device),
@@ -4142,8 +4212,10 @@ def moe_mesh_child(plan_json: str, report: str) -> None:
     """One rank of an MoE mesh under torchrun's environment: over gloo with
     every rank on cuda:0 (four processes sharing one card, after
     ``moe_gloo_probe``), or over NCCL one card a rank. Runs ``moe_steps``
-    on each mesh of the plan and, with ``time_a2a``, times the dispatch's
-    all-to-all at the plan's shapes; writes the results as JSON."""
+    on each mesh of the plan (a shape's "cfg" overrides the config there)
+    and, with ``time_a2a``, times the dispatch's all-to-all at the plan's
+    shapes; writes the results as JSON."""
+    import dataclasses
     import os
 
     import torch
@@ -4176,9 +4248,11 @@ def moe_mesh_child(plan_json: str, report: str) -> None:
         cfg = moe_config(run["config"], run["layers"], **run["overrides"])
         batches = moe_batches(cfg.vocab_size, run["batch"], run["seq"], run["steps"], run["seed"])
         for name, shape in plan["shapes"].items():
+            shape = dict(shape)
+            shape_cfg = dataclasses.replace(cfg, **shape.pop("cfg", {}))
             torch.cuda.reset_peak_memory_stats(device)
             mesh = sharding.make_moe_mesh(**shape).connect(device)
-            out[name] = moe_steps(cfg, run["seed"], batches, device, mesh)
+            out[name] = moe_steps(shape_cfg, run["seed"], batches, device, mesh)
             if plan.get("time_a2a"):
                 group = next(c for c in range(min(cfg.router_group, run["seq"]), 0, -1)
                              if run["seq"] % c == 0)
@@ -4220,7 +4294,7 @@ def moe_mixtral(card: str) -> dict:
     with drop_counter() as drops:
         stats = train.train(cfg, steps=MIXTRAL_STEPS, batch=MIXTRAL_BATCH, seq=MIXTRAL_SEQ,
                             device=torch.device("cuda"), on_step=on_step)
-    got = dict(flash.launches)
+    got = default_launches(flash)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(losses) != MIXTRAL_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"mixtral: losses {losses}")
@@ -4402,13 +4476,14 @@ def phase_moe(card: str) -> dict:
 
 # -- phase 16: the mesh axes -------------------------------------------------------
 #
-# llama3_1b at full width and depth (fp32 masters, bf16 activations, remat
-# full), batch 2 x 8192: GPipe over pp 2 (2 microbatches, the flash
+# llama3_1b at full width and DEPTH_CUTS' depth (fp32 masters, bf16
+# activations, remat full), batch 2 x 8192: GPipe over pp 2 (2 microbatches, the flash
 # kernels in every stage) and the ring over sp 2 (blockwise, the
 # reference's ring core), each as two processes sharing the card over gloo;
 # then fp32 identity at 2 layers, seq 1024. MoE under tp: fp32 Mixtral
 # width at 1 layer over ep 1 x tp 2 and moe_test over ep 2 x tp 2.
-AXES_RUN = dict(config="llama3_1b", batch=2, seq=8192, seed=16)
+AXES_RUN = dict(config="llama3_1b", layers=DEPTH_CUTS["llama3_1b"], batch=2, seq=8192,
+                seed=16)
 AXES_SMALL = dict(layers=2, seq=1024)
 PP_MICRO = 2
 # bf16 runs whose sums round in other orders: the loss relative, each
@@ -4425,15 +4500,13 @@ AXES_MOE_TEST_SHAPES = {"ep2xtp2": dict(dp=1, fsdp=1, ep=2, tp=2, sp=1)}
 AXES_CARDS = dict(pp=4, pp_batch=4, pp_micro=4, sp=4, sp_seq=32768, sp_batch=2)
 
 
-def axes_config(layers: int = 0, **overrides):
-    """llama3_1b for phase 16: flash, remat full, at ``layers`` layers
-    (0: all 16), with ``overrides``."""
+def axes_config(layers: int = AXES_RUN["layers"], **overrides):
+    """llama3_1b for phase 16: flash, remat full, at ``layers`` layers, with
+    ``overrides``."""
     from dstack_tpu_torch.workloads.config import get_config
 
     kw = {"attn_impl": "flash", "remat": True, "remat_policy": "full", **overrides}
-    if layers:
-        kw["n_layers"] = layers
-    return get_config(AXES_RUN["config"], **kw)
+    return get_config(AXES_RUN["config"], n_layers=layers, **kw)
 
 
 def axes_batch(vocab: int, batch: int, seq: int, seed: int):
@@ -4491,7 +4564,7 @@ def pp_value_and_grad(cfg, batch, seq, device, mesh=None, n_micro: int = PP_MICR
             norms[k] = float(g.float().norm())
     if save:
         torch.save({k: g.cpu() for k, g in grads.items()}, save)
-    return dict(loss=loss.item(), norms=norms, ms=ms, launches=dict(flash.launches),
+    return dict(loss=loss.item(), norms=norms, ms=ms, launches=default_launches(flash),
                 peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
 
 
@@ -4610,7 +4683,8 @@ def axes_mesh_child(plan_json: str, report: str) -> None:
             elif part in ("sp", "sp_fp32"):
                 mesh = sharding.make_mesh(fsdp=1, sp=world).connect(device)
                 small = part == "sp_fp32"
-                cfg = axes_config(AXES_SMALL["layers"] if small else 0, attn_impl="blockwise",
+                cfg = axes_config(AXES_SMALL["layers"] if small else AXES_RUN["layers"],
+                                  attn_impl="blockwise",
                                   **({"dtype": "float32"} if small else {}))
                 out[part] = sp_train(cfg, plan.get("sp_batch", AXES_RUN["batch"]),
                                      AXES_SMALL["seq"] if small else plan.get(
@@ -4719,8 +4793,8 @@ def phase_mesh_axes(card: str) -> dict:
             if g["launches"] != want:
                 raise AssertionError(f"pp2 rank {rank}: flash launches {g['launches']},"
                                      f" want {want}")
-        log(f"mesh axes (a) GPipe llama3_1b full width and depth (bf16 activations, fp32"
-            f" masters, remat full, flash), batch {AXES_RUN['batch']} x {AXES_RUN['seq']},"
+        log(f"mesh axes (a) GPipe llama3_1b full width, {cfg.n_layers} layers (bf16"
+            f" activations, fp32 masters, remat full, flash), batch {AXES_RUN['batch']} x {AXES_RUN['seq']},"
             f" pp 2 as two gloo processes on one card, {PP_MICRO} microbatches: loss"
             f" {pp[0]['loss']!r} against meshless {ref['pp']['loss']!r} (relative"
             f" {_rel(pp[0]['loss'], ref['pp']['loss']):.2e}), gradient norms within"
@@ -4749,7 +4823,7 @@ def phase_mesh_axes(card: str) -> dict:
             if any(g["losses"] != got[0]["losses"] for g in got) or max(gaps) > rtol:
                 raise AssertionError(f"{part}: losses {[g['losses'] for g in got]} against"
                                      f" meshless {ref[part]['losses']}")
-            what = (f"llama3_1b full width and depth, batch {AXES_RUN['batch']} x"
+            what = (f"llama3_1b full width, {cfg.n_layers} layers, batch {AXES_RUN['batch']} x"
                     f" {AXES_RUN['seq']}, 2 steps" if part == "sp" else
                     f"fp32 llama3_1b width, {AXES_SMALL['layers']} layers, seq"
                     f" {AXES_SMALL['seq']}, 3 steps")
@@ -4895,12 +4969,521 @@ def axes_cards(card: str, workdir: str) -> None:
         f" {max(g['peak_gb'] for g in sp):.2f} GB a rank [{card}]")
 
 
+# -- phase 17: the last paths --------------------------------------------------
+
+# A 64-wide head dim checked at every menu pair beside llama3_1b's 128:
+# (B, H, Kh, D, T).
+TILES_D64 = (2, 8, 4, 64, 2048)
+TILES_WINDOW = 4096
+
+
+def menu_tiles(blocks) -> dict:
+    """{wrapper suffix: (rows, keys)} of the tensor-core kernels at a menu
+    pair, from kernels/flash.py's TILE_MENU."""
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    tiles = flash.TILE_MENU[blocks]
+    return {"fwd": tiles.fwd, "bwd_dq": tiles.dq, "bwd_dkv": tiles.dkv}
+
+
+def tiles_run(kind: str, x, docs, window, blocks) -> dict:
+    """{wrapper: outputs} of the flash or splash kernels at a menu pair (or
+    their plain versions with ``blocks`` None), the backward on the plain
+    forward's lse and delta."""
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    q3, k3, v3, do3 = x
+    if kind == "flash":
+        ro, rlse = flash.flash_fwd_plain(q3, k3, v3, True)
+        extra = (True,)
+        fns = (flash.flash_fwd, flash.flash_bwd_dq, flash.flash_bwd_dkv)
+        plains = (flash.flash_fwd_plain, flash.flash_bwd_dq_plain, flash.flash_bwd_dkv_plain)
+        fwd_args = (q3, k3, v3, True)
+    else:
+        ro, rlse = splash.splash_fwd_plain(q3, k3, v3, docs, docs, True, window)
+        extra = (docs, docs, True, window)
+        fns = (splash.splash_fwd, splash.splash_bwd_dq, splash.splash_bwd_dkv)
+        plains = (splash.splash_fwd_plain, splash.splash_bwd_dq_plain,
+                  splash.splash_bwd_dkv_plain)
+        fwd_args = (q3, k3, v3, docs, docs, True, window)
+    args = (q3, k3, v3, do3, rlse, (do3 * ro).sum(-1), *extra)
+    names = [f"{kind}_{s}" for s in ("fwd", "bwd_dq", "bwd_dkv")]
+    if blocks is None:
+        outs = [(ro, rlse), (plains[1](*args),), plains[2](*args)]
+    else:
+        outs = [fns[0](*fwd_args, blocks), (fns[1](*args, blocks),), fns[2](*args, blocks)]
+    return dict(zip(names, outs))
+
+
+def tiles_compare(kind: str, label: str, x, docs, window, report: dict) -> None:
+    """Every menu pair's kernels against the plain versions (computed once)
+    at FLASH_TOL; the largest error per (wrapper, pair) into ``report``."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    ref = tiles_run(kind, x, docs, window, None)
+    for blocks in flash.TILE_MENU:
+        got = tiles_run(kind, x, docs, window, blocks)
+        torch.cuda.synchronize()
+        line = []
+        for name, outs in got.items():
+            err = 0.0
+            for g, r in zip(outs, ref[name]):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{name} {label} at {blocks}: non-finite output")
+                torch.testing.assert_close(g, r, atol=FLASH_TOL, rtol=0)
+                err = max(err, float((g - r).abs().max()))
+            entry = report.setdefault(name, {}).setdefault("%dx%d" % blocks, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            line.append(f"{name.split('_', 1)[1]} {err:.3e}")
+        log(f"tiles {kind} {label} window={window} docs={'yes' if docs is not None else 'no'}"
+            f" at {blocks[0]}x{blocks[1]}: max_abs_err {', '.join(line)} (atol {FLASH_TOL:g}) ok")
+        del got
+    del ref
+    torch.cuda.empty_cache()
+
+
+def tiles_timing(kind: str, x, window, report: dict) -> None:
+    """CUDA-event medians of each kernel at every menu pair (W 4096 for
+    splash), into ``report``; the default pair's is the earlier phases'
+    reading of today's tiles."""
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    q3, k3, v3, do3 = x
+    mod = flash if kind == "flash" else splash
+    extra = (True,) if kind == "flash" else (None, None, True, window)
+    fwd_args = (q3, k3, v3, *extra)
+    o, lse = getattr(mod, f"{kind}_fwd")(*fwd_args)
+    args = (q3, k3, v3, do3.bfloat16().float(), lse, (do3 * o).sum(-1), *extra)
+    for blocks in flash.TILE_MENU:
+        line = []
+        for suffix, fn, fn_args in (("fwd", f"{kind}_fwd", fwd_args),
+                                    ("bwd_dq", f"{kind}_bwd_dq", args),
+                                    ("bwd_dkv", f"{kind}_bwd_dkv", args)):
+            ms = time_ms(lambda: getattr(mod, fn)(*fn_args, blocks), iters=10)
+            report[f"{kind}_{suffix}"]["%dx%d" % blocks]["ms"] = ms
+            line.append(f"{suffix} {ms:.4f} ms")
+        log(f"tiles {kind} timing at {blocks[0]}x{blocks[1]} (llama3_1b heads, T 8192"
+            f"{', window %d' % window if kind == 'splash' else ''}, do of bf16 values):"
+            f" {', '.join(line)}")
+
+
+def phase_autotune(card: str) -> dict:
+    """17 (b): ``train.main`` with the training example's flags and
+    --autotune (llama3_1b, seq 8192, batch 8, 3 steps, as phase 10) in a
+    fresh autotune directory: JAX's line once, the cache file, every splash
+    launch exact and at the pair it ran (the sweep's and the winner's), the
+    sweep's seconds, losses finite and falling; then one step without
+    --autotune that reads the cache and sweeps nothing."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dstack_tpu_torch.workloads import train
+    from dstack_tpu_torch.workloads.kernels import autotune, flash, splash
+
+    tune_dir = tempfile.mkdtemp(prefix="autotune-")
+    saved_dir = os.environ.get(autotune.ENV_DIR)
+    os.environ[autotune.ENV_DIR] = tune_dir
+    autotune._memo = None
+    inner_train, inner_tune = train.train, autotune.tune
+    losses, reports = [], []
+
+    def recording(*args, **kwargs):
+        return inner_train(*args, on_step=lambda step, loss: losses.append(loss), **kwargs)
+
+    def timed_tune(*args, **kwargs):
+        t0 = time.monotonic()
+        report = inner_tune(*args, **kwargs)
+        reports.append(dict(report, seconds=time.monotonic() - t0))
+        return report
+
+    real_stdout = sys.stdout
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            real_stdout.write(text)
+            return super().write(text)
+
+    runs = {}
+    train.train, autotune.tune = recording, timed_tune
+    try:
+        for label, argv in (("--autotune", SPLASH_MAIN_ARGV + ["--autotune"]),
+                            ("cached", SPLASH_MAIN_ARGV[:-2] + ["--steps", "1"])):
+            losses.clear()
+            splash.reset_launches()
+            flash.reset_launches()
+            out = Tee()
+            with contextlib.redirect_stdout(out):
+                stats = train.main(argv)
+            torch.cuda.synchronize()
+            runs[label] = dict(losses=list(losses), stats=stats, stdout=out.getvalue(),
+                               pairs={n: dict(c) for n, c in splash.pair_launches.items()},
+                               flash=dict(flash.launches))
+    finally:
+        train.train, autotune.tune = inner_train, inner_tune
+        if saved_dir is None:
+            os.environ.pop(autotune.ENV_DIR, None)
+        else:
+            os.environ[autotune.ENV_DIR] = saved_dir
+        autotune._memo = None
+    with open(os.path.join(tune_dir, autotune.CACHE_FILE), encoding="utf-8") as f:
+        cache = json.load(f)
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    if len(reports) != 1:
+        raise AssertionError(f"--autotune swept {len(reports)} times over the two runs")
+    report = reports[0]
+    winner = tuple(report["blocks"])
+    line = (f"autotune: splash gen=sm90 head_dim=128 seq=8192 -> blocks={winner}")
+    key = "splash|sm90|128|8192"
+    if line not in runs["--autotune"]["stdout"] or cache != {key: list(winner)}:
+        raise AssertionError(f"--autotune: no line {line!r}, or the cache {cache}")
+    if set(report["sweep"]) != {"%dx%d" % p for p in flash.TILE_MENU}:
+        raise AssertionError(f"the sweep timed {sorted(report['sweep'])}")
+    layers, micro = get_layers("llama3_1b"), 4
+    sweep_calls = 1 + 3  # autotune._seconds: one warm-up call, 3 timed (tune's repeats)
+    for label, steps, swept in (("--autotune", 3, True), ("cached", 1, False)):
+        run = runs[label]
+        calls = layers * micro * steps
+        for name, per in (("splash_fwd", 2 * calls), ("splash_bwd_dq", calls),
+                          ("splash_bwd_dkv", calls)):
+            want = {p: (sweep_calls if swept else 0) + (per if p == winner else 0)
+                    for p in flash.TILE_MENU}
+            want = {p: n for p, n in want.items() if n}
+            if run["pairs"][name] != want or any(run["flash"].values()):
+                raise AssertionError(f"{label}: {name} launches by pair {run['pairs'][name]}"
+                                     f" != {want}; flash {run['flash']}")
+        got = run["losses"]
+        if len(got) != steps or not all(np.isfinite(got)):
+            raise AssertionError(f"{label}: losses {got}")
+    if not runs["--autotune"]["losses"][-1] < runs["--autotune"]["losses"][0]:
+        raise AssertionError(f"--autotune: loss did not fall: {runs['--autotune']['losses']}")
+    sweep = ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in report["sweep"].items())
+    log(f"autotune (train.main {' '.join(SPLASH_MAIN_ARGV)} --autotune): sweep {sweep};"
+        f" winner {winner}; the sweep {report['seconds']:.2f} s; losses"
+        f" {[round(x, 4) for x in runs['--autotune']['losses']]}, step p50"
+        f" {runs['--autotune']['stats']['p50_s'] * 1e3:.1f} ms (phase 10 without --autotune:"
+        f" {MEASURED.get('splash_main_p50_s', float('nan')) * 1e3:.1f} ms); the cached run's"
+        f" step {runs['cached']['losses']} at {winner}, no sweep; splash launches by pair"
+        f" {runs['--autotune']['pairs']} [{card}]")
+    MEASURED["autotune_winner"] = winner
+    pairs = {}
+    for run in runs.values():
+        for name, counts in run["pairs"].items():
+            for p, n in counts.items():
+                key = "%dx%d" % p
+                pairs.setdefault(name, {})[key] = pairs.get(name, {}).get(key, 0) + n
+    return pairs
+
+
+def get_layers(name: str) -> int:
+    from dstack_tpu_torch.workloads.config import get_config
+
+    return get_config(name).n_layers
+
+
+SAVE_PROJ_POLICIES = ("full", "dots", "save_proj")
+
+
+def phase_save_proj(card: str) -> dict:
+    """17 (c): llama3_1b at full width and depth, flash, batch 2 x 8192, 3
+    steps under each remat policy from the same parameters and batches:
+    losses within 1e-4 of full's, step time, peak memory and exact flash
+    launches; then fp32 at 2 layers (seq 1024): save_proj's loss and every
+    gradient within 1e-6 of full's."""
+    import dataclasses
+
+    import torch
+
+    from dstack_tpu_torch.workloads import model, train
+    from dstack_tpu_torch.workloads.config import get_config
+    from dstack_tpu_torch.workloads.kernels import flash
+
+    steps = 3
+    launches = dict.fromkeys(flash.launches, 0)
+    readings = {}
+    for policy in SAVE_PROJ_POLICIES:
+        cfg = get_config("llama3_1b", attn_impl="flash", remat=True, remat_policy=policy)
+        losses = []
+        fresh_peak()
+        flash.reset_launches()
+        stats = train.train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            device=torch.device("cuda"), on_step=lambda s, x: losses.append(x))
+        torch.cuda.synchronize()
+        got = default_launches(flash)
+        calls = cfg.n_layers * steps
+        want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+        if got != want or len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"remat {policy}: flash launches {got} != {want}, or losses"
+                                 f" {losses}")
+        for name, n in got.items():
+            launches[name] += n
+        readings[policy] = dict(losses=losses, p50_ms=stats["p50_s"] * 1e3,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"remat {policy} (llama3_1b, flash, batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses"
+            f" {[round(x, 6) for x in losses]}, step p50 {stats['p50_s'] * 1e3:.1f} ms, peak"
+            f" memory {readings[policy]['peak_gb']:.2f} GB, flash launches {got} [{card}]")
+    for policy in ("dots", "save_proj"):
+        gap = max(abs(a - b) for a, b in zip(readings[policy]["losses"],
+                                             readings["full"]["losses"]))
+        if not gap <= 1e-4:
+            raise AssertionError(f"remat {policy}: losses {gap:.3e} from full's")
+        log(f"remat {policy}: losses within {gap:.3e} of full's (limit 1e-4)")
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llama3_1b", dtype="float32", n_layers=2, attn_impl="flash", remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    init = model.init_params(cfg, gen, torch.device("cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, 1)
+    out = {}
+    for policy in ("full", "save_proj"):
+        params = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+        loss = model.loss_fn(params, tokens, targets,
+                             dataclasses.replace(cfg, remat_policy=policy))
+        loss.backward()
+        out[policy] = (loss.item(), {k: p.grad for k, p in params.items()})
+    worst = max(float((out["save_proj"][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                for k, g in out["full"][1].items())
+    gap = abs(out["save_proj"][0] - out["full"][0])
+    if not (gap <= 1e-6 and worst <= 1e-6):
+        raise AssertionError(f"fp32 save_proj against full: loss {gap:.3e}, gradients {worst:.3e}")
+    log(f"remat save_proj fp32 identity (llama3_1b width, 2 layers, seq 1024): loss within"
+        f" {gap:.3e}, every gradient within {worst:.3e} of its leaf's largest (limit 1e-6)")
+    del out, init
+    torch.cuda.empty_cache()
+    MEASURED["save_proj"] = readings
+    return launches
+
+
+# The MoE mesh paths of 17 (d), as two gloo processes sharing the card:
+# moe_test (fp32, seq 256, batch 4) at sp 2 (the preset's routing group of
+# 1024 is the whole 256-token sequence, which straddles the two chunks) and
+# at fsdp 2 with the all-gather ring.
+LAST_MOE_SHAPES = {"sp2": dict(dp=1, fsdp=1, ep=1, tp=1, sp=2),
+                   "fsdp2-ring": dict(dp=1, fsdp=2, ep=1, tp=1, sp=1, cfg=dict(fsdp_overlap=True))}
+
+
+def phase_last_meshes(card: str, workdir: str) -> dict:
+    """17 (d): ``--draft-head`` under torchrun at world 1 over NCCL against
+    the meshless run (llama3_1b at DEPTH_CUTS' depth, splash W 4096, seq
+    2048, 3 steps): losses and the saved .draft bit for bit; MoE under sp 2
+    and with the ring at fsdp 2 as two gloo processes on the card against
+    meshless (correctness only); four cards over NCCL when the call finds
+    them."""
+    import os
+
+    import torch
+
+    from dstack_tpu_torch.workloads import checkpoint
+    from dstack_tpu_torch.workloads.kernels import splash
+
+    argv = ["--config", "llama3_1b", "--draft-head", "--attn-impl", "splash", "--attn-window",
+            "4096", "--steps", "3", "--seq", "2048"]
+    code = "import sys, chip_smoke; chip_smoke.handoff_child(*sys.argv[1:])"
+    dirs = {k: os.path.join(workdir, f"draft-{k}") for k in ("meshless", "world1", "cards")}
+    launches = dict.fromkeys(splash.launches, 0)
+    with cut_depth(DEPTH_CUTS):
+        ref, _, _ = run_child("draft-meshless", "distill",
+                              argv + ["--checkpoint-dir", dirs["meshless"]], workdir)
+        (got, _), = [(r, out) for r, out, _ in run_ranks(
+            "draft-world1", code, ["distill", json.dumps(argv + ["--checkpoint-dir",
+                                                                  dirs["world1"]])],
+            1, workdir, 600)]
+        runs = {"world1": got}
+        if torch.cuda.device_count() >= 4:
+            runs["cards"] = run_ranks("draft-cards", code, ["distill", json.dumps(
+                argv + ["--checkpoint-dir", dirs["cards"], "--tp", "2"])], 4, workdir,
+                600)[0][0]
+        for report in (ref, got):
+            for name in launches:
+                launches[name] += report["splash"][name]
+    step = 3
+
+    def draft(path):
+        manager = checkpoint.CheckpointManager(path)
+        template = {leaf["key"][len(".draft['"):-2]: checkpoint.LeafSpec(
+            tuple(leaf["shape"]), torch.float32) for leaf in manager.read_manifest(step)["leaves"]
+            if leaf["key"].startswith(".draft")}
+        return manager.restore_subtree(template, step=step, prefix=".draft")[0]
+
+    want = draft(dirs["meshless"])
+    if got["losses"] != ref["losses"] or any(
+            not torch.equal(v, want[k]) for k, v in draft(dirs["world1"]).items()):
+        raise AssertionError(f"--draft-head at world 1: losses {got['losses']} against meshless"
+                             f" {ref['losses']}, or the .draft subtree differs")
+    log(f"draft head under torchrun at world 1 (NCCL): losses {got['losses']} equal to"
+        f" meshless to the last bit, the saved .draft subtree bit for bit [{card}]")
+    if "cards" in runs:
+        gap = max(abs(runs["cards"]["losses"][s] - ref["losses"][s]) for s in ref["losses"])
+        log(f"draft head on four cards (fsdp 2 x tp 2, NCCL): losses {runs['cards']['losses']},"
+            f" {gap:.3e} from meshless [{card}]")
+    else:
+        log(f"draft head on four cards: not run ({torch.cuda.device_count()} card visible)")
+
+    last_moe_meshes(card, workdir)
+    return launches
+
+
+def last_moe_meshes(card: str, workdir: str) -> None:
+    """17 (d)'s MoE part: LAST_MOE_SHAPES as two gloo processes sharing the
+    card against meshless moe_steps in this process (correctness only)."""
+    import torch
+
+    plan = dict(backend="gloo", run=MOE_MESH_RUN, shapes=LAST_MOE_SHAPES)
+    code = "import sys, chip_smoke; chip_smoke.moe_mesh_child(*sys.argv[1:])"
+    ranks = run_ranks("moe-last", code, [json.dumps(plan)], 2, workdir, 600)
+    run = MOE_MESH_RUN
+    device = torch.device("cuda", 0)
+    for name, shape in LAST_MOE_SHAPES.items():
+        cfg = moe_config(run["config"], run["layers"], **run["overrides"], **shape.get("cfg", {}))
+        batches = moe_batches(cfg.vocab_size, run["batch"], run["seq"], run["steps"], run["seed"])
+        ref = moe_steps(cfg, run["seed"], batches, device)
+        for rank, (report, _, _) in enumerate(ranks):
+            got = report[name]
+            for what in ("losses", "norms"):
+                gap = max(abs(a - b) / abs(b) for a, b in zip(got[what], ref[what]))
+                if not gap <= MOE_TOL:
+                    raise AssertionError(f"moe {name} rank {rank}: {what} {got[what]} against"
+                                         f" meshless {ref[what]}")
+        log(f"moe_test {name} as two gloo processes on the card (fp32, seq {run['seq']}):"
+            f" losses {ranks[0][0][name]['losses']} against meshless {ref['losses']} (limit"
+            f" {MOE_TOL:g} relative), step {np.median(ranks[0][0][name]['step_s']) * 1e3:.1f} ms"
+            f" (correctness only) [{card}]")
+
+
+
+def phase_tiles(card: str) -> dict:
+    """17 (a): the tile menu. A pair off the menu raises, and so does a tile
+    edge the library is not built at; every pair's flash and splash kernels
+    (W 4096, with and without four documents) against their plain versions
+    at llama3_1b heads, T 8192 bf16, and at D 64; dq and dk/dv at every pair
+    against fp64 sums per head; the planted tile and band faults at each
+    pair's own edges; each pair's times. Returns {wrapper: {"pairs":
+    {"bqxbk": ...}}}."""
+    import torch
+
+    from dstack_tpu_torch.workloads.kernels import flash, splash
+
+    b, h, kh, d, t = SPLASH_GEOMETRY
+    x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=170)
+    q3, k3, v3, do3 = x
+    calls = (lambda: flash.flash_fwd(q3, k3, v3, True, (48, 48)),
+             lambda: splash.splash_fwd(q3, k3, v3, None, None, True, 4096, (48, 48)))
+    for call in calls:
+        try:
+            call()
+        except ValueError as exc:
+            log(f"tiles: a pair off the menu raises: {exc}")
+        else:
+            raise AssertionError("a launch at (48, 48), off the menu, did not raise")
+    # A menu entry whose forward edge (48 keys) no kernel is built at: the
+    # library returns an error and the wrapper raises.
+    flash.TILE_MENU[(48, 48)] = flash.Tiles(fwd=(64, 48), dq=(64, 32), dkv=(32, 64))
+    try:
+        for call in calls:
+            try:
+                call()
+            except RuntimeError as exc:
+                log(f"tiles: a forward tile of 48 keys raises: {exc}")
+            else:
+                raise AssertionError("a launch at a 48-key tile, which no kernel is built at,"
+                                     " did not raise")
+    finally:
+        del flash.TILE_MENU[(48, 48)]
+    try:
+        flash.flash_attention(q3[None, :1].transpose(1, 2), k3[None, :1].transpose(1, 2),
+                              v3[None, :1].transpose(1, 2), block_q=48, block_k=48)
+    except ValueError as exc:
+        log(f"tiles: flash_attention(block_q=48, block_k=48) raises: {exc}")
+    else:
+        raise AssertionError("flash_attention at blocks off the menu did not raise")
+    for blocks, tiles in flash.TILE_MENU.items():
+        log(f"tiles {blocks[0]}x{blocks[1]}: fwd {tiles.fwd}, dq {tiles.dq}, dk/dv {tiles.dkv}"
+            f" (rows, keys)")
+    report: dict = {}
+    docs = doc_plane(SPLASH_DOCS, b)
+    label = "llama3_1b heads, T=8192"
+    tiles_compare("flash", label, x, None, 0, report)
+    tiles_compare("splash", label, x, None, TILES_WINDOW, report)
+    tiles_compare("splash", label, x, docs, TILES_WINDOW, report)
+    pairs = list(flash.TILE_MENU)
+    for do_label, d_o in (("fp32 do", do3), ("do of bf16 values", do3.bfloat16().float())):
+        flash_bwd_against_fp64(f"{label}, every menu pair, {do_label}", q3, k3, v3, d_o,
+                               pairs=pairs)
+        flash_bwd_against_fp64(f"{label}, window={TILES_WINDOW}, every menu pair, {do_label}",
+                               q3, k3, v3, d_o, window=TILES_WINDOW, pairs=pairs)
+    for blocks in pairs:
+        tiles = menu_tiles(blocks)
+        flash_planted_faults(f"{label} at {blocks[0]}x{blocks[1]}", *x,
+                             tiles=(tiles["fwd"][1], tiles["bwd_dq"][1], tiles["bwd_dkv"][0]))
+        splash_planted_faults(f"{label} at {blocks[0]}x{blocks[1]}", *x, TILES_WINDOW,
+                              tiles={f"splash_{k}": v for k, v in tiles.items()})
+    tiles_timing("flash", x, 0, report)
+    tiles_timing("splash", x, TILES_WINDOW, report)
+    del x, docs
+    torch.cuda.empty_cache()
+    b, h, kh, d, t = TILES_D64
+    x = flash_inputs(b, h, kh, d, t, torch.bfloat16, seed=171)
+    label = f"B {b}, H {h}, Kh {kh}, D {d}, T={t}"
+    tiles_compare("flash", label, x, None, 0, report)
+    tiles_compare("splash", label, x, None, 1024, report)
+    tiles_compare("splash", label, x, doc_plane((700, 900, 448), b), 1024, report)
+    del x
+    torch.cuda.empty_cache()
+    return {name: {"pairs": entry} for name, entry in report.items()}
+
+
+
+def add_pair_launches(report: dict, launches: dict, tuned: dict) -> None:
+    """Each menu pair's launches on the main paths, into the kernels line,
+    and 17 (b)'s into ``launches``. Every count already in ``launches`` was
+    read from the wrappers' pair counts at DEFAULT_BLOCKS (default_launches,
+    or a child's stray_pairs checked empty); ``tuned`` holds 17 (b)'s
+    counts by pair."""
+    from collections import Counter
+
+    from dstack_tpu_torch.workloads.kernels.flash import DEFAULT_BLOCKS
+
+    for name, entry in report.items():
+        if "pairs" not in entry:
+            continue
+        by_pair = Counter({"%dx%d" % DEFAULT_BLOCKS: launches[name]})
+        by_pair.update(tuned.get(name, {}))
+        if set(by_pair) - set(entry["pairs"]):
+            raise AssertionError(f"{name}: launches at pairs off the menu: {dict(by_pair)}")
+        for key, pair in entry["pairs"].items():
+            pair["launches"] = by_pair[key]
+        launches[name] = sum(by_pair.values())
+        log(f"{name}: launches on the main paths by pair {dict(by_pair)}")
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
+    from dstack_tpu_torch.workloads.kernels import autotune
+
+    # Every phase and child (they inherit the environment) runs with an empty
+    # autotune cache of this run's own, so the kernels run the default pair
+    # whatever a cache under HOME holds; 17 (b) tunes in a directory of its own.
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-") as tune_dir:
+        os.environ[autotune.ENV_DIR] = tune_dir
+        return run_phases(tune_dir)
+
+
+def run_phases(tune_dir: str) -> int:
+    import torch
+
     from dstack_tpu_torch.workloads.kernels import build, platform
 
     t_start = time.monotonic()
@@ -4960,6 +5543,21 @@ def main() -> int:
     for name, n in phase_mesh_axes(card).items():
         launches[name] += n
     done("mesh axes")
+    for name, entry in phase_tiles(card).items():
+        report[name].update(entry)
+    done("tiles")
+    tuned = phase_autotune(card)
+    for name, n in phase_save_proj(card).items():
+        launches[name] += n
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="last-paths-") as workdir:
+        for name, n in phase_last_meshes(card, workdir).items():
+            launches[name] += n
+    done("last paths")
+    if os.listdir(tune_dir):
+        raise AssertionError(f"the main paths wrote an autotune cache: {os.listdir(tune_dir)}")
+    add_pair_launches(report, launches, tuned)
 
     replaces = {
         "paged_decode_attention": "dstack_tpu/workloads/kernels/paged.py:47",
@@ -4982,7 +5580,8 @@ def main() -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"],
             **{key: value for key, value in entry.items()
-               if key in ("device_ms", "library_device_ms") or key.startswith(("verify_", "rank_"))
+               if key in ("device_ms", "library_device_ms", "pairs")
+               or key.startswith(("verify_", "rank_"))
                or key.endswith("_max_abs_err")},
         })
     log(f"total {time.monotonic() - t_start:.1f} s [{card}]")

@@ -168,10 +168,12 @@ class CheckpointManager:
         process_index: int = 0,
         process_count: int = 1,
         mesh: Optional[sharding.Mesh] = None,
+        whole_keys: Tuple[str, ...] = (),
     ) -> None:
         self.directory = directory
         self.keep = max(1, keep)
         self.mesh = mesh
+        self.whole_keys = tuple(whole_keys)
         if mesh is not None:
             process_index, process_count = mesh.rank, mesh.size
         self.process_index = process_index
@@ -189,7 +191,8 @@ class CheckpointManager:
         process writes it) of a leaf of local ``shape``."""
         if self.mesh is None:
             return tuple(int(d) for d in shape), _whole(shape), True
-        spec = sharding.spec_of_key(key, sharding.param_specs(self.mesh))
+        spec = (() if key.startswith(self.whole_keys) and self.whole_keys
+                else sharding.spec_of_key(key, sharding.param_specs(self.mesh)))
         full = sharding.global_shape(spec, shape, self.mesh)
         return (full, sharding.local_slices(spec, full, self.mesh),
                 sharding.holds_first_copy(spec, self.mesh))

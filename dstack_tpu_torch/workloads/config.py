@@ -117,8 +117,7 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
     (``sharding.validate_mesh``); ``batch`` is the microbatch the
     tp_overlap ring splits. An MoE mesh (``sharding.make_moe_mesh``) counts
     dp x fsdp x ep as its data shards and takes the MoE checks
-    (``sharding.validate_moe_mesh``). Features the port does not have yet
-    raise ``NotImplementedError`` naming their ROADMAP item."""
+    (``sharding.validate_moe_mesh``)."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}"
@@ -207,9 +206,6 @@ def validate_config(cfg: LlamaConfig, seq: Optional[int] = None, device=None, me
             f"{cfg.d_model} divisible by it; adjust the mesh or drop "
             f"--fsdp-overlap"
         )
-    if cfg.fsdp_overlap and moe:
-        raise NotImplementedError(
-            "MoE with --fsdp-overlap is not yet ported to PyTorch (ROADMAP item 14)")
     if cfg.tp_overlap and tp > 1 and batch and seq and not can_overlap(
             mesh, batch, seq, batch_axes=data_axes(mesh)):
         raise ValueError(

@@ -320,16 +320,38 @@ def max_over(mesh, axes):
 # -- the rings -----------------------------------------------------------------
 
 
+class _HostHops:
+    """The works of hops staged through host memory (CUDA tensors on a gloo
+    group): waiting for them copies what arrived into the device buffers."""
+
+    def __init__(self, works, sent, landed):
+        self.works, self.sent, self.landed = works, sent, landed
+
+    def wait(self) -> None:
+        for work in self.works:
+            work.wait()
+        for device_buf, host_buf in self.landed:
+            device_buf.copy_(host_buf)
+
+
 def _shift(pairs, axis: _Axis):
     """Start sending each ``(send, recv)`` pair's ``send`` to the next rank
     around the axis and receiving its ``recv`` from the previous one;
     returns the works to wait on."""
     nxt, prv = axis.neighbours()
-    ops = []
+    staged = _staged(pairs[0][0], axis.group)
+    ops, sent, landed = [], [], []
     for tag, (send, recv) in enumerate(pairs):
+        if staged:
+            send = send.cpu()
+            host = torch.empty(recv.shape, dtype=recv.dtype)
+            sent.append(send)
+            landed.append((recv, host))
+            recv = host
         ops += [dist.P2POp(dist.isend, send, nxt, axis.group, tag),
                 dist.P2POp(dist.irecv, recv, prv, axis.group, tag)]
-    return dist.batch_isend_irecv(ops)
+    works = dist.batch_isend_irecv(ops)
+    return [_HostHops(works, sent, landed)] if staged else works
 
 
 def _wait(works) -> None:

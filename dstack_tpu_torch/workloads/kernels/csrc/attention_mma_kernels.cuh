@@ -26,6 +26,10 @@
 // CausalMask folds to the bounds the flash kernels had before the bodies
 // were shared, so flash keeps its results.
 //
+// The tile sizes below are the default menu pair's (kernels/flash.py
+// TILE_MENU); the forward's and dq's K/V tile and dk/dv's q step are
+// template arguments of the bodies.
+//
 // Forward: a block of 4 warps owns 64 q rows, 16 a warp. K/V tiles of 64
 // keys stream through a 2-stage cp.async ring (with the tile's doc ids under
 // DOCS), so the next tile's load overlaps this tile's math; the q fragments
@@ -71,7 +75,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 
@@ -80,14 +87,31 @@ namespace attn_mma {
 constexpr float NEG_INF = -1e30f;
 constexpr int MMA_THREADS = 128;  // 4 warps
 constexpr int FWD_ROWS = 64;      // q rows of a forward block, 16 a warp
-constexpr int FWD_KEYS = 64;      // keys of a streamed K/V tile
 constexpr int FWD_STAGES = 2;     // K/V ring depth
 constexpr int DKV_KEYS = 64;      // keys of a dk/dv block, 16 a warp
-constexpr int DKV_ROWS = 32;      // q rows of a dk/dv step
 constexpr int DQ_ROWS = 64;       // q rows of a dq block, 16 a warp
-constexpr int DQ_KEYS = 32;       // keys of a streamed K/V tile of dq
 constexpr int DQ_STAGES = 2;      // dq's K/V ring depth
 constexpr int DO_TERMS = 3;       // bf16 planes of do (split_to_planes) and terms of p, ds
+
+// -- tiles ----------------------------------------------------------------------
+
+// Each body takes one tile edge as a template argument: the forward's
+// streamed K/V tile (FWD_ROWS rows over KEYS keys), dq's (DQ_ROWS rows over
+// KEYS keys) and dk/dv's q step (ROWS rows a step over a block of DKV_KEYS
+// keys). Forward and dq blocks own 64 q rows and dk/dv blocks 64 keys at
+// every tile (4 warps of 16). Each launch function takes its kernel's edge
+// as an int and instantiates the tensor-core kernel at the edges by_tile
+// lists; kernels/flash.py's TILE_MENU names the edges of each (block_q,
+// block_kv) pair. The CUDA-core kernels ignore the edge.
+
+// f(std::integral_constant<int, n>{}) for the runtime tile n, one of the
+// tiles Ns that a kernel is built at; cudaErrorInvalidValue for any other.
+template <int... Ns, typename F>
+cudaError_t by_tile(int n, const F& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((n == Ns ? (err = f(std::integral_constant<int, Ns>{}), true) : false) || ...);
+  return err;
+}
 
 // -- mask policies ---------------------------------------------------------------
 
@@ -178,7 +202,7 @@ struct BandMask {
 // -- shared memory ---------------------------------------------------------------
 
 // Q; the K/V ring; with documents, the ring's doc ids.
-template <int D, typename Mask>
+template <int D, int FWD_KEYS, typename Mask>
 constexpr size_t fwd_mma_smem_bytes() {
   return static_cast<size_t>(FWD_ROWS + 2 * FWD_STAGES * FWD_KEYS) * padded(D) *
              sizeof(__nv_bfloat16) +
@@ -187,7 +211,7 @@ constexpr size_t fwd_mma_smem_bytes() {
 
 // K, V; Q x 2 buffers; the do planes; the fp32 do staging tile; lse and
 // delta x 2 buffers; with documents, the q tile's doc ids x 2 buffers.
-template <int D, typename Mask>
+template <int D, int DKV_ROWS, typename Mask>
 constexpr size_t dkv_mma_smem_bytes() {
   return static_cast<size_t>(2 * DKV_KEYS + 2 * DKV_ROWS + DO_TERMS * DKV_ROWS) * padded(D) *
              sizeof(__nv_bfloat16) +
@@ -196,7 +220,7 @@ constexpr size_t dkv_mma_smem_bytes() {
 }
 
 // Q, the do planes, the K/V ring; with documents, the ring's doc ids.
-template <int D, typename Mask>
+template <int D, int DQ_KEYS, typename Mask>
 constexpr size_t dq_mma_smem_bytes() {
   return static_cast<size_t>((1 + DO_TERMS) * DQ_ROWS + 2 * DQ_STAGES * DQ_KEYS) * padded(D) *
              sizeof(__nv_bfloat16) +
@@ -207,8 +231,9 @@ constexpr size_t dq_mma_smem_bytes() {
 
 // o [BH, T, D] and lse [BH, T] (fp32) of q [BH, T, D] and k, v [BKh, S, D]
 // (bf16) under `mask`; one block per (q tile, BH row), the last q tile first.
-// Launched with MMA_THREADS threads and fwd_mma_smem_bytes<D, Mask>() bytes.
-template <int D, typename Mask>
+// Launched with MMA_THREADS threads and fwd_mma_smem_bytes<D, FWD_KEYS, Mask>()
+// bytes.
+template <int D, int FWD_KEYS, typename Mask>
 __device__ __forceinline__ void fwd_mma_body(const __nv_bfloat16* __restrict__ q,
                                              const __nv_bfloat16* __restrict__ k,
                                              const __nv_bfloat16* __restrict__ v,
@@ -219,6 +244,7 @@ __device__ __forceinline__ void fwd_mma_body(const __nv_bfloat16* __restrict__ q
   constexpr int KD = D / 16;          // k-steps of Q K^T
   constexpr int NK = FWD_KEYS / 8;    // score n-tiles
   constexpr int ND = D / 8;           // output n-tiles
+  static_assert(FWD_KEYS % 16 == 0 && FWD_KEYS <= MMA_THREADS, "whole 16-key steps, one doc id a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + FWD_ROWS * LD;              // [FWD_STAGES][FWD_KEYS][LD]
@@ -394,8 +420,8 @@ __device__ __forceinline__ void fwd_mma_body(const __nv_bfloat16* __restrict__ q
 // dq [BH, T, D] (fp32) from q [BH, T, D], k, v [BKh, S, D] (bf16), do [BH, T,
 // D], lse and delta [BH, T] (fp32) under `mask`; one block per (q tile, BH
 // row), the last q tile first. Launched with MMA_THREADS threads and
-// dq_mma_smem_bytes<D, Mask>() bytes.
-template <int D, typename Mask>
+// dq_mma_smem_bytes<D, DQ_KEYS, Mask>() bytes.
+template <int D, int DQ_KEYS, typename Mask>
 __device__ __forceinline__ void dq_mma_body(const __nv_bfloat16* __restrict__ q,
                                             const __nv_bfloat16* __restrict__ k,
                                             const __nv_bfloat16* __restrict__ v,
@@ -411,6 +437,7 @@ __device__ __forceinline__ void dq_mma_body(const __nv_bfloat16* __restrict__ q,
   constexpr int ND = D / 8;         // dq n-tiles
   constexpr int PLANE = DQ_ROWS * LD;
   static_assert(DQ_ROWS * D % (4 * MMA_THREADS) == 0, "do splits in whole float4 steps");
+  static_assert(DQ_KEYS % 16 == 0 && DQ_KEYS <= MMA_THREADS, "whole 16-key steps, one doc id a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [DQ_ROWS][LD]
   bf16* pl_s = q_s + PLANE;                       // [DO_TERMS][DQ_ROWS][LD]
@@ -613,8 +640,8 @@ __device__ __forceinline__ void dq_mma_body(const __nv_bfloat16* __restrict__ q,
 // dk, dv [BKh, S, D] (fp32) from q [BH, T, D], k, v [BKh, S, D] (bf16), do
 // [BH, T, D], lse and delta [BH, T] (fp32) under `mask`; one block per (KV
 // tile, BKh row). Launched with MMA_THREADS threads and
-// dkv_mma_smem_bytes<D, Mask>() bytes.
-template <int D, typename Mask>
+// dkv_mma_smem_bytes<D, DKV_ROWS, Mask>() bytes.
+template <int D, int DKV_ROWS, typename Mask>
 __device__ __forceinline__ void dkv_mma_body(const __nv_bfloat16* __restrict__ q,
                                              const __nv_bfloat16* __restrict__ k,
                                              const __nv_bfloat16* __restrict__ v,
@@ -628,6 +655,8 @@ __device__ __forceinline__ void dkv_mma_body(const __nv_bfloat16* __restrict__ q
   constexpr int KD = D / 16;          // k-steps over D
   constexpr int ND = D / 8;           // dk/dv n-tiles
   constexpr int PLANE = DKV_ROWS * LD;
+  static_assert(DKV_ROWS % 16 == 0 && DKV_ROWS * D % (4 * MMA_THREADS) == 0,
+                "whole 16-query steps; do splits in whole float4 steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + DKV_KEYS * LD;
@@ -676,19 +705,16 @@ __device__ __forceinline__ void dkv_mma_body(const __nv_bfloat16* __restrict__ q
     cp_async_tile<bf16, DKV_ROWS, D, LD, MMA_THREADS>(q_s + buf * PLANE, q + row_base * D, q0,
                                                       T_len);
     cp_async_tile<float, DKV_ROWS, D, D, MMA_THREADS>(do_s, dout + row_base * D, q0, T_len);
-    const int t = threadIdx.x;
-    if (t < 2 * DKV_ROWS) {
-      const int r = t % DKV_ROWS;
+    // lse, delta and (under DOCS) the doc ids of the tile's rows; a step of
+    // 64 rows has more of them than the block has threads.
+    constexpr int N_ROW_LOADS = (Mask::DOCS ? 3 : 2) * DKV_ROWS;
+    for (int i = threadIdx.x; i < N_ROW_LOADS; i += MMA_THREADS) {
+      const int which = i / DKV_ROWS, r = i % DKV_ROWS;
       const bool in = q0 + r < T_len;
-      const float* src = (t < DKV_ROWS ? lse : delta) + row_base + (in ? q0 + r : 0);
-      cp_async4((t < DKV_ROWS ? lse_s : delta_s) + buf * DKV_ROWS + r, src, in);
-    }
-    if constexpr (Mask::DOCS) {
-      if (t >= 2 * DKV_ROWS && t < 3 * DKV_ROWS) {
-        const int r = t - 2 * DKV_ROWS;
-        const bool in = q0 + r < T_len;
-        cp_async4(qd_s + buf * DKV_ROWS + r, qdoc + (in ? q0 + r : 0), in);
-      }
+      const int src = in ? q0 + r : 0;
+      if (which == 0) cp_async4(lse_s + buf * DKV_ROWS + r, lse + row_base + src, in);
+      else if (which == 1) cp_async4(delta_s + buf * DKV_ROWS + r, delta + row_base + src, in);
+      else cp_async4(qd_s + buf * DKV_ROWS + r, qdoc + src, in);
     }
     cp_async_commit();
   };

@@ -52,6 +52,13 @@
 //     causal diagonal, the n_rep heads interleaved; mma work a pair 1 + 3 + 6
 //     + 3 = 13 units against a plain kernel's 4, 8 when do holds bf16 values.
 //
+// Tiles. The tile sizes above are the default menu pair's, (64, 64). Each
+// launch function takes its tensor-core kernel's tile edge (the forward's
+// and dq's K/V tile, dk/dv's q step; kernels/flash.py's TILE_MENU maps a
+// (block_q, block_kv) pair to them): each kernel is instantiated at the
+// edges its by_tile lists, and any other edge returns
+// cudaErrorInvalidValue. The CUDA-core kernels keep their own tiles.
+//
 // CUDA-core design (fp32, other D): attention_cuda_core.cuh's 256-thread
 // tiles (TILE = 64, or 32 where 64 does not fit shared memory: fp32 with D >
 // 192), products and sums in fp32 FMAs. The forward and dq kernels take one
@@ -356,6 +363,7 @@ __global__ void __launch_bounds__(THREADS)
 
 using bf16 = __nv_bfloat16;
 
+using attn_mma::by_tile;
 using attn_mma::DKV_KEYS;
 using attn_mma::DQ_ROWS;
 using attn_mma::FWD_ROWS;
@@ -363,44 +371,49 @@ using attn_mma::MMA_THREADS;
 using attn_mma::TensorCore;
 
 // The forward under causal (or no) masking: attention_mma_kernels.cuh's
-// body, whose mask policy folds to flash's bounds.
-template <int D>
+// body, whose mask policy folds to flash's bounds; KEYS keys a K/V tile.
+template <int D, int KEYS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int T_len, int S_len, int n_rep, int causal,
                          float scale) {
-  attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, CausalMask{T_len, S_len, causal});
+  attn_mma::fwd_mma_body<D, KEYS>(q, k, v, o, lse, n_rep, scale, CausalMask{T_len, S_len, causal});
 }
 
-// dq under causal (or no) masking: attention_mma_kernels.cuh's body.
-template <int D>
+// dq under causal (or no) masking: attention_mma_kernels.cuh's body; KEYS
+// keys a K/V tile.
+template <int D, int KEYS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dq, int T_len, int S_len, int n_rep, int causal,
                             float scale) {
-  attn_mma::dq_mma_body<D>(q, k, v, dout, lse, delta, dq, n_rep, scale,
+  attn_mma::dq_mma_body<D, KEYS>(q, k, v, dout, lse, delta, dq, n_rep, scale,
                            CausalMask{T_len, S_len, causal});
 }
 
-// dk/dv under causal (or no) masking: attention_mma_kernels.cuh's body.
-template <int D>
+// dk/dv under causal (or no) masking: attention_mma_kernels.cuh's body;
+// ROWS q rows a step.
+template <int D, int ROWS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv, int T_len,
                              int S_len, int n_rep, int causal, float scale) {
-  attn_mma::dkv_mma_body<D>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale,
+  attn_mma::dkv_mma_body<D, ROWS>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale,
                             CausalMask{T_len, S_len, causal});
 }
 
+// tile: the tensor-core kernel's tile edge (fwd and dq: keys of the K/V
+// tile; dk/dv: q rows a step); the CUDA-core kernels ignore it.
 struct Shape {
   int bh, bkh, t_len, s_len, causal;
   float scale;
   cudaStream_t stream;
+  int tile;
   int n_rep() const { return bh / bkh; }
 };
 
@@ -419,15 +432,20 @@ struct FwdArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = attn_mma::fwd_mma_smem_bytes<D, CausalMask>();
-      auto kernel = flash_fwd_mma_kernel<D>;
-      const cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid((sh.t_len + FWD_ROWS - 1) / FWD_ROWS, sh.bh);
-      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          o, lse, sh.t_len, sh.s_len, sh.n_rep(), sh.causal, sh.scale);
-      return cudaGetLastError();
+      return by_tile<32, 64>(sh.tile, [&](auto tile) {
+        constexpr int KEYS = decltype(tile)::value;
+        constexpr size_t smem = attn_mma::fwd_mma_smem_bytes<D, KEYS, CausalMask>();
+        static_assert(smem <= SMEM_LIMIT, "flash fwd: shared memory");
+        auto kernel = flash_fwd_mma_kernel<D, KEYS>;
+        const cudaError_t err = prepare(kernel, smem);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((sh.t_len + FWD_ROWS - 1) / FWD_ROWS, sh.bh);
+        kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), o, lse, sh.t_len, sh.s_len, sh.n_rep(), sh.causal,
+            sh.scale);
+        return cudaGetLastError();
+      });
     } else {
       using G = Geo<T, D>;
       const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDS * 4u;
@@ -452,15 +470,20 @@ struct DqArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = attn_mma::dq_mma_smem_bytes<D, CausalMask>();
-      auto kernel = flash_bwd_dq_mma_kernel<D>;
-      const cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid((sh.t_len + DQ_ROWS - 1) / DQ_ROWS, sh.bh);
-      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          dout, lse, delta, dq, sh.t_len, sh.s_len, sh.n_rep(), sh.causal, sh.scale);
-      return cudaGetLastError();
+      return by_tile<16, 32, 64>(sh.tile, [&](auto tile) {
+        constexpr int KEYS = decltype(tile)::value;
+        constexpr size_t smem = attn_mma::dq_mma_smem_bytes<D, KEYS, CausalMask>();
+        static_assert(smem <= SMEM_LIMIT, "flash dq: shared memory");
+        auto kernel = flash_bwd_dq_mma_kernel<D, KEYS>;
+        const cudaError_t err = prepare(kernel, smem);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((sh.t_len + DQ_ROWS - 1) / DQ_ROWS, sh.bh);
+        kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), dout, lse, delta, dq, sh.t_len, sh.s_len, sh.n_rep(),
+            sh.causal, sh.scale);
+        return cudaGetLastError();
+      });
     } else {
       using G = Geo<T, D>;
       const size_t smem = 3u * G::TILE * G::LD * sizeof(T) + G::TILE * G::LDF * 4u +
@@ -486,15 +509,20 @@ struct DkvArgs {
   template <typename T, int D>
   cudaError_t launch() const {
     if constexpr (TensorCore<T, D>::value) {
-      const size_t smem = attn_mma::dkv_mma_smem_bytes<D, CausalMask>();
-      auto kernel = flash_bwd_dkv_mma_kernel<D>;
-      const cudaError_t err = prepare(kernel, smem);
-      if (err != cudaSuccess) return err;
-      const dim3 grid((sh.s_len + DKV_KEYS - 1) / DKV_KEYS, sh.bkh);
-      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          dout, lse, delta, dk, dv, sh.t_len, sh.s_len, sh.n_rep(), sh.causal, sh.scale);
-      return cudaGetLastError();
+      return by_tile<16, 32, 64>(sh.tile, [&](auto tile) {
+        constexpr int ROWS = decltype(tile)::value;
+        constexpr size_t smem = attn_mma::dkv_mma_smem_bytes<D, ROWS, CausalMask>();
+        static_assert(smem <= SMEM_LIMIT, "flash dk/dv: shared memory");
+        auto kernel = flash_bwd_dkv_mma_kernel<D, ROWS>;
+        const cudaError_t err = prepare(kernel, smem);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((sh.s_len + DKV_KEYS - 1) / DKV_KEYS, sh.bkh);
+        kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), dout, lse, delta, dk, dv, sh.t_len, sh.s_len,
+            sh.n_rep(), sh.causal, sh.scale);
+        return cudaGetLastError();
+      });
     } else {
       using G = Geo<T, D>;
       const size_t smem = dkv_smem_bytes<T, D>(G::TILE);
@@ -576,29 +604,31 @@ int dispatch(int dtype, int D, const Args& args) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). q [BH, T, D],
-// k/v [BKh, S, D]; o [BH, T, D] and lse [BH, T] fp32.
+// k/v [BKh, S, D]; o [BH, T, D] and lse [BH, T] fp32. tile: the tensor-core
+// kernel's tile edge (32 or 64 keys); any other returns cudaErrorInvalidValue.
 int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, float* o, float* lse,
-                     int BH, int BKh, int T, int S, int D, int causal, float scale,
+                     int BH, int BKh, int T, int S, int D, int causal, float scale, int tile,
                      void* stream) {
-  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream)};
+  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream), tile};
   return dispatch(dtype, D, FwdArgs{q, k, v, o, lse, sh});
 }
 
-// do [BH, T, D], lse and delta [BH, T], all fp32; dq [BH, T, D] fp32.
+// do [BH, T, D], lse and delta [BH, T], all fp32; dq [BH, T, D] fp32. tile:
+// keys of the K/V tile, 16, 32 or 64.
 int flash_bwd_dq_launch(int dtype, const void* q, const void* k, const void* v,
                         const float* dout, const float* lse, const float* delta, float* dq,
                         int BH, int BKh, int T, int S, int D, int causal, float scale,
-                        void* stream) {
-  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream)};
+                        int tile, void* stream) {
+  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream), tile};
   return dispatch(dtype, D, DqArgs{q, k, v, dout, lse, delta, dq, sh});
 }
 
-// As dq; dk, dv [BKh, S, D] fp32.
+// As dq; dk, dv [BKh, S, D] fp32. tile: q rows a step, 16, 32 or 64.
 int flash_bwd_dkv_launch(int dtype, const void* q, const void* k, const void* v,
                          const float* dout, const float* lse, const float* delta, float* dk,
                          float* dv, int BH, int BKh, int T, int S, int D, int causal,
-                         float scale, void* stream) {
-  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream)};
+                         float scale, int tile, void* stream) {
+  const Shape sh{BH, BKh, T, S, causal, scale, static_cast<cudaStream_t>(stream), tile};
   return dispatch(dtype, D, DkvArgs{q, k, v, dout, lse, delta, dk, dv, sh});
 }
 

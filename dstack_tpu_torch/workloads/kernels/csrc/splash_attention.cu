@@ -47,6 +47,9 @@
 //     queries last to first): the fp32 sums into dk and dv then meet the
 //     small terms first, while the sums are still small. Tensor cores: 64
 //     keys, 32 rows; CUDA cores: TILE x TILE.
+// Those are the tensor-core tiles of the default menu pair; a launch takes
+// its kernel's tile edge as flash_attention.cu's do (kernels/flash.py's
+// TILE_MENU names them), and each bound is computed at the launch's tiles.
 // Only tiles that cross the causal diagonal, the window's edge or the ragged
 // end pay for element compares on the tensor-core path; with document planes
 // every tile compares: document ids are element masks, as on the TPU (a tile
@@ -382,6 +385,7 @@ __global__ void __launch_bounds__(THREADS)
 // -- tensor-core kernels (bf16, D = 32, 64, 128) --------------------------------
 
 using bf16 = __nv_bfloat16;
+using attn_mma::by_tile;
 using attn_mma::DKV_KEYS;
 using attn_mma::DQ_ROWS;
 using attn_mma::FWD_ROWS;
@@ -389,41 +393,45 @@ using attn_mma::MMA_THREADS;
 using attn_mma::TensorCore;
 
 // The forward under the band (and, with DOCS, the documents):
-// attention_mma_kernels.cuh's body, which flash shares.
-template <int D, bool DOCS>
+// attention_mma_kernels.cuh's body, which flash shares; KEYS keys a K/V
+// tile.
+template <int D, bool DOCS, int KEYS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     splash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int n_rep, float scale, BandMask<DOCS> mask) {
-  attn_mma::fwd_mma_body<D>(q, k, v, o, lse, n_rep, scale, mask);
+  attn_mma::fwd_mma_body<D, KEYS>(q, k, v, o, lse, n_rep, scale, mask);
 }
 
-// dq under the same mask.
-template <int D, bool DOCS>
+// dq under the same mask; KEYS keys a K/V tile.
+template <int D, bool DOCS, int KEYS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     splash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              float* __restrict__ dq, int n_rep, float scale,
                              BandMask<DOCS> mask) {
-  attn_mma::dq_mma_body<D>(q, k, v, dout, lse, delta, dq, n_rep, scale, mask);
+  attn_mma::dq_mma_body<D, KEYS>(q, k, v, dout, lse, delta, dq, n_rep, scale, mask);
 }
 
-// dk/dv under the same mask.
-template <int D, bool DOCS>
+// dk/dv under the same mask; ROWS q rows a step.
+template <int D, bool DOCS, int ROWS>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     splash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv, int n_rep,
                               float scale, BandMask<DOCS> mask) {
-  attn_mma::dkv_mma_body<D>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale, mask);
+  attn_mma::dkv_mma_body<D, ROWS>(q, k, v, dout, lse, delta, dk, dv, n_rep, scale, mask);
 }
 
+// tile: the tensor-core kernel's tile edge (fwd and dq: keys of the K/V
+// tile; dk/dv: q rows a step); the CUDA-core kernels ignore it.
 struct Shape {
   int b, bh, bkh, t_len, s_len, causal, window;
   float scale;
   cudaStream_t stream;
+  int tile;
   template <bool DOCS>
   BandMask<DOCS> mask(const int* docq, const int* dock) const {
     return BandMask<DOCS>{t_len, s_len, causal, window, docq, dock, bh / b, bkh / b};
@@ -445,15 +453,19 @@ struct FwdArgs {
 
   template <int D, bool DOCS>
   cudaError_t launch_mma() const {
-    const size_t smem = attn_mma::fwd_mma_smem_bytes<D, BandMask<DOCS>>();
-    auto kernel = splash_fwd_mma_kernel<D, DOCS>;
-    const cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((sh.t_len + FWD_ROWS - 1) / FWD_ROWS, sh.bh);
-    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
-        lse, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
-    return cudaGetLastError();
+    return by_tile<32, 64>(sh.tile, [&](auto tile) {
+      constexpr int KEYS = decltype(tile)::value;
+      constexpr size_t smem = attn_mma::fwd_mma_smem_bytes<D, KEYS, BandMask<DOCS>>();
+      static_assert(smem <= SMEM_LIMIT, "splash fwd: shared memory");
+      auto kernel = splash_fwd_mma_kernel<D, DOCS, KEYS>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.t_len + FWD_ROWS - 1) / FWD_ROWS, sh.bh);
+      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          o, lse, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
+      return cudaGetLastError();
+    });
   }
 
   template <typename T, int D>
@@ -486,15 +498,19 @@ struct DqArgs {
 
   template <int D, bool DOCS>
   cudaError_t launch_mma() const {
-    const size_t smem = attn_mma::dq_mma_smem_bytes<D, BandMask<DOCS>>();
-    auto kernel = splash_bwd_dq_mma_kernel<D, DOCS>;
-    const cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((sh.t_len + DQ_ROWS - 1) / DQ_ROWS, sh.bh);
-    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        dout, lse, delta, dq, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
-    return cudaGetLastError();
+    return by_tile<16, 32, 64>(sh.tile, [&](auto tile) {
+      constexpr int KEYS = decltype(tile)::value;
+      constexpr size_t smem = attn_mma::dq_mma_smem_bytes<D, KEYS, BandMask<DOCS>>();
+      static_assert(smem <= SMEM_LIMIT, "splash dq: shared memory");
+      auto kernel = splash_bwd_dq_mma_kernel<D, DOCS, KEYS>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.t_len + DQ_ROWS - 1) / DQ_ROWS, sh.bh);
+      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          dout, lse, delta, dq, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
+      return cudaGetLastError();
+    });
   }
 
   template <typename T, int D>
@@ -526,15 +542,19 @@ struct DkvArgs {
 
   template <int D, bool DOCS>
   cudaError_t launch_mma() const {
-    const size_t smem = attn_mma::dkv_mma_smem_bytes<D, BandMask<DOCS>>();
-    auto kernel = splash_bwd_dkv_mma_kernel<D, DOCS>;
-    const cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((sh.s_len + DKV_KEYS - 1) / DKV_KEYS, sh.bkh);
-    kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        dout, lse, delta, dk, dv, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
-    return cudaGetLastError();
+    return by_tile<16, 32, 64>(sh.tile, [&](auto tile) {
+      constexpr int ROWS = decltype(tile)::value;
+      constexpr size_t smem = attn_mma::dkv_mma_smem_bytes<D, ROWS, BandMask<DOCS>>();
+      static_assert(smem <= SMEM_LIMIT, "splash dk/dv: shared memory");
+      auto kernel = splash_bwd_dkv_mma_kernel<D, DOCS, ROWS>;
+      const cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((sh.s_len + DKV_KEYS - 1) / DKV_KEYS, sh.bkh);
+      kernel<<<grid, MMA_THREADS, smem, sh.stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          dout, lse, delta, dk, dv, sh.bh / sh.bkh, sh.scale, sh.mask<DOCS>(docq, dock));
+      return cudaGetLastError();
+    });
   }
 
   template <typename T, int D>
@@ -630,30 +650,36 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). q [BH, T, D],
 // k/v [BKh, S, D]; docq [B, T] and dock [B, S] int32, or both null (no
 // document mask; B is then 1); o [BH, T, D] and lse [BH, T] fp32. window 0
-// means no window.
+// means no window. tile: the tensor-core kernel's tile edge (32 or 64 keys);
+// any other returns cudaErrorInvalidValue.
 int splash_fwd_launch(int dtype, const void* q, const void* k, const void* v, const int* docq,
                       const int* dock, float* o, float* lse, int B, int BH, int BKh, int T, int S,
-                      int D, int causal, int window, float scale, void* stream) {
-  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+                      int D, int causal, int window, float scale, int tile, void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream),
+                 tile};
   return dispatch(dtype, D, FwdArgs{q, k, v, docq, dock, o, lse, sh});
 }
 
-// do [BH, T, D], lse and delta [BH, T], all fp32; dq [BH, T, D] fp32.
+// do [BH, T, D], lse and delta [BH, T], all fp32; dq [BH, T, D] fp32. tile:
+// keys of the K/V tile, 16, 32 or 64.
 int splash_bwd_dq_launch(int dtype, const void* q, const void* k, const void* v,
                          const float* dout, const float* lse, const float* delta,
                          const int* docq, const int* dock, float* dq, int B, int BH, int BKh,
-                         int T, int S, int D, int causal, int window, float scale, void* stream) {
-  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+                         int T, int S, int D, int causal, int window, float scale, int tile,
+                         void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream),
+                 tile};
   return dispatch(dtype, D, DqArgs{q, k, v, dout, lse, delta, docq, dock, dq, sh});
 }
 
-// As dq; dk, dv [BKh, S, D] fp32.
+// As dq; dk, dv [BKh, S, D] fp32. tile: q rows a step, 16, 32 or 64.
 int splash_bwd_dkv_launch(int dtype, const void* q, const void* k, const void* v,
                           const float* dout, const float* lse, const float* delta,
                           const int* docq, const int* dock, float* dk, float* dv, int B, int BH,
                           int BKh, int T, int S, int D, int causal, int window, float scale,
-                          void* stream) {
-  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream)};
+                          int tile, void* stream) {
+  const Shape sh{B, BH, BKh, T, S, causal, window, scale, static_cast<cudaStream_t>(stream),
+                 tile};
   return dispatch(dtype, D, DkvArgs{q, k, v, dout, lse, delta, docq, dock, dk, dv, sh});
 }
 

@@ -12,6 +12,16 @@ inputs at D = 32, 64 and 128, with fp32 operands split into bf16 terms so
 that every product stays exact; fp32 inputs and other head dims run on CUDA
 cores (``instantiation`` names what a launch runs).
 
+Tiles. A (block_q, block_kv) pair of ``TILE_MENU`` sets the tile of each
+tensor-core kernel: the wrappers pass each kernel its tile edge, and the
+library returns an error for an edge it is not built at. ``DEFAULT_BLOCKS``
+runs the tiles the kernels had before the menu.
+``flash_attention`` takes explicit blocks, else the autotune cache's entry
+for this card, head dim and length (``kernels/autotune.py``), else the
+default. The CUDA-core kernels keep their own tiles whatever the pair. On
+the CPU the blocks keep the JAX kernel's contract (they must divide the
+lengths) and the plain versions compute the same result at every pair.
+
 Layout is the Pallas kernels': q3 [B*H, T, D], k3/v3 [B*Kh, S, D], with the
 query heads of one KV head adjacent (row b*H + g*n_rep + r reads KV row
 (b*H + g*n_rep + r) // n_rep), so GQA never copies K or V. Outputs are fp32:
@@ -29,11 +39,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from collections import Counter
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from dstack_tpu_torch.workloads.kernels import build
+from dstack_tpu_torch.workloads.kernels import autotune, build
 
 NEG_INF = -1e30
 
@@ -44,9 +55,37 @@ _BLOCKS = (512, 256, 128, 64, 32, 16, 8)
 # KV positions per step of the plain versions' walk.
 _PLAIN_BLOCK = 512
 
-# Kernel launches per wrapper since the last reset; tests and chip_smoke.py
-# read these to show which path a run went through.
+
+class Tiles(NamedTuple):
+    """The tensor-core tiles of one menu pair, each (q rows, keys): the
+    forward's streamed K/V tile, dq's, and dk/dv's q step over its KV block."""
+
+    fwd: Tuple[int, int]
+    dq: Tuple[int, int]
+    dkv: Tuple[int, int]
+
+
+# (block_q, block_kv) -> tiles. Forward and dq blocks own 64 q rows and dk/dv
+# blocks 64 keys at every pair (4 warps of 16 a block); the pair sets the
+# rest. (64, 64) holds the tiles of the kernels before the menu and is the
+# default; (64, 32) halves the forward's K/V tile; (128, 64) doubles dq's
+# K/V tile (32 -> 64 keys) and dk/dv's q step; (32, 32) halves all three.
+TILE_MENU: Dict[Tuple[int, int], Tiles] = {
+    (64, 64): Tiles(fwd=(64, 64), dq=(64, 32), dkv=(32, 64)),
+    (64, 32): Tiles(fwd=(64, 32), dq=(64, 32), dkv=(32, 64)),
+    (128, 64): Tiles(fwd=(64, 64), dq=(64, 64), dkv=(64, 64)),
+    (32, 32): Tiles(fwd=(64, 32), dq=(64, 16), dkv=(16, 64)),
+}
+DEFAULT_BLOCKS = (64, 64)
+
+# Kernel launches per wrapper since the last reset, and the same split by
+# the menu pair each launch ran; tests and chip_smoke.py read these to show
+# which path, and which tiles, a run went through.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+pair_launches: Dict[str, Counter] = {name: Counter() for name in launches}
+# The (block_q, block_kv) that the last flash_attention call resolved, on
+# either device.
+resolved_blocks: Dict[str, Optional[Tuple[int, int]]] = {"flash": None}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +93,51 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        pair_launches[name].clear()
+
+
+def resolve_blocks(kernel: str, t: int, s_len: int, d: int, device: torch.device,
+                   block_q: Optional[int] = None, block_k: Optional[int] = None
+                   ) -> Tuple[int, int]:
+    """The (block_q, block_kv) a ``kernel`` ("flash" or "splash") call runs.
+
+    Off the CPU (CUDA; any other device then fails in the wrappers):
+    explicit blocks, else the autotune cache's entry for this card, head dim
+    and max(T, S) when it is a menu pair, else DEFAULT_BLOCKS; a pair off
+    the menu raises. On the CPU, JAX's contract: explicit blocks, else the
+    cache's entry where it divides the lengths, else the largest block that
+    divides them; a ValueError when the blocks do not divide."""
+    bq, bk = block_q, block_k
+    if device.type != "cpu":
+        base = DEFAULT_BLOCKS
+        if bq is None or bk is None:
+            tuned = autotune.lookup(kernel, d, max(t, s_len),
+                                    gen=autotune.generation_of(device))
+            if tuned in TILE_MENU:
+                base = tuned
+        pair = (base[0] if bq is None else bq, base[1] if bk is None else bk)
+        if pair not in TILE_MENU:
+            raise ValueError(
+                f"{kernel} attention on CUDA: blocks {pair} are not on the tile menu"
+                f" {sorted(TILE_MENU)}"
+            )
+        return pair
+    if bq is None or bk is None:
+        tuned = autotune.lookup(kernel, d, max(t, s_len), gen="cpu")
+        if tuned is not None:
+            if bq is None and t % tuned[0] == 0:
+                bq = tuned[0]
+            if bk is None and s_len % tuned[1] == 0:
+                bk = tuned[1]
+        bq = bq or pick_flash_block(t)
+        bk = bk or pick_flash_block(s_len)
+    if bq is None or bk is None or t % bq or s_len % bk:
+        raise ValueError(
+            f"{kernel} attention needs block-divisible sequence lengths; "
+            f"T={t} S={s_len} have no usable block (pass attn_impl=xla "
+            f"or pad the sequence)"
+        )
+    return bq, bk
 
 
 def pick_flash_block(seq_len: int, cap: int = 512) -> Optional[int]:
@@ -193,7 +277,8 @@ def _library() -> ctypes.CDLL:
     stream as c_void_p, so ctypes never cuts them to 32 bits)."""
     lib = build.load("flash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    shape = [i32, i32, i32, i32, i32, i32, f32, ptr]  # BH, BKh, T, S, D, causal, scale, stream
+    # BH, BKh, T, S, D, causal, scale, tile, stream
+    shape = [i32, i32, i32, i32, i32, i32, f32, i32, ptr]
     lib.flash_fwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, *shape]
     lib.flash_bwd_dq_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, *shape]
     lib.flash_bwd_dkv_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, *shape]
@@ -255,11 +340,27 @@ def _check(q3, k3, v3, do3=None, lse=None, delta=None, what="flash attention ker
         raise ValueError(f"{what}: every tensor must be 16-byte aligned")
 
 
-def _shape_args(q3, k3, causal: bool):
+def menu_tiles(blocks: Tuple[int, int]) -> Tiles:
+    """The tiles of a menu pair; a ValueError for a pair off the menu."""
+    tiles = TILE_MENU.get(tuple(blocks))
+    if tiles is None:
+        raise ValueError(f"blocks {tuple(blocks)} are not on the tile menu {sorted(TILE_MENU)}")
+    return tiles
+
+
+def _shape_args(q3, k3, causal: bool, tile: int):
+    """The launch functions' shape arguments; ``tile`` is the tensor-core
+    kernel's tile edge (the library returns an error for one it is not
+    built at)."""
     bh, t, d = q3.shape
     bkh, s_len, _ = k3.shape
-    return (bh, bkh, t, s_len, d, int(causal), 1.0 / math.sqrt(d),
+    return (bh, bkh, t, s_len, d, int(causal), 1.0 / math.sqrt(d), tile,
             torch.cuda.current_stream(q3.device).cuda_stream)
+
+
+def _count(name: str, blocks: Tuple[int, int]) -> None:
+    launches[name] += 1
+    pair_launches[name][tuple(blocks)] += 1
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -268,8 +369,9 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def flash_fwd(q3, k3, v3, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B*H, T, D] fp32, lse [B*H, T] fp32)."""
+def flash_fwd(q3, k3, v3, causal: bool, blocks: Tuple[int, int] = DEFAULT_BLOCKS
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B*H, T, D] fp32, lse [B*H, T] fp32); ``blocks`` a TILE_MENU pair."""
     if _on_cpu(q3, k3, v3):
         return flash_fwd_plain(q3, k3, v3, causal)
     _check(q3, k3, v3)
@@ -279,14 +381,16 @@ def flash_fwd(q3, k3, v3, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = _library()
     rc = lib.flash_fwd_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), *_shape_args(q3, k3, causal),
+        o.data_ptr(), lse.data_ptr(),
+        *_shape_args(q3, k3, causal, menu_tiles(blocks).fwd[1]),
     )
     _raise_on(rc, lib, "flash fwd")
-    launches["flash_fwd"] += 1
+    _count("flash_fwd", blocks)
     return o, lse
 
 
-def flash_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool) -> torch.Tensor:
+def flash_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool,
+                 blocks: Tuple[int, int] = DEFAULT_BLOCKS) -> torch.Tensor:
     """dq [B*H, T, D] fp32 from do (fp32), lse and delta = rowsum(do * o)."""
     if _on_cpu(q3, k3, v3, do3, lse, delta):
         return flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, causal)
@@ -296,14 +400,15 @@ def flash_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool) -> torch.Tensor:
     rc = lib.flash_bwd_dq_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_shape_args(q3, k3, causal),
+        *_shape_args(q3, k3, causal, menu_tiles(blocks).dq[1]),
     )
     _raise_on(rc, lib, "flash bwd dq")
-    launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", blocks)
     return dq
 
 
-def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool,
+                  blocks: Tuple[int, int] = DEFAULT_BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B*Kh, S, D] fp32."""
     if _on_cpu(q3, k3, v3, do3, lse, delta):
         return flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, causal)
@@ -314,10 +419,10 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool) -> Tuple[torch.Tens
     rc = lib.flash_bwd_dkv_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q3, k3, causal),
+        *_shape_args(q3, k3, causal, menu_tiles(blocks).dkv[0]),
     )
     _raise_on(rc, lib, "flash bwd dk/dv")
-    launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", blocks)
     return dk, dv
 
 
@@ -330,10 +435,10 @@ class _Flash3d(torch.autograd.Function):
     VJP. Gradients come back in the inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, causal):
-        o, lse = flash_fwd(q3, k3, v3, causal)
+    def forward(ctx, q3, k3, v3, causal, blocks):
+        o, lse = flash_fwd(q3, k3, v3, causal, blocks)
         ctx.save_for_backward(q3, k3, v3, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.blocks = causal, blocks
         return o
 
     @staticmethod
@@ -341,9 +446,9 @@ class _Flash3d(torch.autograd.Function):
         q3, k3, v3, o, lse = ctx.saved_tensors
         do3 = do3.float().contiguous()
         delta = (do3 * o).sum(-1)
-        dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, ctx.causal)
-        dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, ctx.causal)
-        return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype), None
+        dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, ctx.causal, ctx.blocks)
+        dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, ctx.causal, ctx.blocks)
+        return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype), None, None
 
 
 def flash_attention(
@@ -352,24 +457,23 @@ def flash_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused flash attention with a backward; returns fp32 [B, T, H, D] (the
     blockwise contract). The CUDA kernels tile by their own edge and mask a
-    ragged last tile, so CUDA tensors take any length. CPU tensors keep the
-    JAX kernel's contract: a ValueError when the sequence lengths admit no
-    block size (``pick_flash_block``)."""
+    ragged last tile, so CUDA tensors take any length, and run the menu pair
+    ``resolve_blocks`` picks. CPU tensors keep the JAX kernel's contract: a
+    ValueError when the blocks (given, tuned or the largest that divides) do
+    not divide the sequence lengths."""
     b, t, h, d = q.shape
     s_len, kh = k.shape[1], k.shape[2]
-    if _on_cpu(q, k, v) and (pick_flash_block(t) is None or pick_flash_block(s_len) is None):
-        raise ValueError(
-            f"flash attention needs block-divisible sequence lengths; "
-            f"T={t} S={s_len} have no usable block (pass attn_impl=xla "
-            f"or pad the sequence)"
-        )
+    blocks = resolve_blocks("flash", t, s_len, d, q.device, block_q, block_k)
+    resolved_blocks["flash"] = blocks
     # GQA: q rows of one KV head are adjacent after the reshape (row
     # b*h + g*n_rep + r floors to KV row b*kh + g under // n_rep).
     q3 = q.transpose(1, 2).reshape(b * h, t, d).contiguous()
     k3 = k.transpose(1, 2).reshape(b * kh, s_len, d).contiguous()
     v3 = v.transpose(1, 2).reshape(b * kh, s_len, d).contiguous()
-    o3 = _Flash3d.apply(q3, k3, v3, causal)
+    o3 = _Flash3d.apply(q3, k3, v3, causal, blocks)
     return o3.reshape(b, h, t, d).transpose(1, 2)

@@ -28,6 +28,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def chip_generation(device: DeviceLike = None) -> str:
+    """The card's generation, ``sm<major><minor>`` ("sm90" on an H100), for a
+    CUDA computation, and "cpu" for a CPU one; the autotune cache's key
+    carries it (the counterpart of the JAX package's TPU generation). With
+    no device: the card when one is available, else the CPU."""
+    if device is None:
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    else:
+        dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"sm{major}{minor}"
+
+
 def require_sm90(device: Optional[torch.device] = None) -> None:
     """The kernels are compiled for sm_90a, which only an sm_90 card runs."""
     cap = torch.cuda.get_device_capability(device)

@@ -25,7 +25,9 @@ mask inside live tiles. Document ids stay element masks, as in the TPU
 kernel. Layout and GQA are ``kernels/flash.py``'s: q3 [B*H, T, D], k3/v3
 [B*Kh, S, D]; document ids docq [B, T] and dock [B, S] int32, or None (then
 no document plane is read at all). Outputs and gradients are fp32; a row
-that sees no key has o = 0, lse = -1e30 and zero gradients.
+that sees no key has o = 0, lse = -1e30 and zero gradients. Tiles come from
+``kernels/flash.py``'s ``TILE_MENU`` as for flash: explicit blocks, else the
+autotune cache's entry for "splash", else the default pair.
 """
 
 from __future__ import annotations
@@ -33,18 +35,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from collections import Counter
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from dstack_tpu_torch.workloads.kernels import build
 from dstack_tpu_torch.workloads.kernels.flash import (
     _DTYPE_CODES,
+    DEFAULT_BLOCKS,
     NEG_INF,
     _check,
     _grouped,
     _on_cpu,
-    pick_flash_block,
+    menu_tiles,
+    resolve_blocks,
 )
 
 # KV positions per step of the plain versions' walk.
@@ -53,11 +58,21 @@ _PLAIN_BLOCK = 512
 # Kernel launches per wrapper since the last reset; tests and chip_smoke.py
 # read these to show which path a run went through.
 launches = {"splash_fwd": 0, "splash_bwd_dq": 0, "splash_bwd_dkv": 0}
+# The same split by the menu pair each launch ran, and the pair the last
+# splash_attention call resolved (as in kernels/flash.py).
+pair_launches: Dict[str, Counter] = {name: Counter() for name in launches}
+resolved_blocks: Dict[str, Optional[Tuple[int, int]]] = {"splash": None}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        pair_launches[name].clear()
+
+
+def _count(name: str, blocks: Tuple[int, int]) -> None:
+    launches[name] += 1
+    pair_launches[name][tuple(blocks)] += 1
 
 
 # -- the materialized reference -------------------------------------------------
@@ -238,8 +253,8 @@ def _library() -> ctypes.CDLL:
     stream as c_void_p, so ctypes never cuts them to 32 bits)."""
     lib = build.load("splash_attention")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B, BH, BKh, T, S, D, causal, window, scale, stream
-    shape = [i32, i32, i32, i32, i32, i32, i32, i32, f32, ptr]
+    # B, BH, BKh, T, S, D, causal, window, scale, tile, stream
+    shape = [i32, i32, i32, i32, i32, i32, i32, i32, f32, i32, ptr]
     lib.splash_fwd_launch.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, *shape]
     lib.splash_bwd_dq_launch.argtypes = [i32, *[ptr] * 9, *shape]
     lib.splash_bwd_dkv_launch.argtypes = [i32, *[ptr] * 10, *shape]
@@ -285,15 +300,16 @@ def _check_docs(q3, k3, docq, dock) -> None:
                              " kernels' device")
 
 
-def _args(q3, k3, docq, dock, causal: bool, window: int):
+def _args(q3, k3, docq, dock, causal: bool, window: int, tile: int):
     """(docq ptr, dock ptr) and the shape arguments; null pointers and B = 1
-    without documents (the kernels then read no document plane)."""
+    without documents (the kernels then read no document plane). ``tile``:
+    the tensor-core kernel's tile edge."""
     bh, t, d = q3.shape
     bkh, s_len, _ = k3.shape
     ptrs = (None, None) if docq is None else (docq.data_ptr(), dock.data_ptr())
     b = 1 if docq is None else docq.shape[0]
     return ptrs, (b, bh, bkh, t, s_len, d, int(causal), int(window), 1.0 / math.sqrt(d),
-                  torch.cuda.current_stream(q3.device).cuda_stream)
+                  tile, torch.cuda.current_stream(q3.device).cuda_stream)
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -302,9 +318,9 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def splash_fwd(q3, k3, v3, docq, dock, causal: bool, window: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B*H, T, D] fp32, lse [B*H, T] fp32)."""
+def splash_fwd(q3, k3, v3, docq, dock, causal: bool, window: int,
+               blocks: Tuple[int, int] = DEFAULT_BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B*H, T, D] fp32, lse [B*H, T] fp32); ``blocks`` a TILE_MENU pair."""
     if _on_cpu(q3, k3, v3):
         return splash_fwd_plain(q3, k3, v3, docq, dock, causal, window)
     _check(q3, k3, v3, what="splash attention kernel")
@@ -313,18 +329,18 @@ def splash_fwd(q3, k3, v3, docq, dock, causal: bool, window: int
     o = torch.empty((bh, t, d), dtype=torch.float32, device=q3.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     lib = _library()
-    docs, shape = _args(q3, k3, docq, dock, causal, window)
+    docs, shape = _args(q3, k3, docq, dock, causal, window, menu_tiles(blocks).fwd[1])
     rc = lib.splash_fwd_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), *docs,
         o.data_ptr(), lse.data_ptr(), *shape,
     )
     _raise_on(rc, lib, "splash fwd")
-    launches["splash_fwd"] += 1
+    _count("splash_fwd", blocks)
     return o, lse
 
 
-def splash_bwd_dq(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window: int
-                  ) -> torch.Tensor:
+def splash_bwd_dq(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window: int,
+                  blocks: Tuple[int, int] = DEFAULT_BLOCKS) -> torch.Tensor:
     """dq [B*H, T, D] fp32 from do (fp32), lse and delta = rowsum(do * o)."""
     if _on_cpu(q3, k3, v3, do3, lse, delta):
         return splash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, docq, dock, causal, window)
@@ -332,18 +348,18 @@ def splash_bwd_dq(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window:
     _check_docs(q3, k3, docq, dock)
     dq = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
     lib = _library()
-    docs, shape = _args(q3, k3, docq, dock, causal, window)
+    docs, shape = _args(q3, k3, docq, dock, causal, window, menu_tiles(blocks).dq[1])
     rc = lib.splash_bwd_dq_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *docs, dq.data_ptr(), *shape,
     )
     _raise_on(rc, lib, "splash bwd dq")
-    launches["splash_bwd_dq"] += 1
+    _count("splash_bwd_dq", blocks)
     return dq
 
 
-def splash_bwd_dkv(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def splash_bwd_dkv(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window: int,
+                   blocks: Tuple[int, int] = DEFAULT_BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B*Kh, S, D] fp32."""
     if _on_cpu(q3, k3, v3, do3, lse, delta):
         return splash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, docq, dock, causal, window)
@@ -352,13 +368,13 @@ def splash_bwd_dkv(q3, k3, v3, do3, lse, delta, docq, dock, causal: bool, window
     dk = torch.empty(k3.shape, dtype=torch.float32, device=k3.device)
     dv = torch.empty(k3.shape, dtype=torch.float32, device=k3.device)
     lib = _library()
-    docs, shape = _args(q3, k3, docq, dock, causal, window)
+    docs, shape = _args(q3, k3, docq, dock, causal, window, menu_tiles(blocks).dkv[0])
     rc = lib.splash_bwd_dkv_launch(
         _DTYPE_CODES[q3.dtype], q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *docs, dk.data_ptr(), dv.data_ptr(), *shape,
     )
     _raise_on(rc, lib, "splash bwd dk/dv")
-    launches["splash_bwd_dkv"] += 1
+    _count("splash_bwd_dkv", blocks)
     return dk, dv
 
 
@@ -371,10 +387,10 @@ class _Splash3d(torch.autograd.Function):
     back in the inputs' dtypes; the document ids get none."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, docq, dock, causal, window):
-        o, lse = splash_fwd(q3, k3, v3, docq, dock, causal, window)
+    def forward(ctx, q3, k3, v3, docq, dock, causal, window, blocks):
+        o, lse = splash_fwd(q3, k3, v3, docq, dock, causal, window, blocks)
         ctx.save_for_backward(q3, k3, v3, o, lse, docq, dock)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.blocks = causal, window, blocks
         return o
 
     @staticmethod
@@ -382,10 +398,11 @@ class _Splash3d(torch.autograd.Function):
         q3, k3, v3, o, lse, docq, dock = ctx.saved_tensors
         do3 = do3.float().contiguous()
         delta = (do3 * o).sum(-1)
-        args = (q3, k3, v3, do3, lse, delta, docq, dock, ctx.causal, ctx.window)
+        args = (q3, k3, v3, do3, lse, delta, docq, dock, ctx.causal, ctx.window, ctx.blocks)
         dq = splash_bwd_dq(*args)
         dk, dv = splash_bwd_dkv(*args)
-        return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype), None, None, None, None
+        return (dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype), None, None, None, None,
+                None)
 
 
 def splash_attention(
@@ -396,24 +413,23 @@ def splash_attention(
     causal: bool = True,
     window: int = 0,
     doc_ids: Optional[torch.Tensor] = None,  # [B, max(T, S)] int
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Block-sparse flash attention with a backward; returns fp32
     [B, T, H, D]. ``window`` > 0 restricts each query to the last ``window``
     positions (its own included) and needs ``causal``; ``doc_ids`` adds a
     same-document mask. The CUDA kernels tile by their own edge, so CUDA
-    tensors take any length; CPU tensors keep the JAX kernel's contract, a
-    ValueError when the sequence lengths admit no block size."""
+    tensors take any length, and run the menu pair ``resolve_blocks`` picks;
+    CPU tensors keep the JAX kernel's contract, a ValueError when the blocks
+    (given, tuned or the largest that divides) do not divide the lengths."""
     b, t, h, d = q.shape
     s_len, kh = k.shape[1], k.shape[2]
     if window and not causal:
         raise ValueError("splash window masks are causal bands; "
                          "window > 0 requires causal=True")
-    if _on_cpu(q, k, v) and (pick_flash_block(t) is None or pick_flash_block(s_len) is None):
-        raise ValueError(
-            f"splash attention needs block-divisible sequence lengths; "
-            f"T={t} S={s_len} have no usable block (pass attn_impl=xla "
-            f"or pad the sequence)"
-        )
+    blocks = resolve_blocks("splash", t, s_len, d, q.device, block_q, block_k)
+    resolved_blocks["splash"] = blocks
     q3 = q.transpose(1, 2).reshape(b * h, t, d).contiguous()
     k3 = k.transpose(1, 2).reshape(b * kh, s_len, d).contiguous()
     v3 = v.transpose(1, 2).reshape(b * kh, s_len, d).contiguous()
@@ -421,5 +437,5 @@ def splash_attention(
     if doc_ids is not None:
         docq = doc_ids[:, :t].to(torch.int32).contiguous()
         dock = doc_ids[:, :s_len].to(torch.int32).contiguous()
-    o3 = _Splash3d.apply(q3, k3, v3, docq, dock, causal, int(window))
+    o3 = _Splash3d.apply(q3, k3, v3, docq, dock, causal, int(window), blocks)
     return o3.reshape(b, h, t, d).transpose(1, 2)

@@ -55,7 +55,7 @@ Params = Dict[str, torch.Tensor]
 
 
 def dtype_of(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
 
 
 def init_params(
@@ -137,11 +137,79 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
 
 
-def dense_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+# -- the save_proj remat policy --------------------------------------------------
+# JAX names the up-projections' outputs (q, k, v, gate, up) and the attention
+# output before wo "proj" (checkpoint_name) and saves only those. PyTorch's
+# selective checkpointing sees dispatcher ops, not names, so the named
+# tensors come from two ops of their own, which the policy saves: the fp
+# up-projection product itself (so the recompute reuses it and runs no
+# product; its gradients are the ones ``x @ w`` has), and a copy that marks
+# the attention output. Everything else recomputes, wo's and w_down's
+# products included. Under int8/fp8 and the all-gather ring the
+# up-projections keep their own products, which then recompute.
+
+
+@torch.library.custom_op("dstack_tpu_torch::proj_matmul", mutates_args=())
+def _proj_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
+@_proj_matmul.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+
+def _proj_matmul_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _proj_matmul_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    g2 = g.reshape(-1, g.shape[-1])
+    dx = (g2 @ w.t()).reshape(x.shape)
+    dw = x.reshape(-1, x.shape[-1]).t() @ g2
+    return dx, dw
+
+
+_proj_matmul.register_autograd(_proj_matmul_backward, setup_context=_proj_matmul_setup)
+
+
+@torch.library.custom_op("dstack_tpu_torch::proj_saved", mutates_args=())
+def _proj_saved(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@_proj_saved.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_proj_saved.register_autograd(lambda ctx, g: g, setup_context=lambda ctx, inputs, output: None)
+
+_SAVE_PROJ_OPS = (torch.ops.dstack_tpu_torch.proj_matmul.default,
+                  torch.ops.dstack_tpu_torch.proj_saved.default)
+
+
+def _save_proj_policy(ctx, op, *args, **kwargs):
+    if op in _SAVE_PROJ_OPS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _saves_proj(cfg: LlamaConfig) -> bool:
+    return cfg.remat and cfg.remat_policy == "save_proj" and torch.is_grad_enabled()
+
+
+def dense_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
+               saved: bool = False) -> torch.Tensor:
     """``x[..., K] @ w[K, N]`` in the activation dtype, under cfg.quant: the
     fp product (the weight cast to x.dtype on use), or the dynamically
     quantized int8/fp8 product with straight-through gradients. Meshless,
-    this is both of the reference's ``up_proj`` and ``down_proj``."""
+    this is both of the reference's ``up_proj`` and ``down_proj``.
+    ``saved``: an up-projection under the save_proj policy (the fp product
+    then runs as the op the policy saves)."""
+    if saved and cfg.quant in ("", "none") and _saves_proj(cfg):
+        return _proj_matmul(x, w.to(x.dtype))
     return quant_lib.matmul(x, w, cfg.quant, adt=x.dtype)
 
 
@@ -181,6 +249,18 @@ def _whole_over_batch(w: torch.Tensor, mesh: sharding.Mesh,
     return reduce_backward(w, mesh, extra) if extra else w
 
 
+def _ring_axes(x: torch.Tensor, mesh: sharding.Mesh,
+               batch_axes: Tuple[str, ...]) -> Optional[Tuple[str, ...]]:
+    """The axes the all-gather ring of an up-projection walks, or None
+    when it does not apply (the plain gather runs): the batch axes without
+    sp (each sp rank rings over its own chunk), when K splits over them.
+    The reference also requires the global batch, sequence and output
+    columns to split over the batch axes, sp and tp; here ``x`` and the
+    weight are a rank's local pieces, so those splits hold already."""
+    ring = tuple(a for a in batch_axes if a != "sp")
+    return ring if can_fsdp_overlap(mesh, x.shape[-1], ring) else None
+
+
 def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
             mesh: Optional[sharding.Mesh],
             batch_axes: Tuple[str, ...] = DATA_AXES) -> torch.Tensor:
@@ -190,13 +270,22 @@ def up_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
     all-gather ring (kernels/collective.py) when d_model splits over them;
     the result is this rank's N/tp columns."""
     if mesh is None:
-        return dense_proj(x, w, cfg)
+        return dense_proj(x, w, cfg, saved=True)
     w = _whole_over_batch(w, mesh, batch_axes)
-    if cfg.fsdp_overlap and can_fsdp_overlap(mesh, x.shape[-1]):
-        return allgather_matmul(x, w, mesh, matmul=_quant_partial_mm(cfg),
+    ring = _ring_axes(x, mesh, batch_axes) if cfg.fsdp_overlap else None
+    if ring:
+        # The ring walks K over its axes (the reference reshards w to K over
+        # them): beyond dp and fsdp (ep on an MoE mesh) this rank's piece is
+        # cut once more, at its coordinate there; the cut's gradient is
+        # summed back over those axes by _whole_over_batch.
+        extra = tuple(a for a in ring if a not in DATA_AXES)
+        if extra:
+            n = mesh.axis_size(extra)
+            w = w.unflatten(0, (n, w.shape[0] // n))[mesh.index(extra)]
+        return allgather_matmul(x, w, mesh, batch_axes=ring, matmul=_quant_partial_mm(cfg),
                                 dtype=_gather_dtype(cfg, x.dtype)).to(x.dtype)
     w = gather_on_use(w, 0, mesh, DATA_AXES, _gather_dtype(cfg, x.dtype))
-    return dense_proj(x, w, cfg)
+    return dense_proj(x, w, cfg, saved=True)
 
 
 def down_proj(x: torch.Tensor, w: torch.Tensor, cfg: LlamaConfig,
@@ -247,6 +336,8 @@ def attention_sublayer(
     k = _rope(k, positions, cfg.rope_theta)
     o = attention_core(q, k, v, cfg.attn_impl, mesh, window=cfg.attn_window)
     o = o.to(x.dtype).reshape(b, t, heads * cfg.head_dim)
+    if _saves_proj(cfg):
+        o = _proj_saved(o)
     return x + down_proj(o, params["wo"][layer], cfg, mesh, batch_axes)
 
 
@@ -277,7 +368,9 @@ def remat_policy_of(cfg: LlamaConfig) -> Callable:
     """cfg.remat_policy -> the ``context_fn`` of ``torch.utils.checkpoint``:
     "full" recomputes the whole block; "dots" saves the outputs of the
     projection matmuls (``aten.mm``; the reference's dots without batch
-    dimensions) and recomputes the rest."""
+    dimensions) and recomputes the rest; "save_proj" saves q, k, v, gate,
+    up and the attention output before wo (the reference's "proj" names)
+    and recomputes the rest, wo's and w_down's products included."""
     if cfg.remat_policy == "full":
         return torch.utils.checkpoint.noop_context_fn
     if cfg.remat_policy == "dots":
@@ -286,9 +379,8 @@ def remat_policy_of(cfg: LlamaConfig) -> Callable:
             [torch.ops.aten.mm.default],
         )
     if cfg.remat_policy == "save_proj":
-        raise NotImplementedError(
-            "remat_policy=save_proj is not yet ported to PyTorch (ROADMAP item 12)"
-        )
+        return functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts, _save_proj_policy)
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
@@ -556,28 +648,46 @@ def draft_apply(draft: Params, hidden: torch.Tensor, tok_emb: torch.Tensor,
 
 
 def draft_distill_loss(draft: Params, params: Params, tokens: torch.Tensor,
-                       cfg: LlamaConfig, rollout: int = 2) -> torch.Tensor:
+                       cfg: LlamaConfig, rollout: int = 2,
+                       mesh: Optional[sharding.Mesh] = None) -> torch.Tensor:
     """Distillation loss against the frozen target on one batch: the head's
     cross-entropy against the target's own argmax. Position t conditions on
     (target hidden_t, embedding of token_{t+1}) and predicts the target's
     argmax at t+1; rollout step j >= 2 feeds the head its own previous
     output and proposed token, labelled j ahead. The target's forward runs
     without gradients and its labels are constants, so gradients reach
-    ``draft`` only."""
+    ``draft`` only.
+
+    Under a training ``mesh``: ``params`` are this rank's pieces and
+    ``tokens`` its rows; the target's forward runs on the mesh, its embed
+    and lm_head are gathered whole, and ``draft`` is whole on every rank.
+    The value is the global mean (every rank holds as many rows, and each
+    row as many labels), and the draft's gradients are summed over the data
+    axes, so they are the global mean's (the tp ranks of a data shard hold
+    the same rows: no sum over tp)."""
     adt = dtype_of(cfg.dtype)
     tokens = tokens.to(params["embed"].device).long()
+    embed, lm_head = params["embed"], params["lm_head"]
     with torch.no_grad():
-        hidden = forward(params, tokens, cfg, return_hidden=True)  # [B, T, D]
-        labels = _draft_mm(hidden, params["lm_head"]).float().argmax(-1)  # a_t
+        hidden = forward(params, tokens, cfg, return_hidden=True, mesh=mesh)  # [B, T, D]
+        if mesh is not None:
+            embed = gather_on_use(gather_on_use(embed, 1, mesh, DATA_AXES), 0, mesh, ("tp",))
+            lm_head = gather_on_use(gather_on_use(lm_head, 0, mesh, DATA_AXES), 1, mesh,
+                                    ("tp",))
+        labels = _draft_mm(hidden, lm_head).float().argmax(-1)  # a_t
+    if mesh is not None:
+        draft = {k: reduce_backward(w, mesh, DATA_AXES) for k, w in draft.items()}
     h = hidden[:, :-1]          # rows t = 0..T-2
     cond = tokens[:, 1:]        # x_{t+1}
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for j in range(1, rollout + 1):
-        e = params["embed"].to(adt)[cond]
+        e = embed.to(adt)[cond]
         h = draft_apply(draft, h, e, cfg)
-        logits_j = _draft_mm(h, params["lm_head"]).float()
+        logits_j = _draft_mm(h, lm_head).float()
         # Row t's label at depth j is a_{t+j}; rows past T-1-j have none.
         lab = torch.nn.functional.pad(labels[:, j:], (0, j - 1), value=-1)
         total = total + masked_ce(logits_j, lab)
         cond = logits_j.argmax(-1)
-    return total / rollout
+    if mesh is None:
+        return total / rollout
+    return reduce_forward(total / rollout / mesh.axis_size(DATA_AXES), mesh, DATA_AXES)

@@ -191,6 +191,9 @@ def _expert_weight(params: Params, name: str, layer: int, cfg: MoeConfig,
     if mesh is None:
         w = w.to(adt)
     else:
+        if mesh.shape["sp"] > 1:
+            # Each sp rank runs the experts on its own tokens.
+            w = reduce_backward(w, mesh, "sp")
         w = gather_on_use(w, 2 if name == "w_down" else 1, mesh, DATA_AXES, adt)
     if cfg.quant != "int8":
         return w
@@ -216,14 +219,34 @@ def _to_tokens(y: torch.Tensor, mesh: sharding.Mesh) -> torch.Tensor:
     return all_to_all(blocks, mesh, "ep")
 
 
+def routing_group(cfg: MoeConfig, seq: int) -> int:
+    """The routing group of a sequence of ``seq`` positions: the largest
+    divisor of it that is at most cfg.router_group."""
+    return next((c for c in range(min(cfg.router_group, seq), 0, -1) if seq % c == 0), seq)
+
+
 def moe_mlp(x: torch.Tensor, params: Params, layer: int, cfg: MoeConfig,
             mesh: Optional[sharding.Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, S, D], aux loss) of layer ``layer``'s experts on ``x``
-    [B, S, D] (activation dtype; under a mesh this rank's rows). The aux
-    loss is the global batch's under a mesh."""
+    [B, S, D] (activation dtype; under a mesh this rank's rows, under sp
+    its chunk of the sequence). The aux loss is the global batch's under a
+    mesh.
+
+    Under sp the routing groups are the reference's, cut from the global
+    sequence. When a group divides the chunk, every group lies inside one
+    rank and the chunk routes alone. When groups straddle ranks, the chunks
+    are gathered over sp (the gather's backward reduce-scatters), every sp
+    rank routes and runs the experts on the whole sequence of its rows and
+    keeps its chunk of the output, and its aux loss counts 1/sp (each sp
+    rank computes the same one)."""
     adt = x.dtype
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    s_loc = x.shape[1]
+    group = routing_group(cfg, s_loc * sp)
+    straddle = sp > 1 and s_loc % group != 0
+    if straddle:
+        x = gather_on_use(x, 1, mesh, "sp")
     b, s, d = x.shape
-    group = next((c for c in range(min(cfg.router_group, s), 0, -1) if s % c == 0), s)
     g = b * (s // group)
     x = x.reshape(g, group, d)
     cap = expert_capacity(cfg, group)
@@ -235,7 +258,7 @@ def moe_mlp(x: torch.Tensor, params: Params, layer: int, cfg: MoeConfig,
         # fp32, so this is the reference's fp32-accumulated einsum.
         router = params["router"][layer]
         if mesh is not None:
-            router = reduce_backward(router, mesh, MOE_DATA_AXES)
+            router = reduce_backward(router, mesh, sharding.token_axes(mesh))
         logits = x.float() @ router.to(adt).float()                # [G, S, E]
         combine, dispatch, balance = _route(logits, cfg.top_k, cap)
     with record_function("moe.dispatch"):
@@ -266,17 +289,25 @@ def moe_mlp(x: torch.Tensor, params: Params, layer: int, cfg: MoeConfig,
         if exchange:
             expert_out = _to_tokens(expert_out, mesh)
         out = torch.einsum("gsec,egcd->gsd", combine.to(adt), expert_out)
+    out = out.reshape(b, s, d)
     total, groups = balance.sum(), g
-    if mesh is not None:
-        total = reduce_forward(total, mesh, MOE_DATA_AXES)
+    if straddle:
+        i = mesh.index("sp")
+        out = out[:, i * s_loc:(i + 1) * s_loc]
+        total = total / sp
         groups *= mesh.axis_size(MOE_DATA_AXES)
-    return out.reshape(b, s, d), cfg.n_experts * total / groups
+    elif mesh is not None:
+        groups *= mesh.axis_size(sharding.token_axes(mesh))
+    if mesh is not None:
+        total = reduce_forward(total, mesh, sharding.token_axes(mesh))
+    return out, cfg.n_experts * total / groups
 
 
 def _block(x: torch.Tensor, params: Params, layer: int, cfg: MoeConfig,
            positions: torch.Tensor, mesh: Optional[sharding.Mesh]):
-    x = model_lib.attention_sublayer(x, params, layer, cfg, positions, mesh, MOE_DATA_AXES)
-    norm = model_lib._norm_weight(params, "mlp_norm", layer, mesh, MOE_DATA_AXES)
+    axes = sharding.token_axes(mesh)
+    x = model_lib.attention_sublayer(x, params, layer, cfg, positions, mesh, axes)
+    norm = model_lib._norm_weight(params, "mlp_norm", layer, mesh, axes)
     out, aux = moe_mlp(model_lib._rms_norm(x, norm, cfg.norm_eps), params, layer, cfg, mesh)
     return x + out, aux
 
@@ -286,13 +317,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
     """(logits [B, T, V] fp32, total aux loss), or (hidden [B, T, D], aux)
     when ``return_hidden`` (for the chunked cross-entropy). Under cfg.remat
     each block is recomputed in the backward pass, its all-to-alls with it.
-    Under an MoE ``mesh``: this rank's rows."""
+    Under an MoE ``mesh``: this rank's rows, under sp its chunk of the
+    sequence (attention runs the ring, as the dense model's)."""
     if mesh is not None:
         sharding.validate_moe_mesh(cfg, mesh)
     adt = model_lib.dtype_of(cfg.dtype)
+    axes = sharding.token_axes(mesh)
     tokens = tokens.to(params["embed"].device).long()
-    x = model_lib._embed_lookup(params["embed"], tokens, mesh, adt, MOE_DATA_AXES)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = model_lib._embed_lookup(params["embed"], tokens, mesh, adt, axes)
+    positions = model_lib.positions_of(tokens.shape[1], mesh, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = model_lib.remat_policy_of(cfg) if remat else None
     auxes = []
@@ -305,7 +338,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
         else:
             x, aux = _block(x, params, layer, cfg, positions, mesh)
         auxes.append(aux)
-    norm = model_lib._norm_weight(params, "final_norm", None, mesh, MOE_DATA_AXES)
+    norm = model_lib._norm_weight(params, "final_norm", None, mesh, axes)
     x = model_lib._rms_norm(x, norm, cfg.norm_eps)
     aux_total = torch.stack(auxes).sum()
     if return_hidden:
@@ -313,7 +346,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
     # The MoE lm_head is the fp product under every quant mode, as the
     # reference's; under tp the logits are this rank's V/tp columns.
     return model_lib._logits(model_lib._tp_input(x, mesh),
-                             model_lib._lm_head(params, cfg, mesh, adt, MOE_DATA_AXES),
+                             model_lib._lm_head(params, cfg, mesh, adt, axes),
                              "none"), aux_total
 
 
@@ -328,7 +361,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: Mo
     if chunk:
         hidden, aux = forward(params, tokens, cfg, mesh, return_hidden=True)
         lm_head = model_lib._lm_head(params, cfg, mesh, model_lib.dtype_of(cfg.dtype),
-                                     MOE_DATA_AXES)
+                                     sharding.token_axes(mesh))
         total, count = model_lib._chunked_nll(model_lib._tp_input(hidden, mesh), lm_head,
                                               targets, chunk, tp_mesh=tp_mesh)
     else:
@@ -337,7 +370,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: Mo
     if mesh is None:
         ce = total / torch.clamp(count, min=1)
     else:
-        ce = model_lib.global_mean(total, count, mesh, MOE_DATA_AXES)
+        ce = model_lib.global_mean(total, count, mesh, sharding.token_axes(mesh))
     return ce + cfg.aux_loss_weight * aux
 
 

@@ -184,6 +184,11 @@ class Mesh:
             # (dp, fsdp, sp) is not a contiguous run of the mesh's axes,
             # which DeviceMesh flattens only: its groups are made directly.
             self._groups[TOKEN_AXES] = self._new_groups(TOKEN_AXES)
+        if self.axes == MOE_MESH_AXES and self.shape["sp"] > 1:
+            # The MoE token axes, and (ep, sp): the batch axes beyond the
+            # data axes, over which a dense leaf's gradient is summed.
+            for axes in (MOE_DATA_AXES + ("sp",), ("ep", "sp")):
+                self._groups[axes] = self._new_groups(axes)
         self._groups[self.axes] = dist.group.WORLD
         return self
 
@@ -357,11 +362,11 @@ def data_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
 
 def token_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
     """The axes a training mesh splits the tokens over: its data axes, and
-    sp on a dense mesh with sp > 1 (the reference's BATCH_SPEC). A leaf
+    sp on a dense or an MoE mesh with sp > 1 (the reference's BATCH_SPEC). A leaf
     whole over any of them has its gradient summed over it, and the loss
     is a mean over all of them."""
-    if mesh is not None and mesh.axes == MESH_AXES and mesh.shape["sp"] > 1:
-        return TOKEN_AXES
+    if mesh is not None and mesh.axes in (MESH_AXES, MOE_MESH_AXES) and mesh.shape["sp"] > 1:
+        return data_axes(mesh) + ("sp",)
     return data_axes(mesh)
 
 
@@ -433,14 +438,11 @@ def make_moe_mesh(dp: int = 1, fsdp: int = 1, ep: Optional[int] = None, tp: int 
 
 
 def validate_moe_mesh(cfg, mesh: Mesh) -> None:
-    """The port's conditions on an MoE mesh: sp is not ported for MoE (the
-    reference picks its routing groups from the global sequence, which a
-    rank's chunk does not see), the experts split into whole blocks over
-    ep, and every dense leaf into whole blocks as on a training mesh; tp
-    splits whole heads, the experts' hidden and the vocab."""
-    if mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"MoE with sp={mesh.shape['sp']} is not yet ported to PyTorch (ROADMAP item 14)")
+    """The port's conditions on an MoE mesh: the experts split into whole
+    blocks over ep, and every dense leaf into whole blocks as on a training
+    mesh; tp splits whole heads, the experts' hidden and the vocab. sp
+    splits the sequence, as on a dense mesh (``moe.moe_mlp`` keeps the
+    reference's routing groups of the global sequence)."""
     ep, data, tp = mesh.shape["ep"], mesh.axis_size(DATA_AXES), mesh.shape["tp"]
     for name, dim, n in (("n_experts", cfg.n_experts, ep), ("d_model", cfg.d_model, data),
                          ("d_ff", cfg.d_ff, tp), ("n_heads", cfg.n_heads, tp),

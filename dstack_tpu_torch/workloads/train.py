@@ -56,7 +56,8 @@ class OptimizerConfig:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(...)) as a recipe;
     ``build`` makes the AdamW over a parameter dict (torch's optimizer needs
     its tensors, optax's transformation does not). ``mu_dtype`` "bfloat16"
-    keeps the first moment in bf16, as optax's ``mu_dtype``."""
+    or "float16" keeps the first moment in that type, as optax's
+    ``mu_dtype``."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
@@ -70,9 +71,10 @@ class OptimizerConfig:
         # does here: p -= lr * (adam_update + wd * p); eps is optax's default.
         # The moments exist from the start, as optax's ``init`` makes them, so
         # a fresh state is a checkpoint template and a restore target.
-        if self.mu_dtype == "bfloat16":
-            return AdamWBf16Mu(list(params.values()), lr=self.learning_rate,
-                               betas=(self.b1, self.b2), eps=1e-8, weight_decay=self.weight_decay)
+        if self.mu_dtype is not None:
+            return AdamWLowMu(list(params.values()), lr=self.learning_rate,
+                              betas=(self.b1, self.b2), eps=1e-8, weight_decay=self.weight_decay,
+                              mu_dtype=model_lib.dtype_of(self.mu_dtype))
         opt = torch.optim.AdamW(list(params.values()), lr=self.learning_rate,
                                 betas=(self.b1, self.b2), eps=1e-8,
                                 weight_decay=self.weight_decay)
@@ -82,31 +84,34 @@ class OptimizerConfig:
         return opt
 
 
-class AdamWBf16Mu(torch.optim.Optimizer):
-    """optax.adamw(mu_dtype=bfloat16): the first moment is stored in bf16,
-    the second moment and the parameters in their own dtype (fp32).
+class AdamWLowMu(torch.optim.Optimizer):
+    """optax.adamw(mu_dtype=bfloat16 or float16): the first moment is stored
+    in that type, the second moment and the parameters in their own dtype
+    (fp32).
 
     Rounding follows the jitted optax update: ``mu = (1 - b1) * g + b1 *
-    mu_bf16`` in fp32, with b1 rounded to bf16 (JAX casts the Python float
-    to the moment's dtype) but the product not rounded (XLA drops the
-    bf16 round trip inside the fused update; eager optax would round it);
-    the update uses that fp32 mu, and mu is stored rounded to bf16. Then, in
-    fp32, ``p += -lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)`` with the
-    bias corrections ``1 - b**count`` computed in fp32. torch.optim.AdamW
-    keeps mu in the parameter dtype, hence this class."""
+    mu_low`` in fp32, with b1 rounded to the moment's type (JAX casts the
+    Python float to the moment's dtype); the product is rounded to fp16 but
+    not to bf16 (XLA drops the bf16 round trip inside the fused update;
+    eager optax would round it); the update uses that fp32 mu, and mu is
+    stored rounded to its type. Then, in fp32, ``p += -lr * (mu_hat /
+    (sqrt(nu_hat) + eps) + wd * p)`` with the bias corrections ``1 -
+    b**count`` computed in fp32. torch.optim.AdamW keeps mu in the
+    parameter dtype, hence this class."""
 
     def __init__(self, params, lr: float, betas: Tuple[float, float], eps: float,
-                 weight_decay: float):
+                 weight_decay: float, mu_dtype: torch.dtype = torch.bfloat16):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
         for group in self.param_groups:
             for p in group["params"]:
-                self.state[p].update(step=0, mu=torch.zeros_like(p, dtype=torch.bfloat16),
+                self.state[p].update(step=0, mu=torch.zeros_like(p, dtype=mu_dtype),
                                      nu=torch.zeros_like(p, dtype=torch.float32))
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
-            raise ValueError("AdamWBf16Mu.step takes no closure")
+            raise ValueError("AdamWLowMu.step takes no closure")
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -119,10 +124,13 @@ class AdamWBf16Mu(torch.optim.Optimizer):
             count = states[0]["step"] + 1
             for st in states:
                 st["step"] = count
-            b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16).item()
+            b1_low = torch.tensor(b1, dtype=self.mu_dtype).item()
             mu = torch._foreach_mul(grads, 1.0 - b1)
             decayed = [m.float() for m in mus]
-            torch._foreach_mul_(decayed, b1_bf16)
+            torch._foreach_mul_(decayed, b1_low)
+            if self.mu_dtype == torch.float16:
+                # XLA keeps fp16's product rounded (it drops bf16's).
+                decayed = [x.to(torch.float16).float() for x in decayed]
             torch._foreach_add_(mu, decayed)
             del decayed
             torch._foreach_mul_(nus, b2)
@@ -146,6 +154,13 @@ class AdamWBf16Mu(torch.optim.Optimizer):
         return None
 
 
+# The bf16 first moment's optimizer, by the name it had before fp16 joined.
+AdamWBf16Mu = AdamWLowMu
+
+# The floating first-moment dtypes optax takes; float64 is fp32 without x64.
+_MU_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
 def make_optimizer(
     learning_rate: float = 3e-4,
     weight_decay: float = 0.1,
@@ -154,15 +169,14 @@ def make_optimizer(
     grad_clip: float = 1.0,
     mu_dtype: Optional[str] = None,
 ) -> OptimizerConfig:
-    """AdamW with global-norm clipping. ``mu_dtype="bfloat16"`` stores the
-    first moment in bf16 (half its memory; the second moment and the master
-    parameters stay fp32)."""
-    if mu_dtype not in (None, "float32", "bfloat16"):
-        raise NotImplementedError(
-            f"mu_dtype={mu_dtype} is not yet ported to PyTorch (float32 and bfloat16 are)"
-        )
+    """AdamW with global-norm clipping. ``mu_dtype="bfloat16"`` (or
+    "float16") stores the first moment in that type (half its memory; the
+    second moment and the master parameters stay fp32). "float64" is fp32,
+    as in JAX without x64."""
+    if mu_dtype not in (None,) + _MU_DTYPES:
+        raise ValueError(f"mu_dtype={mu_dtype}: expected one of {_MU_DTYPES}")
     return OptimizerConfig(learning_rate, weight_decay, b1, b2, grad_clip,
-                           None if mu_dtype == "float32" else mu_dtype)
+                           None if mu_dtype in ("float32", "float64") else mu_dtype)
 
 
 @dataclasses.dataclass
@@ -345,16 +359,20 @@ class DraftTrainState:
     step: int = 0
 
 
-def make_draft_distill_step(cfg: LlamaConfig, optimizer: OptimizerConfig, rollout: int = 2):
+def make_draft_distill_step(cfg: LlamaConfig, optimizer: OptimizerConfig, rollout: int = 2,
+                            mesh: Optional[sharding.Mesh] = None):
     """Returns (state: DraftTrainState, tokens) -> (state, loss): one
     distillation update. The frozen target's forward gives the hidden states
     and argmax labels (model.draft_distill_loss); gradients reach
-    ``state.draft`` only. The target tree is shared, never copied."""
+    ``state.draft`` only. The target tree is shared, never copied. Under
+    ``mesh`` the target is this rank's pieces, ``tokens`` its rows, and the
+    draft whole on every rank: its gradients are those of the global mean
+    loss (summed over the data axes), so every rank takes the same update."""
 
     def step(state: DraftTrainState, tokens: torch.Tensor):
         loss, grads = value_and_grad(
             lambda draft: model_lib.draft_distill_loss(draft, state.params, tokens, cfg,
-                                                       rollout=rollout),
+                                                       rollout=rollout, mesh=mesh),
             state.draft,
         )
         _apply_update(state.opt, state.draft, grads, optimizer.grad_clip)
@@ -395,7 +413,7 @@ class DraftStateTree(NamedTuple):
 
 
 def _moment_keys(opt: torch.optim.Optimizer) -> Tuple[str, str]:
-    return ("mu", "nu") if isinstance(opt, AdamWBf16Mu) else ("exp_avg", "exp_avg_sq")
+    return ("mu", "nu") if isinstance(opt, AdamWLowMu) else ("exp_avg", "exp_avg_sq")
 
 
 def _trained(state) -> Params:
@@ -447,7 +465,7 @@ def load_state_tree(state, tree) -> None:
         st = state.opt.state[p]
         st[mu_key].copy_(adam.mu[k])
         st[nu_key].copy_(adam.nu[k])
-        st["step"] = count if isinstance(state.opt, AdamWBf16Mu) else torch.tensor(float(count))
+        st["step"] = count if isinstance(state.opt, AdamWLowMu) else torch.tensor(float(count))
     state.step = count if tree.step is None else int(tree.step)
 
 
@@ -595,12 +613,15 @@ def _timed_loop(steps: int, batch: int, seq: int, do_step,
     return stats
 
 
-def make_checkpoint_manager(args, telemetry, mesh: Optional[sharding.Mesh] = None):
+def make_checkpoint_manager(args, telemetry, mesh: Optional[sharding.Mesh] = None,
+                            whole_keys: Tuple[str, ...] = ()):
     """--checkpoint-dir -> a CheckpointManager (None when checkpointing is
-    off); under ``mesh`` one a rank, writing its own pieces."""
+    off); under ``mesh`` one a rank, writing its own pieces (the leaves
+    under ``whole_keys`` are whole on every rank)."""
     if not getattr(args, "checkpoint_dir", ""):
         return None
-    return checkpoint_lib.CheckpointManager(args.checkpoint_dir, telemetry=telemetry, mesh=mesh)
+    return checkpoint_lib.CheckpointManager(args.checkpoint_dir, telemetry=telemetry, mesh=mesh,
+                                            whole_keys=whole_keys)
 
 
 def maybe_resume(manager, resume: bool, state, telemetry):
@@ -657,8 +678,7 @@ def _chain(*hooks):
 
 def apply_perf_overrides(cfg: LlamaConfig, args) -> LlamaConfig:
     """--attn-impl / --quant / --attn-window / --tp-overlap / --fsdp-overlap
-    -> config fields (empty flag = keep the config default). --autotune is
-    not ported yet and is refused before this (``_unported``)."""
+    -> config fields (empty flag = keep the config default)."""
     reps = {}
     if args.attn_impl:
         reps["attn_impl"] = args.attn_impl
@@ -760,12 +780,21 @@ def train(
             ckpt.close()
 
 
-def _restore_target(ckpt, step: int, cfg: LlamaConfig, device: torch.device) -> Tuple[Params, dict]:
+def _restore_target(ckpt, step: int, cfg: LlamaConfig, device: torch.device,
+                    mesh: Optional[sharding.Mesh] = None) -> Tuple[Params, dict]:
     """The ``.params`` subtree of checkpoint ``step`` at cfg's shapes and
     param dtype on ``device``: a TrainState and a DraftTrainState both
-    hold it, and so does a params-only tree."""
+    hold it, and so does a params-only tree. Under ``mesh``: this rank's
+    pieces."""
     dtype = model_lib.dtype_of(cfg.param_dtype)
-    template = {k: checkpoint_lib.LeafSpec(shape, dtype, device)
+    specs = sharding.param_specs(mesh)
+
+    def local(name, shape):
+        if mesh is None:
+            return shape
+        return tuple(s.stop - s.start for s in sharding.local_slices(specs[name], shape, mesh))
+
+    template = {k: checkpoint_lib.LeafSpec(local(k, shape), dtype, device)
                 for k, shape in model_lib.param_shapes(cfg).items()}
     return ckpt.restore_subtree(template, step=step, prefix=".params")
 
@@ -789,8 +818,14 @@ def distill(
     draft_ff: int = 0,
     draft_lr: float = 1e-3,
     rollout: int = 2,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> Dict[str, float]:
     """Distill the draft head against the frozen target (--draft-head).
+    Under a connected ``mesh`` this process is one rank of the training
+    mesh: the target's pieces (restored as this rank's regions of a mesh or
+    a meshless checkpoint), its rows of each batch, and the whole draft head
+    and its optimizer state, which every rank updates alike; a checkpoint
+    keeps JAX's layout (``.params`` cut by the mesh, ``.draft`` whole).
 
     The target is the latest checkpoint's ``.params`` in ``ckpt`` when there
     is one (a TrainState or an earlier DraftTrainState), else the synthetic
@@ -810,12 +845,12 @@ def distill(
             leaf["key"].startswith(".draft") for leaf in ckpt.read_manifest(latest)["leaves"]
         )
         if latest is not None and not resume_full:
-            target, manifest = _restore_target(ckpt, latest, cfg, device)
+            target, manifest = _restore_target(ckpt, latest, cfg, device, mesh)
             base_step = int(manifest["step"])
             print(f"draft-head: frozen target from checkpoint step {base_step}", flush=True)
         else:
             target = model_lib.init_params(
-                cfg, torch.Generator(device=device).manual_seed(0), device)
+                cfg, torch.Generator(device=device).manual_seed(0), device, mesh=mesh)
         draft = model_lib.init_draft_params(
             cfg, torch.Generator(device=device).manual_seed(1), device,
             n_layers=draft_layers, d_ff=draft_ff,
@@ -832,11 +867,14 @@ def distill(
             base_step = int(manifest["step"]) - start_step
             print(f"resumed draft head at draft step {start_step}"
                   f" (checkpoint step {manifest['step']})", flush=True)
-        step_fn = make_draft_distill_step(cfg, optimizer, rollout=rollout)
+        step_fn = make_draft_distill_step(cfg, optimizer, rollout=rollout, mesh=mesh)
+        shards = {} if mesh is None else dict(data_index=mesh.index(DATA_AXES),
+                                              data_shards=mesh.axis_size(DATA_AXES))
         feed = data_lib.input_pipeline(
             batch, seq, cfg.vocab_size, data_path=data_path, prefetch=prefetch,
-            device=device, start_batch=start_step,
+            device=device, start_batch=start_step, **shards,
         )
+        mesh_shape = dict(mesh.shape) if mesh is not None else None
         box = {"state": state}
         feed_wait = {"s": 0.0}
 
@@ -850,14 +888,17 @@ def distill(
         def save_every(step: int, loss) -> None:
             if ckpt is not None and checkpoint_every and step % checkpoint_every == 0 \
                     and step < steps:
-                ckpt.save(base_step + step, state_tree(box["state"]), data_offset=step)
+                ckpt.save(base_step + step, state_tree(box["state"]), data_offset=step,
+                          mesh_shape=mesh_shape)
 
         stats = _timed_loop(steps, batch, seq, do_step, telemetry=telemetry,
                             step_extras=lambda: {"input_wait_s": round(feed_wait["s"], 6)},
                             start_step=start_step, on_step=_chain(on_step, save_every),
-                            device=device)
+                            device=device, fence=make_collective_fence(mesh),
+                            devices=mesh.size if mesh is not None else 1)
         if ckpt is not None:
-            ckpt.save(base_step + steps, state_tree(box["state"]), data_offset=steps, block=True)
+            ckpt.save(base_step + steps, state_tree(box["state"]), data_offset=steps,
+                      mesh_shape=mesh_shape, block=True)
             print(f"draft head saved at checkpoint step {base_step + steps} (.draft subtree)",
                   flush=True)
         return stats
@@ -868,18 +909,45 @@ def distill(
             ckpt.close()
 
 
-def _unported(args) -> Optional[str]:
-    """The first flag of the JAX entry point that the port does not have
-    yet, with its ROADMAP item."""
-    checks = (
-        (args.draft_head and (args.tp > 1 or args.tp_overlap or args.fsdp_overlap),
-         "--draft-head on a mesh (--tp/--tp-overlap/--fsdp-overlap)", 6),
-        (args.autotune, "--autotune", 10),
-    )
-    for hit, what, item in checks:
-        if hit:
-            return f"{what} is not yet ported to PyTorch (ROADMAP item {item})"
-    return None
+def autotune_attention(cfg: LlamaConfig, seq: int, device: torch.device,
+                       mesh: Optional[sharding.Mesh] = None) -> Optional[Dict]:
+    """--autotune: sweep the flash or splash kernels' tile pairs before the
+    first step and persist the winner, which the kernels then read for this
+    card, head dim and length. JAX probes with a (1, seq, 1, head_dim) fp32
+    normal; on the card fp32 runs the CUDA-core kernels, which take no tile,
+    so the probe here is the step's own: the config's activation dtype, its
+    query and KV heads, batch 1, from a seeded generator, under its window.
+    On a mesh rank 0 tunes and writes the cache and broadcasts the pair, so
+    every rank runs the same tiles. Prints JAX's line; None when the
+    attention core has no tiles."""
+    from dstack_tpu_torch.workloads.kernels import autotune
+
+    if cfg.attn_impl not in ("flash", "splash"):
+        return None
+    report = None
+    if mesh is None or mesh.rank == 0:
+        gen = torch.Generator(device=device).manual_seed(0)
+        adt = model_lib.dtype_of(cfg.dtype)
+        q = torch.randn((1, seq, cfg.n_heads, cfg.head_dim), generator=gen, device=device)
+        kv = torch.randn((2, 1, seq, cfg.n_kv_heads, cfg.head_dim), generator=gen, device=device)
+        report = autotune.tune(cfg.attn_impl, q.to(adt), kv[0].to(adt), kv[1].to(adt),
+                               causal=True, window=cfg.attn_window)
+        del q, kv
+    if mesh is not None:
+        from dstack_tpu_torch.workloads.kernels import collective
+
+        pair = torch.tensor(report["blocks"] if report else (0, 0), dtype=torch.int64,
+                            device=device)
+        collective.broadcast(pair, 0, None)
+        if report is None:
+            report = {"kernel": cfg.attn_impl, "gen": autotune.generation_of(device),
+                      "head_dim": cfg.head_dim, "seq": seq,
+                      "blocks": tuple(int(b) for b in pair.tolist()), "sweep": {}}
+            autotune.remember(cfg.attn_impl, cfg.head_dim, seq, report["blocks"],
+                              gen=report["gen"])
+    print(f"autotune: {report['kernel']} gen={report['gen']} head_dim={report['head_dim']}"
+          f" seq={report['seq']} -> blocks={report['blocks']}", flush=True)
+    return report
 
 
 def build_mesh(args, device: torch.device) -> Tuple[sharding.Mesh, Optional[sharding.Mesh]]:
@@ -929,7 +997,7 @@ def _moe_main(args, device: torch.device) -> Dict[str, float]:
     if args.remat_policy:
         cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
     cfg = apply_perf_overrides(cfg, args)
-    model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
+    model_lib.remat_policy_of(cfg)  # an unknown policy raises before the first step
     rank_device = sharding.init_distributed(device)
     n = dist.get_world_size() if rank_device is not None else 1
     ep = args.ep or math.gcd(n, cfg.n_experts)
@@ -1062,9 +1130,10 @@ def main(argv=None) -> Dict[str, float]:
                              " shards rotate around dp*fsdp, each hop hiding under"
                              " the previous chunk's product (requires dp*fsdp > 1"
                              " and d_model divisible by it)")
-    # A flag of the JAX entry point that the port does not have yet: it
-    # parses, then raises naming its ROADMAP item.
-    parser.add_argument("--autotune", action="store_true")
+    parser.add_argument("--autotune", action="store_true",
+                        help="sweep the flash/splash kernels' (block_q, block_kv)"
+                             " tile pairs before the first step and persist the"
+                             " winner (DSTACK_TPU_AUTOTUNE_DIR)")
     args = parser.parse_args(argv)
     if args.checkpoint_every and not args.checkpoint_dir:
         raise SystemExit("--checkpoint-every requires --checkpoint-dir")
@@ -1072,9 +1141,6 @@ def main(argv=None) -> Dict[str, float]:
     if is_moe and args.draft_head:
         raise SystemExit("--draft-head supports dense configs only")
 
-    missing = _unported(args)
-    if missing:
-        raise NotImplementedError(missing)
     device = platform.resolve_device(args.device)
     if device.type == "cuda":
         platform.set_reference_matmul_precision()
@@ -1096,27 +1162,27 @@ def _main(args, layout: sharding.Mesh, mesh: Optional[sharding.Mesh],
     telemetry = telemetry_lib.get_emitter()
     telemetry.set_identity(proc=dist.get_rank() if mesh is not None else 0)
     if args.draft_head:
-        if layout.size > 1:
-            raise NotImplementedError(
-                "--draft-head on a mesh (more than one rank) is not yet ported to PyTorch"
-                " (ROADMAP item 6: the draft head waits for the serve mesh)")
         cfg = apply_perf_overrides(get_config(args.config), args)
-        batch = args.batch or 2
+        batch = args.batch or 2 * layout.axis_size(DATA_AXES)
         seq = args.seq or cfg.max_seq_len
-        validate_config(cfg, seq=seq, device=device)
-        print(f"draft-head distillation: config={args.config} device={device} batch={batch}"
-              f" seq={seq} layers={args.draft_layers} rollout={args.draft_rollout}"
-              f" lr={args.draft_lr}", flush=True)
-        telemetry.mark("run_start", workload="train_draft", config=args.config, devices=1,
-                       batch=batch, seq=seq)
+        validate_config(cfg, seq=seq, device=device, mesh=layout, batch=batch)
+        print(f"draft-head distillation: config={args.config} device={device}"
+              f" devices={layout.size} mesh={layout.shape} batch={batch} seq={seq}"
+              f" layers={args.draft_layers} rollout={args.draft_rollout} lr={args.draft_lr}",
+              flush=True)
+        telemetry.mark("run_start", workload="train_draft", config=args.config,
+                       devices=layout.size, batch=batch, seq=seq)
         try:
+            # The draft head and its optimizer state are whole on every rank.
+            ckpt = make_checkpoint_manager(args, telemetry, mesh,
+                                           whole_keys=(".draft", ".opt_state"))
             return distill(cfg, steps=args.steps, batch=batch, seq=seq, device=device,
                            prefetch=args.prefetch, data_path=args.data or None,
                            telemetry=telemetry, mu_dtype=args.mu_dtype or None,
-                           ckpt=make_checkpoint_manager(args, telemetry),
-                           checkpoint_every=args.checkpoint_every, resume=args.resume,
-                           draft_layers=args.draft_layers, draft_ff=args.draft_ff,
-                           draft_lr=args.draft_lr, rollout=args.draft_rollout)
+                           ckpt=ckpt, checkpoint_every=args.checkpoint_every,
+                           resume=args.resume, draft_layers=args.draft_layers,
+                           draft_ff=args.draft_ff, draft_lr=args.draft_lr,
+                           rollout=args.draft_rollout, mesh=mesh)
         finally:
             telemetry.close()
 
@@ -1124,7 +1190,7 @@ def _main(args, layout: sharding.Mesh, mesh: Optional[sharding.Mesh],
     if args.remat_policy:
         cfg = dataclasses.replace(cfg, remat=True, remat_policy=args.remat_policy)
     cfg = apply_perf_overrides(cfg, args)
-    model_lib.remat_policy_of(cfg)  # an unported policy raises before the first step
+    model_lib.remat_policy_of(cfg)  # an unknown policy raises before the first step
     data_shards = layout.axis_size(DATA_AXES)
     # Each MICROBATCH keeps 2 rows per data shard by default (an explicit
     # --batch must divide accordingly).
@@ -1132,6 +1198,8 @@ def _main(args, layout: sharding.Mesh, mesh: Optional[sharding.Mesh],
     seq = args.seq or cfg.max_seq_len
     validate_config(cfg, seq=seq, device=device, mesh=layout,
                     batch=batch // max(args.grad_accum, 1))
+    if args.autotune:
+        autotune_attention(cfg, seq, device, mesh)
 
     print(f"config={args.config} device={device} devices={layout.size}"
           f" mesh={layout.shape} batch={batch} seq={seq} "

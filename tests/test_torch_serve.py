@@ -429,7 +429,7 @@ def test_the_port_imports_nothing_of_jax():
         "import dstack_tpu_torch.workloads.checkpoint, dstack_tpu_torch.workloads.model\n"
         "import dstack_tpu_torch.workloads.sharding, dstack_tpu_torch.workloads.kernels.collective\n"
         "import dstack_tpu_torch.workloads.moe, dstack_tpu_torch.workloads.pipeline\n"
-        "import dstack_tpu_torch.dryrun\n"
+        "import dstack_tpu_torch.dryrun, dstack_tpu_torch.workloads.kernels.autotune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dstack_tpu' or m.startswith('dstack_tpu.')]\n"
         "print(bad)\n"

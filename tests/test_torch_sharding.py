@@ -177,11 +177,17 @@ def test_validate_config_takes_the_examples_mesh_and_refuses_uneven_shards():
 
 
 def test_moe_under_sp_still_raises_naming_item_14():
+    """MoE under sp validates (the name is the one this test had while the
+    port refused it, naming ROADMAP item 14); its sequence must split into
+    whole chunks, and the mesh into the reference's sizes."""
     from dstack_tpu_torch.workloads.moe import MOE_PRESETS
 
-    with pytest.raises(NotImplementedError, match="MoE with sp=2 .*ROADMAP item 14"):
-        tvalidate(MOE_PRESETS["moe_test"], seq=64,
+    tvalidate(MOE_PRESETS["moe_test"], seq=64, mesh=sharding.make_moe_mesh(ep=2, sp=2, world=4))
+    with pytest.raises(ValueError, match="seq=63 does not split into sp=2"):
+        tvalidate(MOE_PRESETS["moe_test"], seq=63,
                   mesh=sharding.make_moe_mesh(ep=2, sp=2, world=4))
+    with pytest.raises(ValueError, match="not divisible by dp\\*fsdp\\*tp\\*sp=3"):
+        sharding.make_moe_mesh(sp=3, world=4)
     # MoE under tp validates (its dims split over tp).
     tvalidate(MOE_PRESETS["moe_test"], seq=64, mesh=sharding.make_moe_mesh(ep=2, tp=2, world=4))
 

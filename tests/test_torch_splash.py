@@ -434,11 +434,13 @@ def test_tensor_core_kernels_exist_only_at_bf16_d32_64_128():
                                ("DqArgs", "splash_bwd_dq", "dq_mma_body"),
                                ("DkvArgs", "splash_bwd_dkv", "dkv_mma_body")):
         assert "if constexpr (TensorCore<T, D>::value)" in args[name], name
-        assert f"{kernel}_mma_kernel<D, DOCS>" in args[name], name
+        # The tensor-core kernels take the menu pair's tile as a third
+        # template argument (the tile menu, kernels/flash.py TILE_MENU).
+        assert f"{kernel}_mma_kernel<D, DOCS, " in args[name], name
         assert f"{kernel}_kernel<T, D>" in args[name], name
-        assert re.search(rf"{kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D>", src), name
+        assert re.search(rf"{kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D, \w+>", src), name
         flash_kernel = kernel.replace("splash", "flash")
-        assert re.search(rf"{flash_kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D>",
+        assert re.search(rf"{flash_kernel}_mma_kernel\([^{{]*\{{\s*attn_mma::{body}<D, \w+>",
                          flash_src), name
 
 

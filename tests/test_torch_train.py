@@ -265,8 +265,34 @@ def test_clip_matches_optax(scale):
 
 
 def test_unported_optimizer_options_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.make_optimizer(mu_dtype="float16")
+    """mu_dtype=float16, once refused (the name is the one this test had
+    then), against jax.jit of optax's update for 3 steps: the fp16 first
+    moment bit for bit, the fp32 second moment and the parameters within
+    1e-6. The accumulation and data-shard checks still raise."""
+    rng = np.random.RandomState(7)
+    params = [rng.randn(6, 5).astype(np.float32), rng.randn(9).astype(np.float32)]
+    grads = [[rng.randn(*p.shape).astype(np.float32) * s for p in params] for s in (3.0, 0.1, 1.0)]
+    optimizer = ttrain.make_optimizer(mu_dtype="float16")
+    tx = optax.adamw(optimizer.learning_rate, b1=optimizer.b1, b2=optimizer.b2,
+                     weight_decay=optimizer.weight_decay, mu_dtype=jnp.float16)
+    jp = [jnp.asarray(p) for p in params]
+    opt_state = tx.init(jp)
+    update = jax.jit(tx.update)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    opt = optimizer.build(dict(enumerate(tp)))
+    for g in grads:
+        updates, opt_state = update([jnp.asarray(x) for x in g], opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x.copy())
+        opt.step()
+    for p, w, mu, nu in zip(tp, jp, opt_state[0].mu, opt_state[0].nu):
+        state = opt.state[p]
+        assert state["mu"].dtype == torch.float16
+        np.testing.assert_array_equal(state["mu"].view(torch.int16).numpy(),
+                                      np.asarray(mu).view(np.int16))
+        np.testing.assert_allclose(state["nu"].numpy(), np.asarray(nu), atol=1e-6)
+        np.testing.assert_allclose(p.numpy(), np.asarray(w), atol=1e-6)
     with pytest.raises(ValueError, match="grad_accum"):
         ttrain.make_train_step(cfgs()[1], ttrain.make_optimizer(), grad_accum=0)
     with pytest.raises(ValueError, match="data shards"):
@@ -353,31 +379,35 @@ def test_main_without_a_device_means_cuda_and_raises_without_it(monkeypatch):
         ttrain.main(["--config", "test", "--steps", "1"])
 
 
-@pytest.mark.parametrize(
-    "argv",
-    # --tp runs since the training mesh was ported, the MoE presets and
-    # --ep since the MoE branch was (test_ported_flags_run_on_the_cpu).
-    [["--autotune"], ["--remat-policy", "save_proj"], ["--draft-head", "--tp", "2"]],
-    ids=lambda a: a[-1] if len(a) == 1 else a[0].lstrip("-"),
-)
-def test_unported_flags_raise_naming_their_item(argv):
-    with pytest.raises(NotImplementedError, match=r"not yet ported .*ROADMAP item \d+"):
-        ttrain.main(["--device", "cpu", "--steps", "1", *argv])
-
-
-@pytest.mark.parametrize("flag", ["quant", "checkpoint-dir", "draft-head", "moe_test", "ep"])
-def test_ported_flags_run_on_the_cpu(flag, tmp_path):
-    """The flags that once raised naming ROADMAP items 3b, 4, 8 and 9 run:
-    int8 training, a checkpointed run (which leaves its final step), the
-    draft head's distillation (which saves a DraftTrainState), the MoE
-    preset, and --ep on a dense config, which the reference ignores."""
+@pytest.mark.parametrize("flag", ["quant", "checkpoint-dir", "draft-head", "moe_test", "ep",
+                                  "autotune", "save_proj", "splash-autotune"])
+def test_ported_flags_run_on_the_cpu(flag, tmp_path, monkeypatch, capsys):
+    """The flags that once raised naming ROADMAP items 3b, 4, 8, 9, 10 and
+    12 run: int8 training, a checkpointed run (which leaves its final step),
+    the draft head's distillation (which saves a DraftTrainState), the MoE
+    preset, --ep on a dense config, which the reference ignores, --autotune
+    (on the CPU it sweeps the plain versions over the blocks that divide,
+    persists the winner and prints the reference's line) for flash and for
+    splash, and the save_proj remat policy. (--draft-head on a mesh runs in
+    tests/test_torch_mesh_last.py.)"""
+    monkeypatch.setenv("DSTACK_TPU_AUTOTUNE_DIR", str(tmp_path / "autotune"))
     argv = {"quant": ["--quant", "int8"],
             "checkpoint-dir": ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "1"],
             "draft-head": ["--draft-head", "--checkpoint-dir", str(tmp_path)],
             "moe_test": ["--config", "moe_test"],
-            "ep": ["--ep", "2"]}[flag]
+            "ep": ["--ep", "2"],
+            "autotune": ["--attn-impl", "flash", "--autotune"],
+            "save_proj": ["--remat-policy", "save_proj"],
+            "splash-autotune": ["--attn-impl", "splash", "--attn-window", "16",
+                                "--autotune"]}[flag]
     stats = ttrain.main(["--device", "cpu", "--config", "test", "--seq", "32", "--steps", "2",
                          *argv])
+    if flag.endswith("autotune"):
+        kernel = "splash" if flag.startswith("splash") else "flash"
+        line = f"autotune: {kernel} gen=cpu head_dim=32 seq=32 -> blocks=("
+        assert line in capsys.readouterr().out
+        cache = json.loads((tmp_path / "autotune" / "blocks.json").read_text())
+        assert list(cache) == [f"{kernel}|cpu|32|32"]
     assert stats["compile_s"] > 0 and stats["tokens_per_sec"] > 0
     if flag == "moe_test":
         assert "mfu" not in stats and "tf_per_sec" not in stats

@@ -389,6 +389,62 @@ def step_sync(message):
 
 
 @task
+def main_losses(argv, presets=None):
+    """``train.main(argv)`` on this rank (or meshless, in a process without
+    a group) with the named presets' fields replaced by ``presets``
+    ({name: overrides}, put back after): the loss of each step it ran and
+    its stats."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.workloads import config, moe, train
+
+    tables = {name: moe.MOE_PRESETS if name in moe.MOE_PRESETS else config.PRESETS
+              for name in presets or {}}
+    saved = {name: table[name] for name, table in tables.items()}
+    inner = {fn: getattr(train, fn) for fn in ("train", "distill")}
+    losses = []
+
+    def recording(fn):
+        def run(*args, **kwargs):
+            return inner[fn](*args, on_step=lambda step, loss: losses.append(float(loss)),
+                             **kwargs)
+        return run
+
+    try:
+        for name, table in tables.items():
+            table[name] = dataclasses.replace(table[name], **presets[name])
+        for fn in inner:
+            setattr(train, fn, recording(fn))
+        stats = train.main(argv)
+    finally:
+        for fn, f in inner.items():
+            setattr(train, fn, f)
+        for name, table in tables.items():
+            table[name] = saved[name]
+    if dist.is_initialized():
+        # Every rank's checkpoint shard is written before the next task reads it.
+        dist.barrier()
+    return dict(losses=losses, stats=stats)
+
+
+@task
+def moe_aux(shape, cfg_kw, params, tokens):
+    """The global aux loss of the MoE forward on the MoE mesh of ``shape``
+    from the global ``params`` on this rank's part of ``tokens``."""
+    from dstack_tpu_torch.workloads import moe, sharding, train
+
+    mesh = sharding.make_moe_mesh(**shape).connect(CPU)
+    cfg = moe.MoeConfig(**cfg_kw)
+    local = moe.shard_moe_params({k: torch.from_numpy(v) for k, v in params.items()}, mesh)
+    tokens, _ = train.local_batch(tokens, tokens, mesh)
+    with torch.no_grad():
+        _, aux = moe.forward(local, torch.from_numpy(tokens), cfg, mesh)
+    return dict(aux=aux.item())
+
+
+@task
 def main(argv):
     """``train.main(argv)`` on this rank (the group is already up)."""
     from dstack_tpu_torch.workloads import train
