@@ -279,11 +279,14 @@ def test_runner_emits_the_jax_runners_engine_point(jax_params, torch_params):
                 JTINY if serve is jserve else TTINY, serve.EngineConfig(**ecfg), **kwargs
             )
             runner = serve.EngineRunner(engine)
+            # Emit only where the test asks, however long a step takes on a
+            # loaded host: a point at the first step of each request.
+            runner._telemetry_interval = float("inf")
             for prompt in (REPEATS[0], REPEATS[0]):
+                runner._last_telemetry = float("-inf")  # the next step emits a point
                 runner.submit(prompt, 6, lambda ev: None)
                 while engine.has_work():
                     runner.step_once()
-                runner._last_telemetry = 0.0  # the next step emits a point
         finally:
             telemetry.configure(prev)
         points.append(recorder.points)
