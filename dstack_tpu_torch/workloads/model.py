@@ -457,12 +457,104 @@ def _tp_input(x: torch.Tensor, mesh: Optional[sharding.Mesh]) -> torch.Tensor:
     return reduce_backward(x, mesh, "tp") if _tp(mesh) > 1 else x
 
 
+def split_bf16(g: torch.Tensor) -> torch.Tensor:
+    """fp32 ``g [M, N]`` -> ``[3M, N]`` bf16: the planes hi = bf16(g),
+    mid = bf16(g - hi) and lo = bf16(g - hi - mid), stacked. Each difference
+    is exact in fp32 and each rounding to nearest leaves at most 16, then 8
+    significant bits, so hi + mid + lo == g exactly (bf16 has fp32's exponent
+    range): the split of P and dS in the attention kernels."""
+    terms = torch.empty((3,) + g.shape, dtype=torch.bfloat16, device=g.device)
+    terms[0] = g
+    rest = g - terms[0]
+    terms[1] = rest
+    rest -= terms[1]
+    terms[2] = rest
+    return terms.view(-1, g.shape[-1])
+
+
+# The card's tensor cores truncate each fp32 partial sum toward zero (ROADMAP,
+# Numerics), so a product's error grows with the length of its reduction:
+# over dX's K of 32000 a bf16 product with fp32 sums lay 6.3e-5 (of the
+# largest entry) from fp64 sums, the upcast SIMT product 5.9e-6. Reductions
+# are cut into runs of at most K_RUN, whose fp32 results are summed in fp32.
+K_RUN = 2048
+
+
+def fp32_runs_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` -> fp32 (``quantize.fp32_product``), K cut
+    into equal runs of at most K_RUN (a multiple of 8 elements, so each run
+    starts 16-byte aligned), their results summed in fp32."""
+    k = a.shape[-1]
+    runs = -(-k // K_RUN)
+    step = -(-k // runs // 8) * 8 if runs > 1 else k
+    out = quant_lib.fp32_product(a[:, :step], b[:step])
+    for k0 in range(step, k, step):
+        out += quant_lib.fp32_product(a[:, k0:k0 + step], b[k0:k0 + step])
+    return out
+
+
+def lm_head_dx(terms: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    """fp32 ``g @ lm_headᵀ [M, D]`` from ``split_bf16(g)``: one product of
+    3M rows (``fp32_runs_product``), the three planes' results summed in
+    fp32."""
+    dx = fp32_runs_product(terms, lm_head.t())
+    return dx.view(3, -1, dx.shape[-1]).sum(0)
+
+
+def lm_head_dw(x2: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x2ᵀ @ g [D, V]`` from bf16 ``x2 [M, D]`` and ``split_bf16(g)``:
+    ``[x2; x2; x2]ᵀ @ [hi; mid; lo]``, one product over K = 3M
+    (``fp32_runs_product``)."""
+    return fp32_runs_product(x2.repeat(3, 1).t(), terms)
+
+
+class LmHeadProduct(torch.autograd.Function):
+    """``x [..., D] @ lm_head [D, V]`` on bf16 operands -> fp32 logits, the
+    JAX package's einsum with ``preferred_element_type=float32``.
+
+    Forward: one product with bf16 operands, fp32 sums and an fp32 output
+    (``fp32_runs_product``: tensor cores on the card; on the CPU the
+    operands are upcast, which gives the same exact products). Backward: the
+    fp32 cotangent is split into three bf16 planes (``split_bf16``), so dX
+    (``lm_head_dx``) and dW (``lm_head_dw``) see it whole. Only the casts of
+    dX and dW to the operands' dtype round, where the upcast product's
+    backward rounded them; no product yields bf16, so no split-K sum can run
+    in bf16. Saves the two bf16 operands and no fp32 copy of the lm_head.
+    ``products`` counts the products taken, forward and backward."""
+
+    products = 0
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, lm_head)
+        LmHeadProduct.products += 1
+        logits = fp32_runs_product(x.reshape(-1, x.shape[-1]), lm_head)
+        return logits.view(*x.shape[:-1], lm_head.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, lm_head = ctx.saved_tensors
+        terms = split_bf16(g.reshape(-1, g.shape[-1]))
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = lm_head_dx(terms, lm_head).to(x.dtype).view(x.shape)
+            LmHeadProduct.products += 1
+        if ctx.needs_input_grad[1]:
+            dw = lm_head_dw(x.reshape(-1, x.shape[-1]), terms).to(lm_head.dtype)
+            LmHeadProduct.products += 1
+        return dx, dw
+
+
 def _logits(x: torch.Tensor, lm_head: torch.Tensor, quant: str) -> torch.Tensor:
     if quant == "int8":
         return quant_lib.int8_matmul_ste(x, lm_head)
     # bf16 x bf16 products are exact in fp32: an fp32 product of the rounded
     # operands is the reference's dot with fp32 accumulation. Under fp8 the
-    # lm_head stays this fp product, as the reference's does.
+    # lm_head stays this fp product, as the reference's does. On bf16
+    # operands it runs on the tensor cores (LmHeadProduct); other dtypes
+    # (fp16 planes could not carry fp32's exponent range) upcast.
+    if x.dtype == lm_head.dtype == torch.bfloat16:
+        return LmHeadProduct.apply(x, lm_head)
     return x.float() @ lm_head.float()
 
 
